@@ -1,0 +1,410 @@
+"""Render-serving engine: one checkpoint, a few warm routes, any request.
+
+Port of ``nerf_replication_tpu/serve/engine.py``. The engine loads the
+checkpoint and the baked occupancy grid once and serves every request through
+shape buckets: a request pads with zero rays (the march's inert padding
+convention) into the smallest bucket that holds it. Per bucket a family of
+routes exists — ``full`` / ``bf16`` / ``reduced_k`` / ``coarse``
+(serve/policy.py's degradation ladder; ``half_res`` reuses ``coarse`` with
+host-side ray striding) — and all of them are warmed before the first request.
+
+Routes of this port slice (``task_arg.march_fused``):
+
+* ``full`` — the whole march in the K5 CUDA kernel, one launch per bucket
+  (the JAX engine maps the same body over ``march_chunk_size`` chunks; rays
+  are independent, so one launch gives the same per-ray results).
+* ``gather`` — the K4 CUDA traversal per chunk, then the plain
+  :class:`~..models.nerf.network.Network` on the valid slots and per-ray
+  compositing in PyTorch, as the JAX engine's stage (a).
+
+The staged routes (``march_fused: off``: the accelerated and packed
+marches) and the grid-less chunked volume route come with later port slices
+and raise :class:`NotImplementedError` here. Mesh, fleet, AOT and tracing
+are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from ..renderer.gate import check_baked_bounds
+from .cache import PoseCache
+from .policy import FAMILIES, TIER_IMPL
+
+
+@dataclass(frozen=True)
+class ServeOptions:
+    """Engine/batcher configuration (cfg.serve)."""
+
+    buckets: tuple[int, ...] = (4096, 16384)
+    max_batch_rays: int = 16384
+    max_delay_s: float = 0.005
+    request_timeout_s: float = 30.0
+    cache_entries: int = 64
+    pose_decimals: int = 3
+    warmup: bool = True
+    shed_queue_depths: tuple[int, ...] = (4, 8, 16, 32)
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "ServeOptions":
+        s = cfg.get("serve", {})
+        return cls(
+            buckets=tuple(int(b) for b in s.get("buckets", (4096, 16384))),
+            max_batch_rays=int(s.get("max_batch_rays", 16384)),
+            max_delay_s=float(s.get("max_delay_ms", 5.0)) / 1e3,
+            request_timeout_s=float(s.get("request_timeout_s", 30.0)),
+            cache_entries=int(s.get("cache_entries", 64)),
+            pose_decimals=int(s.get("pose_decimals", 3)),
+            warmup=bool(s.get("warmup", True)),
+            shed_queue_depths=tuple(
+                int(d) for d in s.get("shed_queue_depths", (4, 8, 16, 32))
+            ),
+        )
+
+
+def _normalize_buckets(buckets, chunk: int) -> tuple[int, ...]:
+    """Ascending unique bucket sizes, each a multiple of the render chunk."""
+    norm = {max(chunk, -(-int(b) // chunk) * chunk) for b in buckets}
+    return tuple(sorted(norm))
+
+
+_LATER_SLICE = (
+    "is not ported to PyTorch yet: this port slice serves the fused march "
+    "(task_arg.march_fused full|gather with march_coarse_block > 0); the "
+    "staged march and volume routes come with the packed-march eval slice"
+)
+
+
+class RenderEngine:
+    """Checkpoint-resident render server core (single caller; the
+    MicroBatcher's worker thread owns concurrent dispatch)."""
+
+    def __init__(self, cfg, network, near, far, grid=None, bbox=None,
+                 device="cuda", warmup_families: tuple[str, ...] | None = None):
+        from ..renderer.accelerated import MarchOptions
+        from ..utils.platform import resolve_device
+
+        self.device = resolve_device(device)
+        self.network = network.to(self.device).eval()
+        self.has_proposal = False  # the port has no learned-sampler branch
+        self.near = float(near)
+        self.far = float(far)
+        self.options = ServeOptions.from_cfg(cfg)
+        self.march_options = MarchOptions.eval_from_cfg(cfg)
+        if grid is None or bbox is None:
+            raise NotImplementedError(
+                f"serving without an occupancy grid (chunked volume route) "
+                f"{_LATER_SLICE}"
+            )
+        if self.march_options.march_fused not in ("full", "gather"):
+            raise NotImplementedError(
+                f"march_fused={self.march_options.march_fused!r} "
+                f"{_LATER_SLICE}"
+            )
+        self.use_grid = True
+        self.grid = torch.as_tensor(np.asarray(grid, bool)).to(
+            torch.int8).to(self.device).contiguous()
+        self.bbox = torch.as_tensor(np.asarray(bbox, np.float32)).to(
+            self.device)
+        self.chunk = self.march_options.chunk_size
+        self.buckets = _normalize_buckets(self.options.buckets, self.chunk)
+        self.cache = PoseCache(
+            capacity=self.options.cache_entries,
+            decimals=self.options.pose_decimals,
+        )
+        self._fns: dict[tuple[int, str], object] = {}
+        self.n_requests = 0
+        self.n_rays_rendered = 0
+        self.n_pad_rays = 0
+        self.n_truncated = 0
+        self.warmup_dispatches = 0
+        self.warmup_wall_s = 0.0
+        self.march_chunks = 0
+        self.march_candidates = 0.0
+        self.march_samples_out = 0.0
+        self.march_coarse_occ_sum = 0.0
+        self.march_overflow_sum = 0.0
+        self.default_camera: dict | None = None
+        if self.options.warmup:
+            self.warm_up(warmup_families)
+
+    # -- route construction --------------------------------------------------
+
+    def _families_for_params(self) -> tuple[str, ...]:
+        return tuple(f for f in FAMILIES if f != "proposal" or self.has_proposal)
+
+    def _family_march_options(self, family: str):
+        base = self.march_options
+        if family in ("full", "bf16"):
+            return base
+        return replace(base, max_samples=max(1, base.max_samples // 2))
+
+    def _family_network(self, family: str):
+        if family != "bf16":
+            return self.network
+        return self.network.clone(compute_dtype=torch.bfloat16)
+
+    def _build_fn(self, bucket: int, family: str):
+        """``fn(rays [bucket, 6] on device) -> dict of tensors`` with
+        per-chunk traversal stats ([bucket // chunk] each)."""
+        from ..ops.fused_march import (
+            FusedWeights,
+            compositing_tile,
+            march_rays_fused,
+            march_rays_fused_full,
+        )
+        from ..ops.fused_mlp import fused_spec_for
+
+        network = self._family_network(family)
+        near, far, chunk = self.near, self.far, self.chunk
+        model = "coarse" if family == "coarse" else "fine"
+        options = self._family_march_options(family)
+        grid, bbox = self.grid, self.bbox
+
+        if options.march_fused == "full":
+            spec = fused_spec_for(network)
+            weights = FusedWeights(spec, getattr(network, model))
+            k_tile = compositing_tile(options, chunk)
+            xyz_enc, dir_enc = network.xyz_encoder, network.dir_encoder
+
+            def fn(rays):
+                return march_rays_fused_full(
+                    weights, xyz_enc, dir_enc, rays, near, far, grid, bbox,
+                    options, k_tile=k_tile, stats_chunk=chunk,
+                )
+
+            return fn
+
+        def apply_fn(pts, viewdirs, _model):
+            return network(pts, viewdirs, model=model)
+
+        def fn(rays):
+            outs = [
+                march_rays_fused(apply_fn, rays[i:i + chunk], near, far,
+                                 grid, bbox, options)
+                for i in range(0, rays.shape[0], chunk)
+            ]
+            return {k: (torch.cat([o[k] for o in outs])
+                        if outs[0][k].dim() > 0
+                        else torch.stack([o[k] for o in outs]))
+                    for k in outs[0]}
+
+        return fn
+
+    def _get_fn(self, bucket: int, family: str):
+        key = (bucket, family)
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._build_fn(bucket, family)
+            self._fns[key] = fn
+        return fn
+
+    def warm_up(self, families: tuple[str, ...] | None = None) -> int:
+        """Build every (bucket, family) route and run it once on an
+        all-zero bucket (zero rays are inert padding). Builds the kernels on
+        first use and packs each family's weights; returns the dispatches."""
+        if families is None:
+            families = self._families_for_params()
+        t0 = time.perf_counter()
+        for bucket in self.buckets:
+            zeros = np.zeros((bucket, 6), np.float32)
+            for family in families:
+                self._render_bucket(zeros, bucket, family, warm=True)
+                self.warmup_dispatches += 1
+        self.warmup_wall_s += time.perf_counter() - t0
+        return self.warmup_dispatches
+
+    # -- rendering -----------------------------------------------------------
+
+    def _dispatch(self, rays_b: np.ndarray, bucket: int, family: str) -> dict:
+        """One route call on exactly ``bucket`` rays (already padded)."""
+        rays_t = torch.from_numpy(np.ascontiguousarray(rays_b)).to(
+            self.device)
+        with torch.inference_mode():
+            return self._get_fn(bucket, family)(rays_t)
+
+    def _render_bucket(self, rays: np.ndarray, bucket: int, family: str,
+                       warm: bool = False) -> dict:
+        n = rays.shape[0]
+        rays_b = np.pad(rays, ((0, bucket - n), (0, 0)))
+        out = dict(self._dispatch(rays_b, bucket, family))
+        stats = {k: out.pop(k).cpu().numpy() for k in (
+            "march_candidates", "march_samples_out", "march_coarse_occ",
+            "overflow_frac")}
+        out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
+        trunc = out.pop("truncated")
+        if not warm:
+            self.march_chunks += stats["march_candidates"].size
+            self.march_candidates += float(stats["march_candidates"].sum())
+            self.march_samples_out += float(stats["march_samples_out"].sum())
+            self.march_coarse_occ_sum += float(stats["march_coarse_occ"].sum())
+            self.march_overflow_sum += float(stats["overflow_frac"].sum())
+            self.n_truncated += int(np.sum(trunc))
+        return out
+
+    def bucket_for(self, n_rays: int) -> int:
+        """Smallest bucket holding ``n_rays`` (largest for oversize tails)."""
+        for b in self.buckets:
+            if n_rays <= b:
+                return b
+        return self.buckets[-1]
+
+    def render_flat(self, rays, family: str = "full") -> tuple[dict, dict]:
+        """Render a flat [N, 6] ray array through the bucketed routes;
+        returns ``(outputs, info)`` with host numpy [N, ...] outputs."""
+        if family == "proposal" and not self.has_proposal:
+            family = "reduced_k"
+        rays = np.asarray(rays, np.float32)
+        if rays.ndim != 2:
+            raise ValueError(f"rays must be [N, C], got shape {rays.shape}")
+        n = rays.shape[0]
+        largest = self.buckets[-1]
+        pieces, used = [], []
+        i = 0
+        while n - i > largest:
+            pieces.append(self._render_bucket(rays[i:i + largest], largest,
+                                              family))
+            used.append(largest)
+            i += largest
+        bucket = self.bucket_for(n - i)
+        pieces.append(self._render_bucket(rays[i:], bucket, family))
+        used.append(bucket)
+        out = pieces[0] if len(pieces) == 1 else {
+            k: np.concatenate([p[k] for p in pieces], axis=0)
+            for k in pieces[0]
+        }
+        bucket_rays = int(sum(used))
+        self.n_rays_rendered += n
+        self.n_pad_rays += bucket_rays - n
+        info = {
+            "n_rays": n,
+            "bucket_rays": bucket_rays,
+            "buckets": used,
+            "occupancy": n / bucket_rays if bucket_rays else 0.0,
+        }
+        return out, info
+
+    def render_request(self, rays, near, far, tier: str = "full") -> dict:
+        """Render one request at ``tier``; bounds must match the baked ones.
+        ``half_res`` renders every 2nd ray and repeats it back to [N, ...]."""
+        check_baked_bounds(self.near, self.far, near, far,
+                           surface="serve engine")
+        family, stride = TIER_IMPL[tier]
+        rays = np.asarray(rays, np.float32)
+        n = rays.shape[0]
+        out, _ = self.render_flat(rays[::stride], family)
+        if stride > 1:
+            out = {k: np.repeat(v, stride, axis=0)[:n] for k, v in out.items()}
+        self.n_requests += 1
+        out["tier"] = tier
+        return out
+
+    def render_view(self, c2w, H: int, W: int, focal: float,
+                    tier: str = "full", via=None) -> tuple[np.ndarray, dict]:
+        """Pose -> uint8 [H, W, 3] image through the pose LRU cache.
+        ``via(rays, near, far) -> out dict`` overrides the render path (the
+        HTTP entry passes the micro-batcher's submit)."""
+        from ..datasets.rays import get_rays_np
+
+        cache = self.cache
+        key = cache.key(c2w, H, W, focal)
+        cached = cache.get(key)
+        if cached is not None:
+            image, served_tier = cached
+            return image, {"tier": served_tier, "cache_hit": True}
+        rays_o, rays_d = get_rays_np(H, W, float(focal), np.asarray(c2w))
+        rays = np.concatenate([rays_o, rays_d], -1).reshape(-1, 6)
+        if via is not None:
+            out = via(rays, self.near, self.far)
+        else:
+            out = self.render_request(rays, self.near, self.far, tier=tier)
+        served_tier = out.get("tier", tier)
+        rgb = np.clip(np.asarray(out["rgb_map_f"]).reshape(H, W, 3), 0.0, 1.0)
+        image = (rgb * 255).astype(np.uint8)
+        cache.put(key, (image, served_tier))
+        return image, {"tier": served_tier, "cache_hit": False}
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> dict:
+        from ..ops.fused_march import LAUNCHES
+
+        march = None
+        if self.march_chunks:
+            march = {
+                "chunks": self.march_chunks,
+                "candidates_per_chunk": self.march_candidates / self.march_chunks,
+                "samples_out_per_chunk": self.march_samples_out / self.march_chunks,
+                "sweep_efficiency": (
+                    self.march_samples_out / max(self.march_candidates, 1.0)
+                ),
+                "coarse_occ_mean": self.march_coarse_occ_sum / self.march_chunks,
+                "overflow_mean": self.march_overflow_sum / self.march_chunks,
+            }
+        return {
+            "march": march,
+            "route": self.march_options.march_fused,
+            "device": str(self.device),
+            "kernel_launches": dict(LAUNCHES),
+            "buckets": list(self.buckets),
+            "chunk": self.chunk,
+            "use_grid": self.use_grid,
+            "near": self.near,
+            "far": self.far,
+            "n_requests": self.n_requests,
+            "n_rays_rendered": self.n_rays_rendered,
+            "n_pad_rays": self.n_pad_rays,
+            "n_truncated": self.n_truncated,
+            "warmup_dispatches": self.warmup_dispatches,
+            "warmup_wall_s": round(self.warmup_wall_s, 3),
+            "cache": self.cache.stats(),
+        }
+
+
+def engine_from_cfg(cfg, cfg_file: str | None = None,
+                    device="cuda") -> RenderEngine:
+    """Boot a serving engine from an experiment's config.
+
+    The grid comes from ``default_grid_path(cfg_file)`` (relative to the
+    working directory, as in the JAX package), the weights from the port's
+    checkpoint in ``cfg.trained_model_dir`` (else the seeded init, as
+    ``load_network`` leaves it), the camera from the test split's
+    ``transforms_test.json``."""
+    import os
+
+    from ..datasets import make_dataset
+    from ..models import init_params_for, make_network
+    from ..renderer.occupancy import default_grid_path, load_occupancy_pyramid
+    from ..train.checkpoint import load_network
+    from ..utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    if not bool(cfg.task_arg.get("accelerated_renderer", False)):
+        raise NotImplementedError(
+            f"task_arg.accelerated_renderer: false (chunked volume route) "
+            f"{_LATER_SLICE}"
+        )
+    path = default_grid_path(cfg_file or "config")
+    if not os.path.exists(path):
+        raise NotImplementedError(
+            f"occupancy grid not found at {path}; serving without a grid "
+            f"(chunked volume route) {_LATER_SLICE}"
+        )
+    levels, bbox = load_occupancy_pyramid(path)
+    network = make_network(cfg)
+    test_ds = make_dataset(cfg, "test")
+    gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    init_params_for(cfg)(network, gen)
+    epoch = load_network(cfg.trained_model_dir, network,
+                         epoch=int(cfg.test.get("epoch", -1)))
+    print(f"loaded network from {cfg.trained_model_dir} (epoch {epoch})")
+    engine = RenderEngine(cfg, network, near=test_ds.near, far=test_ds.far,
+                          grid=levels[0], bbox=bbox, device=dev)
+    engine.default_camera = {
+        "H": int(test_ds.H), "W": int(test_ds.W), "focal": float(test_ds.focal),
+    }
+    return engine
