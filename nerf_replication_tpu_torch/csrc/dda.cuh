@@ -24,8 +24,10 @@
 // package's), so every float operation of the position -> voxel chain is an
 // explicitly rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fmaf_rn),
 // which nvcc never contracts or reorders: t = fma(s, step_r, t0),
-// p = o + d * t (multiply, then add), u = (clip(p, lo, hi) - lo) / (hi - lo),
-// i = clamp(floor(u * R), 0, R - 1).
+// p = o + d * t (multiply, then add; one fma with clip_bbox, whose per-ray t
+// XLA contracts into the product), u = (clip(p, lo, hi) - lo) / (hi - lo),
+// i = clamp(floor(u * R), 0, R - 1); with clip_bbox, step_r = (t1 - t0) *
+// (1 / S), XLA's rewrite of the division.
 //
 // Bound on the card: the traversal touches 2 MiB + 32 KiB of int8 grid (L2
 // resident) and does ~(S + K_c*r) * 30 float ops per ray; K4 is bound by
@@ -78,7 +80,9 @@ __device__ __forceinline__ RayGeom ray_setup(const float* ray,
     const float t0 = fminf(fmaxf(tmin, st.t_near), st.t_far);
     const float t1 = fmaxf(fminf(fmaxf(tmax, st.t_near), st.t_far), t0);
     g.t0 = t0;
-    g.step_r = __fdiv_rn(__fsub_rn(t1, t0), static_cast<float>(st.n_steps));
+    // (t1 - t0) / S as XLA evaluates it: times the float32 reciprocal of S
+    g.step_r = __fmul_rn(__fsub_rn(t1, t0),
+                         __fdiv_rn(1.0f, static_cast<float>(st.n_steps)));
     span_ok = g.step_r > 0.0f;
   } else {
     g.t0 = st.t_near;
@@ -107,13 +111,16 @@ __device__ __forceinline__ int voxel_axis(float p, float lo, float hi,
   return min(max(i, 0), res - 1);
 }
 
-// voxel ids of o + d * t on a res^3 grid
+// voxel ids of o + d * t on a res^3 grid: multiply, then add — or, with
+// `fused` (march_clip_bbox, where XLA contracts the JAX expression for a
+// per-ray t), one fused multiply-add
 __device__ __forceinline__ void voxel_at(const RayGeom& g, float t,
                                          const float bb[6], int res,
-                                         int v[3]) {
+                                         bool fused, int v[3]) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float p = __fadd_rn(g.o[c], __fmul_rn(g.d[c], t));
+    const float p = fused ? __fmaf_rn(g.d[c], t, g.o[c])
+                          : __fadd_rn(g.o[c], __fmul_rn(g.d[c], t));
     v[c] = voxel_axis(p, bb[c], bb[3 + c], res);
   }
 }
@@ -194,7 +201,7 @@ __device__ void dda_cta(const float* __restrict__ rays, int nrays,
       const int s = blk * r + j;
       if (s >= st.n_steps) break;
       int v[3];
-      voxel_at(g, march_t(g, s), bb, R, v);
+      voxel_at(g, march_t(g, s), bb, R, st.clip != 0, v);
       if (coarse[((v[0] / fac) * rc + (v[1] / fac)) * rc + (v[2] / fac)] > 0) {
         atomicOr(&sh.blk_bits[ray * sh.bw + (blk >> 5)], 1u << (blk & 31));
         break;
@@ -229,7 +236,7 @@ __device__ void dda_cta(const float* __restrict__ rays, int nrays,
     const RayGeom& g = sh.geo[ray];
     const int s_f = (kept ? sh.kept[ray * st.k_c + i] : 0) * r + j;
     int v[3];
-    voxel_at(g, march_t(g, s_f), bb, R, v);
+    voxel_at(g, march_t(g, s_f), bb, R, st.clip != 0, v);
     const int flat = (v[0] * R + v[1]) * R + v[2];
     if (with_flat) sh.flat[ray * c_total + idx] = flat;
     if (kept && s_f < st.n_steps && grid[flat] > 0)

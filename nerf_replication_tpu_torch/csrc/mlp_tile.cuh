@@ -1,6 +1,7 @@
 // The fused NeRF-MLP tile chain as a __device__ function on one tile of
 // MLP_M rows held in shared memory. K5 (fused_march_full.cu) runs it on the
-// samples of its rays; the standalone MLP kernels (TPU K1/K3) can reuse it.
+// samples of its rays; K1 and K2 (fused_mlp.cu) run it on rows read from
+// global memory, K2 with the activations saved for its backward.
 //
 // Replaces the tile body `_forward_tile` (nerf_replication_tpu/ops/
 // fused_mlp.py:183) and keeps its rounding points: operands rounded to the
@@ -144,10 +145,12 @@ __device__ void gemm_acc(float (&acc)[MLP_ROWS_PER_WARP][8], const float* A,
   }
 }
 
-// out[row, col] = act(acc + bias[col]) for this thread's block
+// out[row, col] = act(acc + bias[col]) for this thread's block; with `save`
+// the same values also go to save[row * lds + col] (global)
 __device__ __forceinline__ void store_act(
     const float (&acc)[MLP_ROWS_PER_WARP][8], const float* __restrict__ bias,
-    int N, bool relu, float* out, int ldo) {
+    int N, bool relu, float* out, int ldo, float* save = nullptr,
+    int lds = 0) {
   const int tid = threadIdx.x;
   const int r0 = (tid >> 5) * MLP_ROWS_PER_WARP;
   const int lane = tid & 31;
@@ -168,6 +171,9 @@ __device__ __forceinline__ void store_act(
       }
       *reinterpret_cast<float4*>(out + (r0 + i) * ldo + col) =
           make_float4(v[0], v[1], v[2], v[3]);
+      if (save != nullptr)
+        *reinterpret_cast<float4*>(save + (r0 + i) * lds + col) =
+            make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
@@ -258,11 +264,13 @@ __device__ void gemm_acc(float (&acc)[MMA_TILES][4], const float* A, int lda, in
   }
 }
 
-// out[row, col] = act(acc + bias[col]) for this warp's mma tiles
+// out[row, col] = act(acc + bias[col]) for this warp's mma tiles (and the
+// same values into save[row * lds + col] when `save` is given)
 __device__ __forceinline__ void store_act(const float (&acc)[MMA_TILES][4],
                                           const __nv_bfloat16* __restrict__ bias,
                                           int N, bool relu, float* out,
-                                          int ldo) {
+                                          int ldo, float* save = nullptr,
+                                          int lds = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = (warp & 3) * 16;
@@ -282,6 +290,10 @@ __device__ __forceinline__ void store_act(const float (&acc)[MMA_TILES][4],
     }
     *reinterpret_cast<float2*>(out + (r0 + g) * ldo + col) = make_float2(v[0], v[1]);
     *reinterpret_cast<float2*>(out + (r0 + g + 8) * ldo + col) = make_float2(v[2], v[3]);
+    if (save != nullptr) {
+      *reinterpret_cast<float2*>(save + (r0 + g) * lds + col) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(save + (r0 + g + 8) * lds + col) = make_float2(v[2], v[3]);
+    }
   }
 }
 
@@ -326,21 +338,29 @@ __device__ __forceinline__ void head_f32(const float* H, int ldh, int K,
 // The whole MLP on the MLP_M rows of xs [M, c_in_pad] / vs [M, c_views_pad]
 // (row pitches c_in_pad + MLP_PAD, c_views_pad + MLP_PAD) into raw [M, 4] =
 // (r, g, b, sigma) pre-activation. hA/hB are [M, W + MLP_PAD] scratch, wst
-// mlp_stage_floats(W) floats. All MLP_THREADS threads call it.
-template <typename CT>
+// mlp_stage_floats(W) floats. All MLP_THREADS threads call it. With kSave,
+// every activation the backward needs is also written to `save` (global,
+// D + 2 slots of [M, W], pitch W): the trunk outputs after relu in slots
+// 0..D-1, the feature (no activation) in slot D, the views branch after relu
+// (W/2 wide) in slot D + 1 — the `acts` list of the JAX `_forward_tile`.
+template <typename CT, bool kSave = false>
 __device__ void mlp_tile_forward(const MlpDesc& md, const CT* __restrict__ ws,
                                  const float* __restrict__ wh, const float* xs,
                                  const float* vs, float* hA, float* hB,
-                                 float* wst, float* raw) {
+                                 float* wst, float* raw,
+                                 float* save = nullptr) {
   const int W = md.W, W2 = md.W / 2, cin = md.c_in_pad, cvp = md.c_views_pad;
   const int ldh = W + MLP_PAD, ldx = cin + MLP_PAD, ldv = cvp + MLP_PAD;
   const CT* p = ws;
   TileAcc<CT> acc;
+  auto slot = [&](int s) -> float* {
+    return kSave ? save + static_cast<size_t>(s) * MLP_M * W : nullptr;
+  };
 
   zero_acc(acc.v);
   gemm_acc(acc.v, xs, ldx, cin, p, W, wst);
   p += static_cast<size_t>(cin) * W;
-  store_act(acc.v, p, W, true, hA, ldh);
+  store_act(acc.v, p, W, true, hA, ldh, slot(0), W);
   p += W;
   float* cur = hA;
   float* nxt = hB;
@@ -352,7 +372,7 @@ __device__ void mlp_tile_forward(const MlpDesc& md, const CT* __restrict__ ws,
     }
     gemm_acc(acc.v, cur, ldh, W, p, W, wst);
     p += static_cast<size_t>(W) * W;
-    store_act(acc.v, p, W, true, nxt, ldh);
+    store_act(acc.v, p, W, true, nxt, ldh, slot(i), W);
     p += W;
     float* tmp = cur;
     cur = nxt;
@@ -365,7 +385,7 @@ __device__ void mlp_tile_forward(const MlpDesc& md, const CT* __restrict__ ws,
   zero_acc(acc.v);
   gemm_acc(acc.v, cur, ldh, W, p, W, wst);
   p += static_cast<size_t>(W) * W;
-  store_act(acc.v, p, W, false, nxt, ldh);
+  store_act(acc.v, p, W, false, nxt, ldh, slot(md.D), W);
   p += W;
   // views: relu(f @ Wvf + v @ Wvv + bv) into cur (the trunk output is dead:
   // gemm_acc's barriers order the alpha head's reads before these writes)
@@ -374,7 +394,7 @@ __device__ void mlp_tile_forward(const MlpDesc& md, const CT* __restrict__ ws,
   p += static_cast<size_t>(W) * W2;
   gemm_acc(acc.v, vs, ldv, cvp, p, W2, wst);
   p += static_cast<size_t>(cvp) * W2;
-  store_act(acc.v, p, W2, true, cur, ldh);
+  store_act(acc.v, p, W2, true, cur, ldh, slot(md.D + 1), W);
   __syncthreads();
   // rgb head: columns 0-2 of Wr / br
   const float* wr = wh + W * 8 + 8;

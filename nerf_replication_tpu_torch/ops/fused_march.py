@@ -26,7 +26,8 @@ step are masked; compaction keeps the first K_c occupied blocks and the first
 K occupied candidates in march order; voxel ids come from the same float32
 operations in the same order (``renderer/occupancy.world_to_voxel``; the
 march positions ``t0 + s·step_r`` as one fused multiply-add, which is how
-XLA evaluates the JAX expression);
+XLA evaluates the JAX expression; with ``clip_bbox`` the span divided by S
+as a product with the float32 reciprocal of S, which is XLA's rewrite);
 compositing is ``T = exp(-(c_prev + cumsum τ − τ))``, ``w = T·α·(T ≥ thr)``
 over tiles of ``k_tile`` slots, white background after the march.
 
@@ -51,6 +52,7 @@ from ..renderer.occupancy import (
     world_to_voxel,
 )
 from .fused_mlp import FusedSpec, _pad_cols, _rup, forward_tile, pack_for_kernel
+from .kernels import MlpDescC, _ptr, _raise_on, _stream
 
 # kernel launches per wrapper since the last reset (chip_smoke.py resets it
 # right before it drives the serving path and reads it right after)
@@ -159,6 +161,16 @@ def _march_t(s: torch.Tensor, step_r: torch.Tensor,
     return _fma(s, step_r[:, None], t0[:, None])
 
 
+def _march_pts(st, o: torch.Tensor, d: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
+    """Sample points ``o + d·t`` ([B, S, 3]) for march positions ``t [B,
+    S]``: with ``clip`` one fused multiply-add (XLA contracts the JAX
+    expression when t is a per-ray value), else multiply, then add."""
+    if st.clip:
+        return _fma(d[:, None, :], t[..., None], o[:, None, :])
+    return o[:, None, :] + d[:, None, :] * t[..., None]
+
+
 def _sq_norm(d: torch.Tensor) -> torch.Tensor:
     """|d|² summed left to right, each product and sum rounded (the
     kernels' ``sq_norm_rn``)."""
@@ -186,8 +198,10 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
         tmax = torch.maximum(t_lo, t_hi).amin(-1)
         t0 = torch.minimum(torch.maximum(tmin, near), far)
         t1 = torch.maximum(torch.minimum(torch.maximum(tmax, near), far), t0)
-        step_r = (t1 - t0) / torch.tensor(float(st.n_steps), dtype=f32,
-                                          device=dev)
+        # XLA evaluates (t1 - t0) / S as a product with the float32
+        # reciprocal of S; so do the port and its kernels
+        inv_s = 1.0 / torch.tensor(float(st.n_steps), dtype=f32, device=dev)
+        step_r = (t1 - t0) * inv_s
     else:
         t0 = near.expand(b)
         step_r = torch.tensor(st.step, dtype=f32, device=dev).expand(b)
@@ -195,7 +209,7 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
     s_pad = st.s_c * st.r
     s_idx = torch.arange(s_pad, dtype=f32, device=dev)
     ts = _march_t(s_idx.expand(b, s_pad), step_r, t0)  # [B, S_pad]
-    pts = o[:, None, :] + d[:, None, :] * ts[..., None]
+    pts = _march_pts(st, o, d, ts)
     vox = world_to_voxel(pts, bbox, st.resolution)
     cvox = vox // st.factor
     cflat = (cvox[..., 0] * st.rc + cvox[..., 1]) * st.rc + cvox[..., 2]
@@ -218,7 +232,7 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
         b, st.c_total
     ) & (s_f < st.n_steps)
     t_cand = _march_t(s_f.to(f32), step_r, t0)
-    pts_c = o[:, None, :] + d[:, None, :] * t_cand[..., None]
+    pts_c = _march_pts(st, o, d, t_cand)
     vox_c = world_to_voxel(pts_c, bbox, st.resolution)
     flat_c = (
         vox_c[..., 0] * st.resolution + vox_c[..., 1]
@@ -311,28 +325,12 @@ class MarchStaticsC(ctypes.Structure):
         ("white_bkgd", ctypes.c_int), ("k_tile", ctypes.c_int)]
 
 
-class MlpDescC(ctypes.Structure):
-    """``struct MlpDesc`` of ``csrc/mlp_tile.cuh`` (passed by pointer)."""
-
-    _fields_ = [(name, ctypes.c_int) for name in (
-        "D", "W", "skip", "c_in_pad", "c_views_pad", "n_freq_xyz",
-        "n_freq_dir")]
-
-
 def _statics_c(st: FusedStatics, k_tile: int = 1) -> MarchStaticsC:
     return MarchStaticsC(
         st.resolution, st.rc, st.factor, st.r, st.s_c, st.k_c, st.n_steps,
         st.k_sel, int(st.compact), int(st.clip), st.step, st.near, st.far,
         st.threshold, int(st.white_bkgd), int(k_tile),
     )
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _check_inputs(st: FusedStatics, rays, grid_flat, coarse_flat, bbox):
@@ -352,12 +350,6 @@ def _check_inputs(st: FusedStatics, rays, grid_flat, coarse_flat, bbox):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.nrt_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel failed to launch: {msg} ({err})")
 
 
 def dda_block(st: FusedStatics, rays: torch.Tensor, grid_flat: torch.Tensor,
@@ -397,8 +389,9 @@ class FusedWeights:
 
     def __init__(self, spec: FusedSpec, branch):
         self.spec = spec
-        self.flat = spec.flatten_params(branch)
-        self.stream, self.heads = pack_for_kernel(spec, self.flat)
+        with torch.no_grad():  # serving weights: no autograd history
+            self.flat = spec.flatten_params(branch)
+            self.stream, self.heads = pack_for_kernel(spec, self.flat)
 
 
 def _encoder_bands(enc, width: int) -> int:

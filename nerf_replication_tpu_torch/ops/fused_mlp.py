@@ -1,24 +1,55 @@
-"""Fused NeRF-MLP tile chain: host side and its plain PyTorch version.
+"""The fused NeRF MLP: host side, the kernels K1/K2 and their plain versions.
 
-Port of the host side of ``nerf_replication_tpu/ops/fused_mlp.py``:
-:class:`FusedSpec` (padded widths), :meth:`FusedSpec.flatten_params` (the
-canonical weight order every fused kernel reads), :func:`fused_spec_for`
-(the family gate) and :func:`forward_tile`, the plain version of the tile
-chain that runs inside the fused march kernel (``csrc/mlp_tile.cuh``).
+Port of ``nerf_replication_tpu/ops/fused_mlp.py``: :class:`FusedSpec`
+(padded widths) and :meth:`FusedSpec.flatten_params` (the canonical weight
+order every fused kernel reads, differentiable as the JAX one is),
+:func:`fused_spec_for` (the family gate), :func:`fused_mlp_raw` and
+:func:`make_fused_apply` (the MLP of ``network.nerf.fused_trunk: true``).
+
+Two TPU kernels become two hand-written CUDA kernels (``csrc/fused_mlp.cu``),
+each beside a plain PyTorch version of the same function:
+
+* **K1**, :func:`mlp_forward` (replaces ``_fwd_kernel``, fused_mlp.py:339):
+  the whole MLP per tile of rows, writing only ``raw8 [M, 8]``; plain
+  version :func:`forward_tile`.
+* **K2**, :func:`mlp_backward` (replaces ``_bwd_kernel``, fused_mlp.py:348):
+  recompute of the tile forward, then the chain backward; dx, dv and one
+  float32 gradient per weight tensor, summed over the rows by per-CTA
+  partials and a reduce kernel; plain version :func:`backward_tile`.
+
+:class:`FusedMLPFunction` ties them into autograd: its forward launches K1
+and saves only ``(x, v, flat weights)``; its backward launches K2. A wrapper
+runs the plain version for tensors on the CPU and the kernel for tensors on
+a card; there is no fallback from one to the other. Each launch adds one to
+:data:`LAUNCHES`.
 
 Rounding points follow the JAX ``_forward_tile``, not ``Network.forward``:
 operands are cast to the compute dtype, every product accumulates in float32,
 activations stay float32 between layers, biases are streamed in the compute
 dtype, and the alpha and rgb heads run in float32 on float32 activations.
-``raw = rgb8 + alpha8`` with rgb in columns 0-2 and alpha in column 3.
+``raw = rgb8 + alpha8`` with rgb in columns 0-2 and alpha in column 3. Every
+backward product is float32 whatever the compute dtype (``_backward_tile``),
+and a bf16-streamed weight's gradient is rounded to bf16 before it flows back
+to its float32 parameter (fused_mlp.py:501-504).
 
-The standalone MLP kernel (TPU kernel K1) is not ported yet; this module
-holds only what the fused march needs.
+The masked variants (K3a/K3b) come with the packed-march slice.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
+
+# kernel launches per wrapper since the last reset (chip_smoke.py resets it
+# right before it drives the training path and reads it right after)
+LAUNCHES: dict[str, int] = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _rup(n: int, m: int) -> int:
@@ -29,21 +60,20 @@ def _pad_rows(a: torch.Tensor, to: int) -> torch.Tensor:
     r = a.shape[0]
     if r == to:
         return a
-    return torch.cat([a, a.new_zeros((to - r,) + tuple(a.shape[1:]))], 0)
+    return F.pad(a, (0, 0) * (a.dim() - 1) + (0, to - r))
 
 
 def _pad_cols(a: torch.Tensor, to: int) -> torch.Tensor:
     c = a.shape[-1]
     if c == to:
         return a
-    return torch.cat([a, a.new_zeros(tuple(a.shape[:-1]) + (to - c,))], -1)
+    return F.pad(a, (0, to - c))
 
 
 def _place_col(a: torch.Tensor, col: int, to: int) -> torch.Tensor:
-    """Pad ``[..., 1]`` to ``[..., to]`` with the live column at ``col``."""
-    out = a.new_zeros(tuple(a.shape[:-1]) + (to,))
-    out[..., col:col + a.shape[-1]] = a
-    return out
+    """Pad ``[..., 1]`` to ``[..., to]`` with the live column at ``col``
+    (its gradient is the live column's)."""
+    return F.pad(a, (col, to - col - a.shape[-1]))
 
 
 class FusedSpec:
@@ -73,16 +103,19 @@ class FusedSpec:
     #   Wvf [W, W2], Wvv [c_views_pad, W2], bv [1, W2]
     #   Wr [W2, 8], br [1, 8]      (rgb head, live columns 0..2)
     def flatten_params(self, branch) -> list[torch.Tensor]:
-        """``branch`` is one ``NeRFMLP`` (``network.fine`` / ``.coarse``)."""
+        """``branch`` is one ``NeRFMLP`` (``network.fine`` / ``.coarse``).
+
+        Differentiable: the transposes, casts and pads route a gradient of
+        the flat list back to the branch's parameters (the JAX trainer
+        differentiates through its flatten the same way); the cast's
+        backward upcasts a bf16 gradient to the float32 parameter."""
         sd = self.compute_dtype
         f32 = torch.float32
 
         def kb(name, dtype=None):
             dt = sd if dtype is None else dtype
             layer = getattr(branch, name)
-            k = layer.weight.detach().T.to(dt)
-            b = layer.bias.detach().to(dt).reshape(1, -1)
-            return k, b
+            return layer.weight.T.to(dt), layer.bias.to(dt).reshape(1, -1)
 
         out = []
         k0, b0 = kb("pts_linear_0")
@@ -134,9 +167,59 @@ def pack_for_kernel(spec: FusedSpec, flat: list[torch.Tensor]):
     stream = torch.cat([kernel_layout(t).reshape(-1)
                         for i, t in enumerate(flat)
                         if i not in heads_at]).contiguous()
+    if stream.dtype != spec.compute_dtype:
+        raise TypeError(f"weights stream as {stream.dtype}, the spec computes "
+                        f"in {spec.compute_dtype}")
     heads = torch.cat([flat[i].reshape(-1).to(torch.float32)
                        for i in sorted(heads_at)]).contiguous()
     return stream, heads
+
+
+def pack_transposed(flat: list[torch.Tensor]) -> torch.Tensor:
+    """K2's backward weights: every tensor of the canonical order as
+    float32, matrices transposed to ``[out, in]`` (the B operand of
+    ``dotT(dz, w) = dz @ w.T``), concatenated flat; the offsets are those
+    of the gradient buffer."""
+    return torch.cat([
+        (t.T if t.shape[0] > 1 else t).to(torch.float32).reshape(-1)
+        for t in flat
+    ]).contiguous()
+
+
+def _forward_acts(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
+                  ws: list[torch.Tensor]):
+    """``(raw8, acts)``: the JAX ``_forward_tile`` with its activation list
+    (the D trunk outputs after relu, the feature, the views branch)."""
+    cd = spec.compute_dtype
+    f32 = torch.float32
+
+    def mm(a, w):
+        return a.to(cd).to(f32) @ w.to(f32)
+
+    it = iter(ws)
+    acts = []
+    h = torch.relu(mm(x, next(it)) + next(it).to(f32))
+    acts.append(h)
+    for i in range(1, spec.D):
+        if spec.skip is not None and i == spec.skip + 1:
+            wx, wh, b = next(it), next(it), next(it)
+            h = mm(x, wx) + mm(h, wh) + b.to(f32)
+        else:
+            w, b = next(it), next(it)
+            h = mm(h, w) + b.to(f32)
+        h = torch.relu(h)
+        acts.append(h)
+    wa, ba = next(it), next(it)
+    alpha8 = h @ wa + ba
+    wf, bf = next(it), next(it)
+    f = mm(h, wf) + bf.to(f32)
+    acts.append(f)
+    wvf, wvv, bv = next(it), next(it), next(it)
+    vh = torch.relu(mm(f, wvf) + mm(v, wvv) + bv.to(f32))
+    acts.append(vh)
+    wr, br = next(it), next(it)
+    rgb8 = vh @ wr + br
+    return rgb8 + alpha8, acts
 
 
 def forward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
@@ -146,31 +229,249 @@ def forward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
 
     bfloat16 operands are exact in float32, so a float32 product of the
     rounded operands is the bf16-operand / f32-accumulate product."""
-    cd = spec.compute_dtype
+    return _forward_acts(spec, x, v, ws)[0]
+
+
+def backward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
+                  draw: torch.Tensor, ws: list[torch.Tensor]):
+    """The JAX ``_backward_tile``: recompute the forward, return ``(dx,
+    dv, grads)`` with one float32 gradient per tensor of ``ws``. Every
+    product is float32; both heads take the full ``[M, 8]`` cotangent."""
     f32 = torch.float32
-
-    def mm(a, w):
-        return a.to(cd).to(f32) @ w.to(f32)
-
+    _, acts = _forward_acts(spec, x, v, ws)
     it = iter(ws)
-    h = torch.relu(mm(x, next(it)) + next(it).to(f32))
+    w0, _b0 = next(it), next(it)
+    trunk = []
     for i in range(1, spec.D):
         if spec.skip is not None and i == spec.skip + 1:
-            wx, wh, b = next(it), next(it), next(it)
-            h = mm(x, wx) + mm(h, wh) + b.to(f32)
+            trunk.append((next(it), next(it), next(it)))
         else:
-            w, b = next(it), next(it)
-            h = mm(h, w) + b.to(f32)
-        h = torch.relu(h)
-    wa, ba = next(it), next(it)
-    alpha8 = h @ wa + ba
-    wf, bf = next(it), next(it)
-    f = mm(h, wf) + bf.to(f32)
-    wvf, wvv, bv = next(it), next(it), next(it)
-    vh = torch.relu(mm(f, wvf) + mm(v, wvv) + bv.to(f32))
-    wr, br = next(it), next(it)
-    rgb8 = vh @ wr + br
-    return rgb8 + alpha8
+            trunk.append((next(it), next(it)))
+    wa, _ba = next(it), next(it)
+    wf, _bf = next(it), next(it)
+    wvf, wvv, _bv = next(it), next(it), next(it)
+    wr, _br = next(it), next(it)
+
+    def dot_t(a, b):  # a @ b.T
+        return a.to(f32) @ b.to(f32).T
+
+    def t_dot(a, b):  # a.T @ b
+        return a.to(f32).T @ b.to(f32)
+
+    def colsum(a):
+        return a.sum(0, keepdim=True)
+
+    draw = draw.to(f32)
+    h_last = acts[spec.D - 1]
+    f, vh = acts[spec.D], acts[spec.D + 1]
+    dwr, dbr = t_dot(vh, draw), colsum(draw)
+    dvh = dot_t(draw, wr) * (vh > 0)
+    dwvf, dwvv, dbv = t_dot(f, dvh), t_dot(v, dvh), colsum(dvh)
+    df = dot_t(dvh, wvf)
+    dv = dot_t(dvh, wvv)
+    dwf, dbf = t_dot(h_last, df), colsum(df)
+    dwa, dba = t_dot(h_last, draw), colsum(draw)
+    dh = dot_t(df, wf) + dot_t(draw, wa)
+    dx = torch.zeros_like(x, dtype=f32)
+    trunk_grads = []
+    for i in range(spec.D - 1, 0, -1):
+        dz = dh * (acts[i] > 0)
+        a_prev = acts[i - 1]
+        if spec.skip is not None and i == spec.skip + 1:
+            wx, wh, _ = trunk[i - 1]
+            trunk_grads.append([t_dot(x, dz), t_dot(a_prev, dz), colsum(dz)])
+            dx = dx + dot_t(dz, wx)
+            dh = dot_t(dz, wh)
+        else:
+            w, _ = trunk[i - 1]
+            trunk_grads.append([t_dot(a_prev, dz), colsum(dz)])
+            dh = dot_t(dz, w)
+    dz0 = dh * (acts[0] > 0)
+    grads = [t_dot(x, dz0), colsum(dz0)]
+    dx = dx + dot_t(dz0, w0)
+    for g in reversed(trunk_grads):
+        grads += g
+    grads += [dwa, dba, dwf, dbf, dwvf, dwvv, dbv, dwr, dbr]
+    return dx, dv, grads
+
+
+# -- kernels -------------------------------------------------------------------
+
+
+def _desc(spec: FusedSpec):
+    from .kernels import MlpDescC
+
+    return MlpDescC(spec.D, spec.W, -1 if spec.skip is None else spec.skip,
+                    spec.c_in_pad, spec.c_views_pad, 0, 0)
+
+
+def _check(spec: FusedSpec, x, v, flat, m: int):
+    dev = x.device
+    if x.dtype != torch.float32 or v.dtype != torch.float32:
+        raise TypeError("x and v must be float32")
+    if x.dim() != 2 or x.shape[1] != spec.c_in_pad or v.dim() != 2 or \
+            v.shape != (x.shape[0], spec.c_views_pad):
+        raise ValueError(
+            f"x must be [M, {spec.c_in_pad}] and v [M, {spec.c_views_pad}], "
+            f"got {tuple(x.shape)} and {tuple(v.shape)}")
+    if not 0 <= m <= x.shape[0]:
+        raise ValueError(f"m={m} real rows of {x.shape[0]}")
+    if len(flat) != spec.n_params():
+        raise ValueError(f"{len(flat)} weight tensors, expected "
+                         f"{spec.n_params()}")
+    for t in (v, *flat):
+        if t.device != dev:
+            raise ValueError(f"a tensor is on {t.device}, x on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _check_kernel_shape(spec: FusedSpec):
+    if spec.W % 64 or spec.W > 256 or spec.c_in_pad > 64 or \
+            spec.c_views_pad > 32 or not 2 <= spec.D <= 24:
+        raise ValueError(
+            f"the fused MLP kernels take 2 <= D <= 24, W a multiple of 64 up "
+            f"to 256 and padded encodings <= 64/32 wide, got D={spec.D}, "
+            f"W={spec.W}, c_in_pad={spec.c_in_pad}, "
+            f"c_views_pad={spec.c_views_pad}")
+    if spec.compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute dtype {spec.compute_dtype} (f32 or bf16)")
+
+
+def mlp_forward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
+                flat: list[torch.Tensor], m: int | None = None) -> torch.Tensor:
+    """K1: ``raw8 [M, 8]`` of the first ``m`` rows (default all); the other
+    rows are zero. The plain version for CPU tensors, the CUDA kernel
+    (``csrc/fused_mlp.cu``) for CUDA tensors."""
+    m = x.shape[0] if m is None else int(m)
+    _check(spec, x, v, flat, m)
+    if x.device.type == "cpu":
+        out = x.new_zeros((x.shape[0], 8))
+        if m:
+            out[:m] = forward_tile(spec, x[:m], v[:m], flat)
+        return out
+    _check_kernel_shape(spec)
+    from .kernels import _ptr, _raise_on, _stream, load
+
+    lib = load("fused_mlp")
+    stream, heads = pack_for_kernel(spec, flat)
+    x, v = x.contiguous(), v.contiguous()
+    out = torch.empty((x.shape[0], 8), dtype=torch.float32, device=x.device)
+    if m < x.shape[0]:
+        out[m:].zero_()
+    desc = _desc(spec)
+    import ctypes
+
+    err = lib.nrt_fused_mlp_fwd(
+        _ptr(x), _ptr(v), m, ctypes.byref(desc), _ptr(stream),
+        int(spec.compute_dtype == torch.bfloat16), _ptr(heads), _ptr(out),
+        _stream(x.device))
+    _raise_on(lib, err, "fused_mlp_fwd (K1)")
+    LAUNCHES["fused_mlp_fwd"] += 1
+    return out
+
+
+def _backward_ctas(device: torch.device, m: int) -> int:
+    """K2's persistent grid: one CTA per SM, at most one per 64-row tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(sms, math.ceil(m / 64)))
+
+
+def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
+                 draw: torch.Tensor, flat: list[torch.Tensor],
+                 m: int | None = None, want_dx: bool = True,
+                 want_dv: bool = True):
+    """K2: ``(dx, dv, grads)`` of the first ``m`` rows under cotangent
+    ``draw [M, 8]``: dx/dv float32 (rows past ``m`` zero; ``None`` unless
+    asked for), one float32 gradient per tensor of ``flat``. The plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    m = x.shape[0] if m is None else int(m)
+    _check(spec, x, v, flat, m)
+    if draw.shape != (x.shape[0], 8) or draw.device != x.device:
+        raise ValueError(f"draw must be [{x.shape[0]}, 8] on {x.device}")
+    draw = draw.to(torch.float32).contiguous()
+    if x.device.type == "cpu":
+        if m:
+            dx_m, dv_m, grads = backward_tile(spec, x[:m], v[:m], draw[:m],
+                                              flat)
+        else:
+            dx_m, dv_m = x[:0], v[:0]
+            grads = [torch.zeros(t.shape, dtype=torch.float32) for t in flat]
+        dx = _pad_rows(dx_m, x.shape[0]) if want_dx else None
+        dv = _pad_rows(dv_m, x.shape[0]) if want_dv else None
+        return dx, dv, grads
+    _check_kernel_shape(spec)
+    import ctypes
+
+    from .kernels import _ptr, _raise_on, _stream, load
+
+    dev = x.device
+    lib = load("fused_mlp")
+    stream, heads = pack_for_kernel(spec, flat)
+    wt = pack_transposed(flat)
+    x, v = x.contiguous(), v.contiguous()
+    sizes = [t.numel() for t in flat]
+    total = sum(sizes)
+    grad = torch.empty((total,), dtype=torch.float32, device=dev)
+    dx = torch.zeros_like(x) if want_dx else None
+    dv = torch.zeros_like(v) if want_dv else None
+    if m:
+        n_ctas = _backward_ctas(dev, m)
+        acts = torch.empty((n_ctas, spec.D + 2, 64, spec.W),
+                           dtype=torch.float32, device=dev)
+        partials = torch.empty((n_ctas, total), dtype=torch.float32,
+                               device=dev)
+        desc = _desc(spec)
+        err = lib.nrt_fused_mlp_bwd(
+            _ptr(x), _ptr(v), _ptr(draw), m, ctypes.byref(desc), _ptr(stream),
+            int(spec.compute_dtype == torch.bfloat16), _ptr(heads), _ptr(wt),
+            _ptr(acts), _ptr(partials), n_ctas, _ptr(dx), _ptr(dv),
+            _ptr(grad), _stream(dev))
+        _raise_on(lib, err, "fused_mlp_bwd (K2)")
+        LAUNCHES["fused_mlp_bwd"] += 1
+    else:
+        grad.zero_()
+    grads = [g.view(t.shape) for g, t in zip(torch.split(grad, sizes), flat)]
+    return dx, dv, grads
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """``raw8 = MLP(x, v; flat)`` whose forward is K1 and whose backward is
+    K2. Saves only ``(x, v, flat)``: the backward recomputes the forward,
+    as the JAX custom VJP does. dx/dv are computed only when autograd asks
+    for them (in the train step rays are data and need none)."""
+
+    @staticmethod
+    def forward(ctx, spec, m, x, v, *flat):
+        ctx.spec, ctx.m = spec, m
+        ctx.save_for_backward(x, v, *flat)
+        return mlp_forward(spec, x, v, list(flat), m)
+
+    @staticmethod
+    def backward(ctx, draw):
+        x, v, *flat = ctx.saved_tensors
+        want_dx, want_dv = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
+        dx, dv, grads = mlp_backward(ctx.spec, x, v, draw, flat, ctx.m,
+                                     want_dx, want_dv)
+        # a bf16-streamed weight's cotangent is bf16, as in JAX (:504)
+        dws = [g.to(w.dtype) if need else None for g, w, need in
+               zip(grads, flat, ctx.needs_input_grad[4:])]
+        return (None, None, dx, dv, *dws)
+
+
+def fused_mlp_raw(spec: FusedSpec, branch, x_enc: torch.Tensor,
+                  d_enc: torch.Tensor, tile: int = 512) -> torch.Tensor:
+    """``[M, c_in]`` encoded points + ``[M, c_views]`` encoded dirs → ``[M,
+    4]`` raw. Pads M to a ``tile`` multiple (as the JAX package does) and
+    the channels to the spec's padded widths; differentiable in the
+    branch's parameters, ``x_enc`` and ``d_enc``."""
+    m = x_enc.shape[0]
+    m_pad = _rup(max(m, 1), int(tile))
+    x = _pad_rows(_pad_cols(x_enc.to(torch.float32), spec.c_in_pad), m_pad)
+    v = _pad_rows(_pad_cols(d_enc.to(torch.float32), spec.c_views_pad), m_pad)
+    flat = spec.flatten_params(branch)
+    raw8 = FusedMLPFunction.apply(spec, m, x, v, *flat)
+    return raw8[:m, :4]
 
 
 def fused_spec_for(network) -> FusedSpec:
@@ -197,3 +498,25 @@ def fused_spec_for(network) -> FusedSpec:
         c_in=network.input_ch, c_views=network.input_ch_views,
         compute_dtype=network.compute_dtype,
     )
+
+
+def make_fused_apply(network, cfg):
+    """``apply_fn(pts, viewdirs, model) -> raw [..., 4]`` running the MLP
+    of ``network`` through K1/K2 (``network.nerf.fused_tile`` rows of host
+    padding). Refuses unsupported families loudly."""
+    tile = int(cfg.network.nerf.get("fused_tile", 512))
+    spec = fused_spec_for(network)
+
+    def apply_fn(pts, viewdirs, model):
+        x_enc = network.xyz_encoder(pts)
+        dirs = viewdirs[..., None, :].expand(
+            *pts.shape[:-1], viewdirs.shape[-1])
+        d_enc = network.dir_encoder(dirs)
+        lead = x_enc.shape[:-1]
+        raw = fused_mlp_raw(
+            spec, getattr(network, model),
+            x_enc.reshape(-1, x_enc.shape[-1]),
+            d_enc.reshape(-1, d_enc.shape[-1]), tile=tile)
+        return raw.reshape(*lead, 4)
+
+    return apply_fn

@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = {
     "fused_dda": "fused_dda.cu",
     "fused_march_full": "fused_march_full.cu",
+    "fused_mlp": "fused_mlp.cu",
 }
 HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh")
 NVCC_FLAGS = (
@@ -49,7 +50,43 @@ ARGTYPES = {
         "nrt_fused_march_full": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                                  _P, _P, _P, _P, _P, _P],
     },
+    "fused_mlp": {
+        # x, v, m, desc*, w_stream, bf16, w_heads, raw8, stream
+        "nrt_fused_mlp_fwd": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
+        # x, v, draw, m, desc*, w_stream, bf16, w_heads, w_transposed, acts,
+        # partials, n_ctas, dx, dv, grad, stream
+        "nrt_fused_mlp_bwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                              _I, _P, _P, _P, _P],
+    },
 }
+
+
+class MlpDescC(ctypes.Structure):
+    """``struct MlpDesc`` of ``csrc/common.cuh`` (passed by pointer)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "D", "W", "skip", "c_in_pad", "c_views_pad", "n_freq_xyz",
+        "n_freq_dir")]
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address (``None`` passes a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    """The current stream of ``device`` (the tensors' device, not a global:
+    autograd runs a backward on its own thread)."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.nrt_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel failed to launch: {msg} ({err})")
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,12 @@
-"""Baked-bounds check (port of ``check_baked_bounds`` in
-``nerf_replication_tpu/renderer/gate.py``)."""
+"""Whole-image render gate and the baked-bounds check (port of
+``nerf_replication_tpu/renderer/gate.py``).
+
+``full_image_render_fn`` is the one factory every whole-image surface uses
+(in-training validation, eval). The port has its single-device branch: the
+renderer's chunked render. The occupancy-march branch (``use_grid``) comes
+with port slice 3 and the sequence-parallel one (``eval.sharded`` on several
+cards) with slice 7; both raise.
+"""
 
 from __future__ import annotations
 
@@ -22,3 +29,27 @@ def check_baked_bounds(baked_near, baked_far, near, far,
             f"the requested bounds near={rn:g} far={rf:g} — rebuild the "
             "render surface for the new bounds, or fix the batch"
         )
+
+
+def full_image_render_fn(cfg, network, renderer, test_ds, use_grid=False):
+    """``render(batch) -> out`` for whole test images (``batch`` holds
+    ``rays`` on the renderer's device, ``near`` and ``far``)."""
+    import torch
+
+    if use_grid:
+        raise NotImplementedError(
+            "full_image_render_fn(use_grid=True): the occupancy-accelerated "
+            "whole-image march comes with port slice 3"
+        )
+    if bool(cfg.get("eval", {}).get("sharded", False)) and \
+            torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "eval.sharded: sequence-parallel rendering over several cards "
+            "comes with port slice 7"
+        )
+
+    def render(batch):
+        with torch.no_grad():
+            return renderer.render_chunked(batch)
+
+    return render

@@ -376,7 +376,7 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
     ``transforms_test.json``."""
     import os
 
-    from ..datasets import make_dataset
+    from ..datasets import make_camera
     from ..models import init_params_for, make_network
     from ..renderer.occupancy import default_grid_path, load_occupancy_pyramid
     from ..train.checkpoint import load_network
@@ -396,7 +396,7 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
         )
     levels, bbox = load_occupancy_pyramid(path)
     network = make_network(cfg)
-    test_ds = make_dataset(cfg, "test")
+    test_ds = make_camera(cfg, "test")
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     init_params_for(cfg)(network, gen)
     epoch = load_network(cfg.trained_model_dir, network,

@@ -1,18 +1,26 @@
-"""Network checkpoints of the port (load side of
+"""Checkpoints of the port (port of
 ``nerf_replication_tpu/train/checkpoint.py``).
 
-The port stores a ``torch.save`` state dict per checkpoint:
-``<model_dir>/latest.pt`` and ``<model_dir>/<epoch>.pt``. The JAX package's
-Orbax directories are not read here; ``convert.params_from_jax`` carries a
-JAX parameter tree across.
+The port stores one ``torch.save`` file per checkpoint:
+``<model_dir>/latest.pt`` and ``<model_dir>/<epoch>.pt``. A training bundle
+holds the network's state dict, the optimizer's state (Adam moments and step
+counts), the global step, the epoch and the recorder's state; numbered
+checkpoints keep the newest ``KEEP_EPOCHS``. ``load_network`` reads the
+weights of either a training bundle or a weights-only file
+(``save_network``), which is how the serving engine loads a trained model.
+The JAX package's Orbax directories are not read here;
+``convert.params_from_jax`` carries a JAX parameter tree across.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import sys
 
 import torch
+
+KEEP_EPOCHS = 5
 
 
 def _available_epochs(model_dir: str) -> list[int]:
@@ -24,18 +32,88 @@ def _available_epochs(model_dir: str) -> list[int]:
     )
 
 
+def _cpu_state(network: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in network.state_dict().items()}
+
+
+def _write(model_dir: str, name: str, blob: dict) -> str:
+    """``torch.save`` to ``<model_dir>/<name>.pt`` through a temporary file
+    and a rename, so a reader never sees a half-written checkpoint."""
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, f"{name}.pt")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def save_network(model_dir: str, network: torch.nn.Module,
                  epoch: int = -1) -> str:
     """Write the network's weights as ``latest.pt`` (epoch -1) or
     ``<epoch>.pt``, atomically; returns the path."""
-    os.makedirs(model_dir, exist_ok=True)
     name = "latest" if epoch == -1 else str(int(epoch))
-    path = os.path.join(model_dir, f"{name}.pt")
-    tmp = f"{path}.tmp.{os.getpid()}"
-    state = {k: v.detach().cpu() for k, v in network.state_dict().items()}
-    torch.save({"network": state, "epoch": int(epoch)}, tmp)
-    os.replace(tmp, path)
+    return _write(model_dir, name,
+                  {"network": _cpu_state(network), "epoch": int(epoch)})
+
+
+def save_model(model_dir: str, state, epoch: int, recorder_state=None,
+               latest: bool = False) -> str:
+    """Save a training bundle (``state``: network, optimizer, step) as
+    ``latest.pt`` or ``<epoch>.pt``; prune numbered ones to KEEP_EPOCHS."""
+    blob = {
+        "network": _cpu_state(state.network),
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "epoch": int(epoch),
+        "recorder": recorder_state or {},
+    }
+    path = _write(model_dir, "latest" if latest else str(int(epoch)), blob)
+    if not latest:
+        for old in _available_epochs(model_dir)[:-KEEP_EPOCHS]:
+            os.remove(os.path.join(model_dir, f"{old}.pt"))
     return path
+
+
+def has_checkpoint(model_dir: str) -> bool:
+    """Anything resumable on disk?"""
+    return os.path.exists(os.path.join(model_dir, "latest.pt")) or bool(
+        _available_epochs(model_dir))
+
+
+def load_model(model_dir: str, state, epoch: int = -1):
+    """Full resume into ``state`` in place: ``(state, begin_epoch,
+    recorder_state)``, or ``(state, 0, None)`` when there is nothing to
+    resume. ``epoch == -1`` takes ``latest.pt``, else the newest numbered
+    checkpoint; a pinned epoch loads exactly that one."""
+    epochs = _available_epochs(model_dir)
+    target = None
+    if epoch == -1:
+        latest = os.path.join(model_dir, "latest.pt")
+        if os.path.exists(latest):
+            target = latest
+        elif epochs:
+            target = os.path.join(model_dir, f"{epochs[-1]}.pt")
+    elif epoch in epochs:
+        target = os.path.join(model_dir, f"{epoch}.pt")
+    if target is None:
+        return state, 0, None
+    blob = torch.load(target, map_location="cpu", weights_only=True)
+    if "optimizer" not in blob:
+        raise ValueError(f"{target} holds weights only, not a training "
+                         "bundle to resume from")
+    state.network.load_state_dict(blob["network"], strict=True)
+    state.optimizer.load_state_dict(blob["optimizer"])
+    state.step = int(blob["step"])
+    return state, int(blob["epoch"]) + 1, dict(blob.get("recorder") or {})
+
+
+def save_trained_config(cfg) -> None:
+    """Provenance snapshot: merged YAML + command line."""
+    os.makedirs(cfg.trained_config_dir, exist_ok=True)
+    with open(os.path.join(cfg.trained_config_dir, "train_config.yaml"),
+              "w") as f:
+        f.write("# cmd: " + " ".join(sys.argv) + "\n")
+        f.write(cfg.dump())
 
 
 def load_network(model_dir: str, network: torch.nn.Module,

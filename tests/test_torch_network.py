@@ -109,7 +109,7 @@ def test_flatten_params_matches_jax_order(lego, dtype):
     assert (pspec.c_in_pad, pspec.c_views_pad) == (64, 32)
     assert (jspec.c_in_pad, jspec.c_views_pad) == (64, 32)
     jflat = jspec.flatten_params(params["params"]["fine"])
-    pflat = pspec.flatten_params(pnet.fine)
+    pflat = [t.detach() for t in pspec.flatten_params(pnet.fine)]
     assert len(jflat) == len(pflat) == pspec.n_params()
     for i, (a, b) in enumerate(zip(jflat, pflat)):
         assert tuple(a.shape) == tuple(b.shape), i
@@ -152,7 +152,8 @@ def test_forward_tile_matches_jax(small, lego, which, dtype, atol):
     ref, _ = jax_forward_tile(jspec, jnp.asarray(x.numpy()),
                               jnp.asarray(v.numpy()),
                               jspec.flatten_params(params["params"]["fine"]))
-    out = forward_tile(pspec, x, v, pspec.flatten_params(pnet.fine))
+    with torch.no_grad():
+        out = forward_tile(pspec, x, v, pspec.flatten_params(pnet.fine))
     assert out.shape == (64, 8)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=atol)
