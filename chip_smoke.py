@@ -21,7 +21,6 @@ imports nothing of JAX. Phases, each fatal on failure:
    over every tier, a few concurrent ``MicroBatcher.submit``s, and one
    request through a second engine with ``march_fused gather`` (K4). Launch
    counts are reset right before this phase and read right after.
-
 4. K1/K2 (the fused MLP, ``csrc/fused_mlp.cu``) against their plain
    versions at lego width in both families, at M = 65,536 + 37 rows and at a
    small ragged M: raw, dx, dv and every weight gradient, each held to its
@@ -35,7 +34,29 @@ imports nothing of JAX. Phases, each fatal on failure:
    median step ms and rays/s of each, a finite and falling f32 loss;
 6. serving the trained checkpoint: an occupancy grid baked from the trained
    coarse net, ``engine_from_cfg`` on it, one 200x200 ``full``-tier view
-   through K5 (PSNR against the test image, mean acc).
+   through K5 (PSNR against the test image, mean acc);
+7. eval (the slice-3 main path): ``run.run_evaluate`` of the trained f32
+   checkpoint through the baked grid on both 200x200 test views, three
+   routes — lego.yaml's per-ray march with ``fused_trunk`` (K1),
+   ``march_coarse_block 8`` and ``march_clip_bbox true`` (the packed march,
+   K3a) — each with its launch counts reset right before and read right
+   after; PSNR/SSIM, mean net_time and overflow_frac per route; view 0 of
+   every route rendered again through the plain Network (cuBLAS), maps
+   within 1e-4 (K1 at the per-ray route's 786,432 rows, K3a on both packed
+   routes);
+8. a gradient through the packed march (the route the NGP trainer takes,
+   slice 4): one loss.backward over 4096 training rays with the fused
+   apply (K3a forward, K3b backward; counts reset right before and read
+   right after), parameter gradients against the plain Network's;
+9. the serving engine's slice-3 routes: one 200x200 request through
+   ``march_fused off`` (the packed march) and one through the grid-less
+   chunked volume route.
+
+Phase 4 also holds K3a/K3b (the masked MLP) against their plain versions and
+against K1/K2 under three masks, and times K3a at the packed stream's shape
+(786,432 rows, 5% valid, sorted valid-first) beside K1 on the same rows and
+on the compacted valid rows; K1 on those 786,432 rows is held against its
+plain version too.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -81,6 +102,13 @@ TOL_MLP = {"f32": {"raw": 1e-5, "el": 1e-4, "rows": 1e-3, "fro": 5e-3},
            "bf16": {"raw_rel": 5e-3, "el": 5e-3, "rows": 5e-2, "fro": 5e-2}}
 CHUNK_REL = 1e-5
 MLP_M = (333, 65536 + 37)
+# the packed stream of one 4096-ray chunk at packed_cap 192, and the valid
+# share of a carved lego grid
+PACKED_M = 4096 * 192
+PACKED_VALID = 0.05
+MASKS = ("sorted", "random", "all_invalid")
+# each eval route's view through K1 or K3a vs the plain Network (cuBLAS f32)
+TOL_EVAL_MAPS = 1e-4
 TRAIN_HW = 200
 DEVICE = "cuda"  # the card; only a CPU rehearsal of the phases changes it
 
@@ -455,8 +483,155 @@ def _fro(a, b) -> float:
     return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
 
+def _mask(torch, np, kind, m, n, seed, dev):
+    """[n] float32 0/1 over the first m rows: a sorted valid prefix (the
+    packed stream's layout), random 60%, or all invalid."""
+    valid = np.zeros(n, np.float32)
+    if kind == "sorted":
+        valid[:int(m * PACKED_VALID)] = 1.0
+    elif kind == "random":
+        valid[:m] = np.random.default_rng(seed).random(m) < 0.6
+    return torch.from_numpy(valid).to(dev)
+
+
+def _k3_checks(torch, np, fmlp, spec, flat, x, v, draw, m, label, dev):
+    """K3a/K3b under the three masks at one M: against the plain versions
+    (the K1/K2 tolerances), against K1/K2 (K3a bitwise on valid rows,
+    exact zeros elsewhere; K3b dx/dv bitwise K2 under draw x valid, dW/db
+    within CHUNK_REL), and exactly zero gradients when all rows skip."""
+    tol = TOL_MLP[label]
+    worst = {"raw": 0.0, "dW_abs": 0.0}
+    for kind in MASKS:
+        valid = _mask(torch, np, kind, m, x.shape[0], SEED + 7, dev)
+        with torch.no_grad():
+            raw_m = fmlp.mlp_forward(spec, x, v, flat, m, valid=valid)
+            dx_m, dv_m, g_m = fmlp.mlp_backward(spec, x, v, draw, flat, m,
+                                                valid=valid)
+            raw = fmlp.mlp_forward(spec, x, v, flat, m)
+            dmask = draw * valid[:, None]
+            dx, dv, g = fmlp.mlp_backward(spec, x, v, dmask, flat, m)
+        torch.cuda.synchronize()
+        ok = valid > 0
+        require(not bool(raw_m[~ok].any()),
+                f"K3a {label} {kind}: invalid rows are not exactly 0")
+        require(torch.equal(raw_m[ok], raw[ok]),
+                f"K3a {label} {kind}: valid rows differ from K1")
+        require(torch.equal(dx_m, dx) and torch.equal(dv_m, dv),
+                f"K3b {label} {kind}: dx/dv differ from K2 under draw*valid")
+        k2_rel = max(_rel(a, b) for a, b in zip(g_m, g))
+        require(k2_rel <= CHUNK_REL, f"K3b {label} {kind}: dW/db differ "
+                f"from K2 under draw*valid by {k2_rel} > {CHUNK_REL}")
+        if kind == "all_invalid":
+            require(not bool(dx_m.any()) and not bool(dv_m.any()) and not
+                    any(bool(t.any()) for t in g_m),
+                    f"K3b {label}: all-invalid gradients are not zero")
+            print(f"K3a/K3b [{label}] all_invalid: raw, dx, dv and every "
+                  f"gradient exactly 0")
+            continue
+        with torch.no_grad():
+            ref = fmlp.forward_tile(spec, x[:m], v[:m], flat) * \
+                valid[:m, None]
+            rdx, rdv, rg = fmlp.backward_tile(spec, x[:m], v[:m],
+                                              dmask[:m], flat)
+        errs = {
+            "raw": float((raw_m[:m] - ref).abs().max()),
+            "raw_rel": _rel(raw_m[:m], ref),
+            "dx_rows": _rows_off(dx_m[:m], rdx, tol["el"]),
+            "dv_rows": _rows_off(dv_m[:m], rdv, tol["el"]),
+            "dW_fro": max(_fro(a, b) for a, b in zip(g_m, rg)),
+            "dW_abs": max(float((a - b).abs().max())
+                          for a, b in zip(g_m, rg)),
+            "vs_K2_dW_rel": k2_rel,
+        }
+        print(f"K3a/K3b [{label}] M={m} {kind} ({int(ok.sum())} valid): "
+              + json.dumps({k: float(f"{e:.4g}") for k, e in errs.items()}))
+        if label == "f32":
+            require(errs["raw"] <= tol["raw"], f"K3a f32 {kind}: raw error "
+                    f"{errs['raw']} > {tol['raw']}")
+        else:
+            require(errs["raw_rel"] <= tol["raw_rel"], f"K3a bf16 {kind}: "
+                    f"raw error {errs['raw_rel']} > {tol['raw_rel']}")
+        for k in ("dx_rows", "dv_rows"):
+            require(errs[k] <= tol["rows"], f"K3b {label} {kind}: {k} "
+                    f"{errs[k]} > {tol['rows']}")
+        require(errs["dW_fro"] <= tol["fro"], f"K3b {label} {kind}: dW "
+                f"Frobenius error {errs['dW_fro']} > {tol['fro']}")
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+    return worst
+
+
+def _k3_times(torch, np, fmlp, spec, net, flat, label, dev):
+    """K3a/K3b at the packed stream's shape (PACKED_M rows, the first 5%
+    valid) beside K1/K2 on the same rows and on the compacted valid rows,
+    the plain masked versions, and the bounds."""
+    m = PACKED_M
+    n_valid = int(m * PACKED_VALID)
+    x, v, draw = _mlp_inputs(torch, np, spec, net, m, SEED + 9, dev)
+    valid = _mask(torch, np, "sorted", m, m, SEED, dev)
+    tiles = -(-m // 64)
+    skipped = 1.0 - (-(-n_valid // 64)) / tiles
+    with torch.no_grad():
+        k3a = time_ms(torch, lambda: fmlp.mlp_forward(spec, x, v, flat, m,
+                                                      valid=valid), 10)
+        k1_all = time_ms(torch, lambda: fmlp.mlp_forward(spec, x, v, flat,
+                                                         m), 3)
+        k1_val = time_ms(torch, lambda: fmlp.mlp_forward(
+            spec, x[:n_valid], v[:n_valid], flat, n_valid), 10)
+        k3b = time_ms(torch, lambda: fmlp.mlp_backward(
+            spec, x, v, draw, flat, m, valid=valid), 5)
+        k2_val = time_ms(torch, lambda: fmlp.mlp_backward(
+            spec, x[:n_valid], v[:n_valid], draw[:n_valid], flat, n_valid), 5)
+        pl_f = time_ms(torch, lambda: fmlp.forward_tile(
+            spec, x, v, flat) * valid[:, None], 2)
+        dmask = draw * valid[:, None]
+        pl_b = time_ms(torch, lambda: fmlp.backward_tile(
+            spec, x, v, dmask, flat), 1)
+        # K1 held at the per-ray eval route's rows (4096 rays x 192 slots)
+        raw = fmlp.mlp_forward(spec, x, v, flat, m)[:m]
+        ref = fmlp.forward_tile(spec, x, v, flat)
+    tol = TOL_MLP[label]
+    k1_err = float((raw - ref).abs().max()) if label == "f32" \
+        else _rel(raw, ref)
+    k1_tol = tol["raw"] if label == "f32" else tol["raw_rel"]
+    require(k1_err <= k1_tol, f"K1 {label} M={m}: raw error {k1_err} > "
+            f"{k1_tol}")
+    print(f"K1 fused_mlp_fwd [{label}] M={m} (the per-ray eval route's rows) "
+          f"vs plain: {'max abs' if label == 'f32' else 'max rel'} error "
+          f"{k1_err:.3e} (tol {k1_tol})")
+    fwd = n_valid * mlp_flops_per_sample(spec)
+    peak = PEAK_BF16 if spec.compute_dtype == torch.bfloat16 else PEAK_F32
+    wbytes = sum(t.numel() * t.element_size() for t in flat)
+    n_grad = sum(t.numel() for t in flat)
+    row_in = (spec.c_in_pad + spec.c_views_pad + 1) * 4
+    a_bytes = m * (row_in + 8 * 4) + wbytes
+    a_ops = fwd / peak
+    b_bytes = m * (row_in + 8 * 4) + m * (spec.c_in_pad + spec.c_views_pad) \
+        * 4 + wbytes + n_grad * 4 * 2
+    b_ops = fwd / peak + 2 * fwd / PEAK_F32
+    res = dict(
+        k3a_ms=k3a, k3b_ms=k3b, k1_all_ms=k1_all, k1_valid_ms=k1_val,
+        k2_valid_ms=k2_val, k3a_plain=pl_f, k3b_plain=pl_b, k1_err=k1_err,
+        k3a_bound=max(a_bytes / PEAK_BYTES, a_ops) * 1e3,
+        k3b_bound=max(b_bytes / PEAK_BYTES, b_ops) * 1e3,
+        k3a_by="bytes" if a_bytes / PEAK_BYTES >= a_ops else "operations",
+        k3b_by="bytes" if b_bytes / PEAK_BYTES >= b_ops else "operations",
+        skipped_tiles=skipped)
+    print(f"K3a fused_mlp_fwd_masked [{label}] at the packed shape (M={m}, "
+          f"{n_valid} valid, sorted; {skipped:.4f} of {tiles} tiles skip): "
+          f"kernel {k3a:.4f} ms, bound {res['k3a_bound']:.4f} ms "
+          f"({res['k3a_by']}), plain {pl_f:.3f} ms; K1 on all {m} rows "
+          f"{k1_all:.3f} ms, K1 on the {n_valid} compacted valid rows "
+          f"{k1_val:.4f} ms")
+    print(f"K3b fused_mlp_bwd_masked [{label}] at the packed shape: kernel "
+          f"{k3b:.4f} ms, bound {res['k3b_bound']:.4f} ms ({res['k3b_by']}),"
+          f" plain {pl_b:.3f} ms; K2 on the compacted valid rows "
+          f"{k2_val:.4f} ms")
+    return res
+
+
 def phase_mlp_kernels(torch, np, dev):
-    """Phase 4: K1 and K2 against their plain versions at lego width."""
+    """Phase 4: K1/K2 and K3a/K3b against their plain versions at lego
+    width."""
     from nerf_replication_tpu_torch.config import make_cfg
     from nerf_replication_tpu_torch.models import make_network
     from nerf_replication_tpu_torch.models.nerf.network import init_params
@@ -537,6 +712,8 @@ def phase_mlp_kernels(torch, np, dev):
               f"{fmlp._backward_ctas(dev, m)} CTAs) vs {len(parts)} chunks of "
               f"one tile per CTA: dx/dv bitwise equal, dW/db max relative "
               f"{chunk_err:.3e} (tol {CHUNK_REL})")
+        k3_errs = _k3_checks(torch, np, fmlp, spec, flat, x, v, draw, m,
+                             label, dev)
         # times at the big M
         m = MLP_M[-1]
         with torch.no_grad():
@@ -563,7 +740,8 @@ def phase_mlp_kernels(torch, np, dev):
         b2 = max(k2_bytes / PEAK_BYTES, k2_ops_s) * 1e3
         out[label] = dict(
             errs=errs, k1_ms=ms_f, k2_ms=ms_b, k1_plain=pl_f, k2_plain=pl_b,
-            k1_bound=b1, k2_bound=b2,
+            k1_bound=b1, k2_bound=b2, k3_errs=k3_errs,
+            k3=_k3_times(torch, np, fmlp, spec, net, flat, label, dev),
             k1_by="bytes" if k1_bytes / PEAK_BYTES >= k1_ops_s
             else "operations",
             k2_by="bytes" if k2_bytes / PEAK_BYTES >= k2_ops_s
@@ -578,7 +756,8 @@ def phase_mlp_kernels(torch, np, dev):
         "name": "fused_mlp_fwd (K1)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "nerf_replication_tpu/ops/fused_mlp.py:339",
-        "max_abs_err": f32["errs"]["raw"], "ms": f32["k1_ms"],
+        "max_abs_err": max(f32["errs"]["raw"], f32["k3"]["k1_err"]),
+        "ms": f32["k1_ms"],
         "plain_ms": f32["k1_plain"], "bound_ms": f32["k1_bound"],
         "bound_by": f32["k1_by"], "library_ms": None,
     }, {
@@ -588,6 +767,20 @@ def phase_mlp_kernels(torch, np, dev):
         "max_abs_err": f32["errs"]["dW_abs"], "ms": f32["k2_ms"],
         "plain_ms": f32["k2_plain"], "bound_ms": f32["k2_bound"],
         "bound_by": f32["k2_by"], "library_ms": None,
+    }, {
+        "name": "fused_mlp_fwd_masked (K3a)", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "nerf_replication_tpu/ops/fused_mlp.py:370",
+        "max_abs_err": f32["k3_errs"]["raw"], "ms": f32["k3"]["k3a_ms"],
+        "plain_ms": f32["k3"]["k3a_plain"], "bound_ms": f32["k3"]["k3a_bound"],
+        "bound_by": f32["k3"]["k3a_by"], "library_ms": None,
+    }, {
+        "name": "fused_mlp_bwd_masked (K3b)", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "nerf_replication_tpu/ops/fused_mlp.py:397",
+        "max_abs_err": f32["k3_errs"]["dW_abs"], "ms": f32["k3"]["k3b_ms"],
+        "plain_ms": f32["k3"]["k3b_plain"], "bound_ms": f32["k3"]["k3b_bound"],
+        "bound_by": f32["k3"]["k3b_by"], "library_ms": None,
     }]
     return rows, out
 
@@ -759,6 +952,183 @@ def phase_serve_trained(torch, np, tmp, f32, data):
           f"K5 launches {LAUNCHES['fused_march_full']}")
 
 
+EVAL_ROUTES = (
+    ("per_ray", []),
+    ("packed_hier", ["task_arg.march_coarse_block", "8"]),
+    ("packed_clip", ["task_arg.march_clip_bbox", "true"]),
+)
+
+
+def _eval_opts(data, tmp, extra=()):
+    """The trained f32 run's opts, both test views, no march_fused."""
+    return _train_opts(data, os.path.join(tmp, "out"), "f32") + [
+        "test_dataset.cams", "[0, -1, 1]", *extra]
+
+
+def phase_eval(torch, np, tmp, data):
+    """Phase 7: run_evaluate of the trained checkpoint through the grid on
+    every eval route (cwd: tmp, where phase 6 saved logs/lego/)."""
+    from types import SimpleNamespace
+
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.renderer.volume import make_renderer
+    from nerf_replication_tpu_torch.run import run_evaluate
+    from nerf_replication_tpu_torch.train.checkpoint import (
+        load_trained_network,
+    )
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    args = SimpleNamespace(cfg_file=lego, device=DEVICE)
+    results, counts = {}, {}
+    for route, extra in EVAL_ROUTES:
+        cfg = make_cfg(lego, _eval_opts(data, tmp, extra))
+        fmlp.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_evaluate(cfg, args)
+        wall = time.perf_counter() - t0
+        counts[route] = dict(fmlp.LAUNCHES)
+        require(res["used_grid"], f"eval {route}: the grid did not load")
+        require(res["n_images"] == 2, f"eval {route}: {res['n_images']} views")
+        require(np.isfinite(res["psnr"]) and np.isfinite(res["ssim"]),
+                f"eval {route}: PSNR/SSIM not finite (maps not finite)")
+        if route == "per_ray":
+            require(counts[route]["fused_mlp_fwd"] > 0,
+                    "the per-ray route never launched K1")
+        else:
+            require(counts[route]["fused_mlp_fwd_masked"] > 0,
+                    f"eval {route} never launched K3a")
+            require(res["march"] and "overflow_frac" in res["march"],
+                    f"eval {route}: no overflow_frac reported")
+        results[route] = res
+        print(f"eval [{route}] 2 views {TRAIN_HW}x{TRAIN_HW}: PSNR {res['psnr']:.3f} dB, "
+              f"SSIM {res['ssim']:.4f}, mean net_time "
+              f"{res['mean_net_time_s'] * 1e3:.2f} ms (second view), run "
+              f"{wall:.1f} s, truncated {res['n_truncated']}, march "
+              f"{json.dumps(res['march'])}, launches {json.dumps(counts[route])}")
+
+    # view 0 of every route again through the plain Network (cuBLAS f32):
+    # the per-ray route holds K1 at its [4096 x 192] rows, the packed ones K3a
+    from nerf_replication_tpu_torch.datasets import make_dataset
+
+    cfg = make_cfg(lego, _eval_opts(data, tmp))
+    net, _ = load_trained_network(cfg, DEVICE, verbose=False)
+    batch = make_dataset(cfg, "test").image_batch(0)
+    rb = {"rays": torch.from_numpy(batch["rays"]).to(DEVICE),
+          "near": float(batch["near"]), "far": float(batch["far"])}
+    for route, extra in EVAL_ROUTES:
+        maps = []
+        for trunk in ([], ["network.nerf.fused_trunk", "false"]):
+            r = make_renderer(make_cfg(lego, _eval_opts(data, tmp,
+                                                         extra + trunk)), net)
+            require(r.load_occupancy_grid(os.path.join(
+                "logs", "lego", "occupancy_grid.npz")), "grid did not load")
+            with torch.no_grad():
+                maps.append(r.render_accelerated(rb))
+        err = max(float((maps[0][k] - maps[1][k]).abs().max())
+                  for k in ("rgb_map_f", "acc_map_f", "depth_map_f"))
+        kernel = "K1" if route == "per_ray" else "K3a"
+        require(err <= TOL_EVAL_MAPS, f"{route} view 0 through {kernel} vs "
+                f"the plain Network differs by {err} > {TOL_EVAL_MAPS}")
+        print(f"{route} view 0: {kernel} vs plain Network (cuBLAS f32) max "
+              f"|map diff| {err:.3e} (tol {TOL_EVAL_MAPS})")
+    k3a = sum(c["fused_mlp_fwd_masked"] for c in counts.values())
+    return results, counts, k3a
+
+
+def phase_packed_grad(torch, np, tmp, data):
+    """Phase 8: one gradient through the packed march with the fused apply
+    (K3a forward, K3b backward) against the plain Network's."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.ops.fused_mlp import make_fused_apply
+    from nerf_replication_tpu_torch.renderer.accelerated import MarchOptions
+    from nerf_replication_tpu_torch.renderer.packed_march import (
+        march_rays_packed,
+    )
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        load_occupancy_pyramid,
+    )
+    from nerf_replication_tpu_torch.train.checkpoint import (
+        load_trained_network,
+    )
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    cfg = make_cfg(lego, _eval_opts(data, tmp, EVAL_ROUTES[1][1]))
+    net, _ = load_trained_network(cfg, DEVICE, verbose=False)
+    levels, bbox = load_occupancy_pyramid(os.path.join(
+        "logs", "lego", "occupancy_grid.npz"))
+    grid = torch.from_numpy(levels[0]).to(DEVICE)
+    bbox = torch.from_numpy(bbox).to(DEVICE)
+    rays, rgbs = make_dataset(cfg, "train").ray_bank()
+    pick = np.random.default_rng(SEED).choice(rays.shape[0], 4096,
+                                              replace=False)
+    rays = torch.from_numpy(rays[pick]).to(DEVICE)
+    rgbs = torch.from_numpy(rgbs[pick]).to(DEVICE)
+    opts = MarchOptions.eval_from_cfg(cfg)
+    fused = make_fused_apply(net, cfg)
+
+    def plain(pts, vd, model):
+        return net(pts, vd, model=model)
+
+    grads = []
+    fmlp.reset_launch_counts()
+    for apply_fn in (fused, plain):
+        net.zero_grad()
+        out = march_rays_packed(apply_fn, rays, 2.0, 6.0, grid, bbox, opts,
+                                cap_avg=opts.max_samples)
+        loss = torch.mean((out["rgb_map_f"] - rgbs) ** 2)
+        loss.backward()
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in net.fine.named_parameters()})
+        if apply_fn is fused:
+            counts = dict(fmlp.LAUNCHES)
+    require(counts["fused_mlp_bwd_masked"] > 0,
+            "the packed-march gradient never launched K3b")
+    for g in grads[0].values():
+        require(bool(torch.isfinite(g).all()), "K3b gradient not finite")
+    fro = max(_fro(grads[0][n], grads[1][n]) for n in grads[0])
+    require(fro <= TOL_MLP["f32"]["fro"], f"packed-march gradient through "
+            f"K3b vs the plain Network: relative Frobenius {fro} > "
+            f"{TOL_MLP['f32']['fro']}")
+    print(f"packed-march gradient (4096 train rays, stream "
+          f"{4096 * opts.max_samples} rows, {int(out['march_samples_out'])} "
+          f"occupied): K3b vs plain Network max relative Frobenius "
+          f"{fro:.3e}; launches {json.dumps(counts)}")
+    return counts
+
+
+def phase_engine_routes(torch, np, tmp, data):
+    """Phase 9: one 200x200 request through the engine's staged packed
+    route and one through its grid-less chunked route."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.serve import engine_from_cfg
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    with open(os.path.join(data, "procedural", "transforms_test.json")) as f:
+        c2w = np.asarray(json.load(f)["frames"][0]["transform_matrix"],
+                         np.float32)
+    for route, extra in (
+            ("packed (march_fused off)", ["task_arg.march_coarse_block", "8"]),
+            ("grid-less chunked", ["task_arg.accelerated_renderer", "false"])):
+        cfg = make_cfg(lego, _eval_opts(data, tmp, extra + [
+            "serve.warmup", "false"]), default_task="run")
+        engine = engine_from_cfg(cfg, cfg_file=lego, device=DEVICE)
+        require(engine.use_grid == ("packed" in route),
+                f"{route}: use_grid {engine.use_grid}")
+        cam = engine.default_camera
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image, _ = engine.render_view(c2w, cam["H"], cam["W"], cam["focal"])
+        ms = (time.perf_counter() - t0) * 1e3
+        require(image.shape == (cam["H"], cam["W"], 3), f"{route}: image")
+        st = engine.stats()
+        print(f"engine {route}: one {cam['H']}x{cam['W']} request in "
+              f"{ms:.1f} ms (first on its route), mean pixel "
+              f"{float(image.mean()):.2f}, march {json.dumps(st['march'])}")
+
+
 def main() -> int:
     import torch
 
@@ -800,11 +1170,17 @@ def main() -> int:
         try:
             train_counts, f32, data = phase_train(torch, np, tmp)
             phase_serve_trained(torch, np, tmp, f32, data)
+            _, _, k3a_launches = phase_eval(torch, np, tmp, data)
+            grad_counts = phase_packed_grad(torch, np, tmp, data)
+            phase_engine_routes(torch, np, tmp, data)
         finally:
             os.chdir(cwd)
     counts.update(train_counts)
+    counts["fused_mlp_fwd_masked"] = k3a_launches
+    counts["fused_mlp_bwd_masked"] = grad_counts["fused_mlp_bwd_masked"]
     keys = {"K4": "fused_dda_gather", "K5": "fused_march_full",
-            "K1": "fused_mlp_fwd", "K2": "fused_mlp_bwd"}
+            "K1": "fused_mlp_fwd", "K2": "fused_mlp_bwd",
+            "K3a": "fused_mlp_fwd_masked", "K3b": "fused_mlp_bwd_masked"}
     rows = mlp_rows + rows
     for row in rows:
         key = next(v for k, v in keys.items() if f"({k})" in row["name"])

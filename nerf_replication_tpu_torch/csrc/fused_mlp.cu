@@ -41,6 +41,22 @@
 // (f32 CUDA cores: 67 TFLOP/s; bf16 tensor cores: 989 TFLOP/s); K2 does the
 // forward again plus two float32 backward products of the same size, all on
 // the CUDA cores. The partial read-modify-write adds ~4.8 MB per tile.
+//
+// K3a and K3b are the same two bodies with the compile-time flag MASKED
+// (K1 and K2 are the MASKED = false instantiations, unchanged). K3a replaces
+// `_fwd_kernel_masked` (fused_mlp.py:370, launched :528): the packed march's
+// per-row occupancy bit `valid` [M] (float32 0/1) streams in, a 64-row tile
+// with no valid row writes exact zeros and skips its chain (one
+// block-uniform __syncthreads_or over the tile's bits), and every other
+// tile stores raw8 * valid. K3b replaces `_bwd_kernel_masked` (:397,
+// launched :568): K2's persistent grid with draw * valid; a skipped tile
+// writes zero dx/dv and adds nothing to its CTA's partial, and a CTA whose
+// tiles all skip still zeroes its partial (the JAX kernel zeroes its
+// accumulators on step 0 for the same reason, :406-408). The reduce kernel
+// is K2's. The packed stream is sorted valid-first, so at ~5% occupancy
+// ~95% of its tiles skip: K3a's bound is then the bytes of x, v and the bit
+// of all M rows plus raw8, or the operations of the valid rows — whichever
+// is larger. Skipping at 64 rows (512 on the TPU) changes no row's result.
 #include "mlp_tile.cuh"
 
 namespace {
@@ -310,33 +326,62 @@ struct NoExtra {
   }
 };
 
-template <typename CT>
+// true for every thread of the block when any real row of the tile at row0
+// has a non-zero valid bit (block-uniform: all threads must call it)
+__device__ __forceinline__ bool tile_has_valid(const float* __restrict__ valid,
+                                               int row0, int m) {
+  const int r = threadIdx.x;
+  const bool mine = r < MLP_M && row0 + r < m && valid[row0 + r] != 0.0f;
+  return __syncthreads_or(mine) != 0;
+}
+
+// zero rows row0 .. row0 + MLP_M (those below m) of a global [M, C] array
+__device__ __forceinline__ void zero_rows(float* __restrict__ out, int C,
+                                          int row0, int m) {
+  for (int e = threadIdx.x; e < MLP_M * C; e += MLP_THREADS) {
+    const int r = e / C;
+    if (row0 + r < m) out[static_cast<size_t>(row0) * C + e] = 0.0f;
+  }
+}
+
+// K1 (MASKED = false, valid unused) and K3a (MASKED = true)
+template <typename CT, bool MASKED>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
     fused_mlp_fwd_kernel(const float* __restrict__ x,
-                         const float* __restrict__ v, int m, MlpDesc md,
+                         const float* __restrict__ v,
+                         const float* __restrict__ valid, int m, MlpDesc md,
                          const CT* __restrict__ ws,
                          const float* __restrict__ wh, float* __restrict__ raw8) {
   extern __shared__ __align__(16) float smem[];
   const TileSmem s = carve(smem, md);
   const int row0 = blockIdx.x * MLP_M;
+  if (MASKED && !tile_has_valid(valid, row0, m)) {
+    zero_rows(raw8, 8, row0, m);  // the whole block leaves together
+    return;
+  }
   load_rows(s.xs, x, md.c_in_pad, row0, m);
   load_rows(s.vs, v, md.c_views_pad, row0, m);
   // the first GEMM's barrier makes the rows visible
   mlp_tile_forward<CT>(md, ws, wh, s.xs, s.vs, s.b1, s.b2, s.wst, s.raw);
   for (int e = threadIdx.x; e < MLP_M * 8; e += MLP_THREADS) {
     const int r = e >> 3, c = e & 7;
-    if (row0 + r < m)
-      raw8[static_cast<size_t>(row0 + r) * 8 + c] = c < 4 ? s.raw[r * 4 + c] : 0.0f;
+    if (row0 + r < m) {
+      float val = c < 4 ? s.raw[r * 4 + c] : 0.0f;
+      if (MASKED) val = val * valid[row0 + r];  // raw8 * valid
+      raw8[static_cast<size_t>(row0 + r) * 8 + c] = val;
+    }
   }
 }
 
-// K2. wt: every tensor of the flatten order as float32, 2-D ones transposed
-// to [out, in] (the B operand of `dotT` for gemm_acc); acts: gridDim.x x
-// (D + 2) x MLP_M x W floats; partials: gridDim.x x po.total floats.
-template <typename CT>
+// K2 (MASKED = false, valid unused) and K3b (MASKED = true). wt: every
+// tensor of the flatten order as float32, 2-D ones transposed to [out, in]
+// (the B operand of `dotT` for gemm_acc); acts: gridDim.x x (D + 2) x MLP_M
+// x W floats; partials: gridDim.x x po.total floats.
+template <typename CT, bool MASKED>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
     fused_mlp_bwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ v,
+                         const float* __restrict__ valid,
                          const float* __restrict__ draw, int m, MlpDesc md,
                          const CT* __restrict__ ws,
                          const float* __restrict__ wh,
@@ -356,10 +401,18 @@ __global__ void __launch_bounds__(MLP_THREADS, 1)
   const float* wr = wh + W * 8 + 8;        // [W2, 8]
   const int n_tiles = (m + MLP_M - 1) / MLP_M;
   float acc[MLP_ROWS_PER_WARP][8];
+  bool started = false;  // this CTA's partial holds a tile's sums
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
     const int row0 = tile * MLP_M;
+    if (MASKED && !tile_has_valid(valid, row0, m)) {
+      // a skipped tile: zero dx/dv rows, nothing into the partial
+      if (dx != nullptr) zero_rows(dx, cin, row0, m);
+      if (dv != nullptr) zero_rows(dv, cvp, row0, m);
+      continue;
+    }
+    const bool first = !started;  // = on the first tile it sums, then +=
+    started = true;
     load_rows(s.xs, x, cin, row0, m);
     load_rows(s.vs, v, cvp, row0, m);
     // recompute: every activation lands in the CTA's scratch
@@ -367,7 +420,9 @@ __global__ void __launch_bounds__(MLP_THREADS, 1)
                                s.raw, acts);
     for (int e = threadIdx.x; e < MLP_M * 8; e += MLP_THREADS) {
       const int r = e >> 3;
-      s.d8[e] = row0 + r < m ? draw[static_cast<size_t>(row0) * 8 + e] : 0.0f;
+      float d = row0 + r < m ? draw[static_cast<size_t>(row0) * 8 + e] : 0.0f;
+      if (MASKED && row0 + r < m) d = d * valid[row0 + r];  // draw * valid
+      s.d8[e] = d;
     }
     copy_tile(s.b2, ldh, act(md.D + 1), W, W2);  // vh
     __syncthreads();
@@ -454,6 +509,10 @@ __global__ void __launch_bounds__(MLP_THREADS, 1)
     }
     __syncthreads();  // the next tile overwrites xs, b1, b2
   }
+  if (MASKED && !started) {
+    // every tile of this CTA skipped: its partial still enters the reduce
+    for (long long j = threadIdx.x; j < po.total; j += MLP_THREADS) P[j] = 0.0f;
+  }
 }
 
 // grad[j] = sum over CTAs c, in order, of partials[c, j]
@@ -476,34 +535,35 @@ bool shape_ok(const MlpDesc& md) {
          md.skip < md.D - 1 && tile_smem_bytes(md) <= 232448;
 }
 
-template <typename CT>
-int launch_fwd(const float* x, const float* v, int m, const MlpDesc& md,
-               const void* ws, const float* wh, float* raw8,
-               cudaStream_t stream) {
+template <typename CT, bool MASKED>
+int launch_fwd(const float* x, const float* v, const float* valid, int m,
+               const MlpDesc& md, const void* ws, const float* wh,
+               float* raw8, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(md);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_mlp_fwd_kernel<CT, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (m + MLP_M - 1) / MLP_M;
-  fused_mlp_fwd_kernel<CT><<<blocks, MLP_THREADS, smem, stream>>>(
-      x, v, m, md, static_cast<const CT*>(ws), wh, raw8);
+  fused_mlp_fwd_kernel<CT, MASKED><<<blocks, MLP_THREADS, smem, stream>>>(
+      x, v, valid, m, md, static_cast<const CT*>(ws), wh, raw8);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename CT>
-int launch_bwd(const float* x, const float* v, const float* draw, int m,
-               const MlpDesc& md, const void* ws, const float* wh,
-               const float* wt, float* acts, float* partials, int n_ctas,
-               float* dx, float* dv, float* grad, cudaStream_t stream) {
+template <typename CT, bool MASKED>
+int launch_bwd(const float* x, const float* v, const float* valid,
+               const float* draw, int m, const MlpDesc& md, const void* ws,
+               const float* wh, const float* wt, float* acts,
+               float* partials, int n_ctas, float* dx, float* dv, float* grad,
+               cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(md);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_mlp_bwd_kernel<CT, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const ParamOffsets po = param_offsets(md);
-  fused_mlp_bwd_kernel<CT><<<n_ctas, MLP_THREADS, smem, stream>>>(
-      x, v, draw, m, md, static_cast<const CT*>(ws), wh, wt, po, acts,
+  fused_mlp_bwd_kernel<CT, MASKED><<<n_ctas, MLP_THREADS, smem, stream>>>(
+      x, v, valid, draw, m, md, static_cast<const CT*>(ws), wh, wt, po, acts,
       partials, dx, dv);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -519,31 +579,47 @@ int launch_bwd(const float* x, const float* v, const float* draw, int m,
 
 NRT_DEFINE_ERROR_STRING
 
-extern "C" int nrt_fused_mlp_fwd(const float* x, const float* v, int m,
+// K1/K2 when `valid` is null; K3a/K3b with `valid` [M] float32 0/1
+extern "C" int nrt_fused_mlp_fwd(const float* x, const float* v,
+                                 const float* valid, int m,
                                  const MlpDesc* md, const void* ws, int bf16,
                                  const float* wh, float* raw8, void* stream) {
   if (m <= 0) return 0;
   if (!shape_ok(*md)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_fwd<__nv_bfloat16>(x, v, m, *md, ws, wh, raw8, s);
-  return launch_fwd<float>(x, v, m, *md, ws, wh, raw8, s);
+    return valid ? launch_fwd<__nv_bfloat16, true>(x, v, valid, m, *md, ws,
+                                                   wh, raw8, s)
+                 : launch_fwd<__nv_bfloat16, false>(x, v, valid, m, *md, ws,
+                                                    wh, raw8, s);
+  return valid ? launch_fwd<float, true>(x, v, valid, m, *md, ws, wh, raw8, s)
+               : launch_fwd<float, false>(x, v, valid, m, *md, ws, wh, raw8,
+                                          s);
 }
 
 extern "C" int nrt_fused_mlp_bwd(const float* x, const float* v,
-                                 const float* draw, int m, const MlpDesc* md,
-                                 const void* ws, int bf16, const float* wh,
-                                 const float* wt, float* acts,
-                                 float* partials, int n_ctas, float* dx,
-                                 float* dv, float* grad, void* stream) {
+                                 const float* valid, const float* draw, int m,
+                                 const MlpDesc* md, const void* ws, int bf16,
+                                 const float* wh, const float* wt,
+                                 float* acts, float* partials, int n_ctas,
+                                 float* dx, float* dv, float* grad,
+                                 void* stream) {
   if (m <= 0) return 0;
   const int n_tiles = (m + MLP_M - 1) / MLP_M;
   if (!shape_ok(*md) || n_ctas < 1 || n_ctas > n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_bwd<__nv_bfloat16>(x, v, draw, m, *md, ws, wh, wt, acts,
-                                     partials, n_ctas, dx, dv, grad, s);
-  return launch_bwd<float>(x, v, draw, m, *md, ws, wh, wt, acts, partials,
-                           n_ctas, dx, dv, grad, s);
+    return valid ? launch_bwd<__nv_bfloat16, true>(
+                       x, v, valid, draw, m, *md, ws, wh, wt, acts, partials,
+                       n_ctas, dx, dv, grad, s)
+                 : launch_bwd<__nv_bfloat16, false>(
+                       x, v, valid, draw, m, *md, ws, wh, wt, acts, partials,
+                       n_ctas, dx, dv, grad, s);
+  return valid ? launch_bwd<float, true>(x, v, valid, draw, m, *md, ws, wh, wt,
+                                         acts, partials, n_ctas, dx, dv, grad,
+                                         s)
+               : launch_bwd<float, false>(x, v, valid, draw, m, *md, ws, wh,
+                                          wt, acts, partials, n_ctas, dx, dv,
+                                          grad, s);
 }

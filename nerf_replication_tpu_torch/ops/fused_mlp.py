@@ -1,4 +1,5 @@
-"""The fused NeRF MLP: host side, the kernels K1/K2 and their plain versions.
+"""The fused NeRF MLP: host side, the kernels K1/K2/K3a/K3b and their plain
+versions.
 
 Port of ``nerf_replication_tpu/ops/fused_mlp.py``: :class:`FusedSpec`
 (padded widths) and :meth:`FusedSpec.flatten_params` (the canonical weight
@@ -32,7 +33,22 @@ backward product is float32 whatever the compute dtype (``_backward_tile``),
 and a bf16-streamed weight's gradient is rounded to bf16 before it flows back
 to its float32 parameter (fused_mlp.py:501-504).
 
-The masked variants (K3a/K3b) come with the packed-march slice.
+Two more TPU kernels, the masked variants the packed march streams its
+occupancy bit into, become :func:`mlp_forward` / :func:`mlp_backward` with a
+``valid`` argument (the same CUDA source, a compile-time ``MASKED`` flag on
+the K1/K2 bodies):
+
+* **K3a** (replaces ``_fwd_kernel_masked``, fused_mlp.py:370): K1 times the
+  per-row valid bit; a 64-row tile with no valid row writes zeros and skips
+  its chain. Plain version: ``forward_tile(...) * valid``.
+* **K3b** (replaces ``_bwd_kernel_masked``, fused_mlp.py:397): K2 with the
+  cotangent times the valid bit; a skipped tile writes zero dx/dv and adds
+  nothing to its CTA's partial, and a CTA whose tiles all skip still zeroes
+  its partial. Plain version: ``backward_tile`` with ``draw * valid``.
+
+:class:`FusedMLPMaskedFunction` ties K3a/K3b into autograd; the bit is data
+routing and gets no gradient. :func:`fused_mlp_raw_masked` pads rows to the
+tile as the JAX package does, the pad rows invalid.
 """
 
 from __future__ import annotations
@@ -44,7 +60,9 @@ import torch.nn.functional as F
 
 # kernel launches per wrapper since the last reset (chip_smoke.py resets it
 # right before it drives the training path and reads it right after)
-LAUNCHES: dict[str, int] = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+LAUNCHES: dict[str, int] = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
+                            "fused_mlp_fwd_masked": 0,
+                            "fused_mlp_bwd_masked": 0}
 
 
 def reset_launch_counts() -> None:
@@ -338,17 +356,34 @@ def _check_kernel_shape(spec: FusedSpec):
         raise TypeError(f"compute dtype {spec.compute_dtype} (f32 or bf16)")
 
 
+def _check_valid(valid, x) -> torch.Tensor | None:
+    """The per-row valid bit as a contiguous float32 [M] (0/1, or bool /
+    uint8 converted), on x's device; ``None`` passes through."""
+    if valid is None:
+        return None
+    if valid.shape not in ((x.shape[0],), (x.shape[0], 1)) or \
+            valid.device != x.device:
+        raise ValueError(f"valid must be [{x.shape[0]}] (or [M, 1]) on "
+                         f"{x.device}, got {tuple(valid.shape)} on "
+                         f"{valid.device}")
+    return valid.reshape(-1).to(torch.float32).contiguous()
+
+
 def mlp_forward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
-                flat: list[torch.Tensor], m: int | None = None) -> torch.Tensor:
-    """K1: ``raw8 [M, 8]`` of the first ``m`` rows (default all); the other
-    rows are zero. The plain version for CPU tensors, the CUDA kernel
-    (``csrc/fused_mlp.cu``) for CUDA tensors."""
+                flat: list[torch.Tensor], m: int | None = None,
+                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 (or K3a with ``valid``): ``raw8 [M, 8]`` of the first ``m`` rows
+    (default all), times the row's valid bit when ``valid [M]`` is given;
+    the other rows are zero. The plain version for CPU tensors, the CUDA
+    kernel (``csrc/fused_mlp.cu``) for CUDA tensors."""
     m = x.shape[0] if m is None else int(m)
     _check(spec, x, v, flat, m)
+    valid = _check_valid(valid, x)
     if x.device.type == "cpu":
         out = x.new_zeros((x.shape[0], 8))
         if m:
-            out[:m] = forward_tile(spec, x[:m], v[:m], flat)
+            raw = forward_tile(spec, x[:m], v[:m], flat)
+            out[:m] = raw if valid is None else raw * valid[:m, None]
         return out
     _check_kernel_shape(spec)
     from .kernels import _ptr, _raise_on, _stream, load
@@ -362,12 +397,13 @@ def mlp_forward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     desc = _desc(spec)
     import ctypes
 
+    bf16 = int(spec.compute_dtype == torch.bfloat16)
+    name = "fused_mlp_fwd" if valid is None else "fused_mlp_fwd_masked"
     err = lib.nrt_fused_mlp_fwd(
-        _ptr(x), _ptr(v), m, ctypes.byref(desc), _ptr(stream),
-        int(spec.compute_dtype == torch.bfloat16), _ptr(heads), _ptr(out),
-        _stream(x.device))
-    _raise_on(lib, err, "fused_mlp_fwd (K1)")
-    LAUNCHES["fused_mlp_fwd"] += 1
+        _ptr(x), _ptr(v), _ptr(valid), m, ctypes.byref(desc), _ptr(stream),
+        bf16, _ptr(heads), _ptr(out), _stream(x.device))
+    _raise_on(lib, err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -380,20 +416,22 @@ def _backward_ctas(device: torch.device, m: int) -> int:
 def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
                  draw: torch.Tensor, flat: list[torch.Tensor],
                  m: int | None = None, want_dx: bool = True,
-                 want_dv: bool = True):
-    """K2: ``(dx, dv, grads)`` of the first ``m`` rows under cotangent
-    ``draw [M, 8]``: dx/dv float32 (rows past ``m`` zero; ``None`` unless
-    asked for), one float32 gradient per tensor of ``flat``. The plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+                 want_dv: bool = True, valid: torch.Tensor | None = None):
+    """K2 (or K3b with ``valid``): ``(dx, dv, grads)`` of the first ``m``
+    rows under cotangent ``draw [M, 8]`` (times the row's valid bit when
+    ``valid [M]`` is given): dx/dv float32 (rows past ``m`` zero; ``None``
+    unless asked for), one float32 gradient per tensor of ``flat``. The
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     m = x.shape[0] if m is None else int(m)
     _check(spec, x, v, flat, m)
     if draw.shape != (x.shape[0], 8) or draw.device != x.device:
         raise ValueError(f"draw must be [{x.shape[0]}, 8] on {x.device}")
+    valid = _check_valid(valid, x)
     draw = draw.to(torch.float32).contiguous()
     if x.device.type == "cpu":
         if m:
-            dx_m, dv_m, grads = backward_tile(spec, x[:m], v[:m], draw[:m],
-                                              flat)
+            d_m = draw[:m] if valid is None else draw[:m] * valid[:m, None]
+            dx_m, dv_m, grads = backward_tile(spec, x[:m], v[:m], d_m, flat)
         else:
             dx_m, dv_m = x[:0], v[:0]
             grads = [torch.zeros(t.shape, dtype=torch.float32) for t in flat]
@@ -422,13 +460,15 @@ def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
         partials = torch.empty((n_ctas, total), dtype=torch.float32,
                                device=dev)
         desc = _desc(spec)
+        bf16 = int(spec.compute_dtype == torch.bfloat16)
+        name = "fused_mlp_bwd" if valid is None else "fused_mlp_bwd_masked"
         err = lib.nrt_fused_mlp_bwd(
-            _ptr(x), _ptr(v), _ptr(draw), m, ctypes.byref(desc), _ptr(stream),
-            int(spec.compute_dtype == torch.bfloat16), _ptr(heads), _ptr(wt),
-            _ptr(acts), _ptr(partials), n_ctas, _ptr(dx), _ptr(dv),
-            _ptr(grad), _stream(dev))
-        _raise_on(lib, err, "fused_mlp_bwd (K2)")
-        LAUNCHES["fused_mlp_bwd"] += 1
+            _ptr(x), _ptr(v), _ptr(valid), _ptr(draw), m, ctypes.byref(desc),
+            _ptr(stream), bf16, _ptr(heads), _ptr(wt), _ptr(acts),
+            _ptr(partials), n_ctas, _ptr(dx), _ptr(dv), _ptr(grad),
+            _stream(dev))
+        _raise_on(lib, err, name)
+        LAUNCHES[name] += 1
     else:
         grad.zero_()
     grads = [g.view(t.shape) for g, t in zip(torch.split(grad, sizes), flat)]
@@ -437,26 +477,36 @@ def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
 
 class FusedMLPFunction(torch.autograd.Function):
     """``raw8 = MLP(x, v; flat)`` whose forward is K1 and whose backward is
-    K2. Saves only ``(x, v, flat)``: the backward recomputes the forward,
-    as the JAX custom VJP does. dx/dv are computed only when autograd asks
-    for them (in the train step rays are data and need none)."""
+    K2 — or, with a ``valid`` bit, K3a and K3b (the bit gets no gradient:
+    it routes data). Saves only ``(x, v, valid, flat)``: the backward
+    recomputes the forward, as the JAX custom VJP does. dx/dv are computed
+    only when autograd asks for them (in the train step rays are data and
+    need none)."""
 
     @staticmethod
-    def forward(ctx, spec, m, x, v, *flat):
+    def forward(ctx, spec, m, x, v, valid, *flat):
         ctx.spec, ctx.m = spec, m
-        ctx.save_for_backward(x, v, *flat)
-        return mlp_forward(spec, x, v, list(flat), m)
+        ctx.save_for_backward(x, v, valid, *flat)
+        return mlp_forward(spec, x, v, list(flat), m, valid=valid)
 
     @staticmethod
     def backward(ctx, draw):
-        x, v, *flat = ctx.saved_tensors
+        x, v, valid, *flat = ctx.saved_tensors
         want_dx, want_dv = ctx.needs_input_grad[2], ctx.needs_input_grad[3]
         dx, dv, grads = mlp_backward(ctx.spec, x, v, draw, flat, ctx.m,
-                                     want_dx, want_dv)
+                                     want_dx, want_dv, valid=valid)
         # a bf16-streamed weight's cotangent is bf16, as in JAX (:504)
         dws = [g.to(w.dtype) if need else None for g, w, need in
-               zip(grads, flat, ctx.needs_input_grad[4:])]
-        return (None, None, dx, dv, *dws)
+               zip(grads, flat, ctx.needs_input_grad[5:])]
+        return (None, None, dx, dv, None, *dws)
+
+
+def _padded_inputs(spec: FusedSpec, x_enc, d_enc, tile: int):
+    m = x_enc.shape[0]
+    m_pad = _rup(max(m, 1), int(tile))
+    x = _pad_rows(_pad_cols(x_enc.to(torch.float32), spec.c_in_pad), m_pad)
+    v = _pad_rows(_pad_cols(d_enc.to(torch.float32), spec.c_views_pad), m_pad)
+    return m, m_pad, x, v
 
 
 def fused_mlp_raw(spec: FusedSpec, branch, x_enc: torch.Tensor,
@@ -465,12 +515,22 @@ def fused_mlp_raw(spec: FusedSpec, branch, x_enc: torch.Tensor,
     4]`` raw. Pads M to a ``tile`` multiple (as the JAX package does) and
     the channels to the spec's padded widths; differentiable in the
     branch's parameters, ``x_enc`` and ``d_enc``."""
-    m = x_enc.shape[0]
-    m_pad = _rup(max(m, 1), int(tile))
-    x = _pad_rows(_pad_cols(x_enc.to(torch.float32), spec.c_in_pad), m_pad)
-    v = _pad_rows(_pad_cols(d_enc.to(torch.float32), spec.c_views_pad), m_pad)
+    m, _, x, v = _padded_inputs(spec, x_enc, d_enc, tile)
     flat = spec.flatten_params(branch)
-    raw8 = FusedMLPFunction.apply(spec, m, x, v, *flat)
+    raw8 = FusedMLPFunction.apply(spec, m, x, v, None, *flat)
+    return raw8[:m, :4]
+
+
+def fused_mlp_raw_masked(spec: FusedSpec, branch, x_enc: torch.Tensor,
+                         d_enc: torch.Tensor, valid: torch.Tensor,
+                         tile: int = 512) -> torch.Tensor:
+    """:func:`fused_mlp_raw` with a ``[M]`` validity mask streamed into the
+    kernel (K3a/K3b): rows with ``valid == 0`` return raw 0 and receive
+    zero cotangent. The pad rows to the tile multiple are invalid."""
+    m, m_pad, x, v = _padded_inputs(spec, x_enc, d_enc, tile)
+    val = _pad_rows(valid.reshape(-1).to(torch.float32), m_pad)
+    flat = spec.flatten_params(branch)
+    raw8 = FusedMLPFunction.apply(spec, m, x, v, val.detach(), *flat)
     return raw8[:m, :4]
 
 
@@ -501,22 +561,30 @@ def fused_spec_for(network) -> FusedSpec:
 
 
 def make_fused_apply(network, cfg):
-    """``apply_fn(pts, viewdirs, model) -> raw [..., 4]`` running the MLP
-    of ``network`` through K1/K2 (``network.nerf.fused_tile`` rows of host
+    """``apply_fn(pts, viewdirs, model, valid=None) -> raw [..., 4]``
+    running the MLP of ``network`` through K1/K2, or K3a/K3b when a per-row
+    ``valid`` mask is given (``network.nerf.fused_tile`` rows of host
     padding). Refuses unsupported families loudly."""
     tile = int(cfg.network.nerf.get("fused_tile", 512))
     spec = fused_spec_for(network)
 
-    def apply_fn(pts, viewdirs, model):
+    def apply_fn(pts, viewdirs, model, valid=None):
         x_enc = network.xyz_encoder(pts)
         dirs = viewdirs[..., None, :].expand(
             *pts.shape[:-1], viewdirs.shape[-1])
         d_enc = network.dir_encoder(dirs)
         lead = x_enc.shape[:-1]
-        raw = fused_mlp_raw(
-            spec, getattr(network, model),
-            x_enc.reshape(-1, x_enc.shape[-1]),
-            d_enc.reshape(-1, d_enc.shape[-1]), tile=tile)
+        x_enc = x_enc.reshape(-1, x_enc.shape[-1])
+        d_enc = d_enc.reshape(-1, d_enc.shape[-1])
+        branch = getattr(network, model)
+        if valid is None:
+            raw = fused_mlp_raw(spec, branch, x_enc, d_enc, tile=tile)
+        else:
+            raw = fused_mlp_raw_masked(spec, branch, x_enc, d_enc,
+                                       valid.reshape(-1), tile=tile)
         return raw.reshape(*lead, 4)
 
+    # the packed march streams its per-sample occupancy bit into the kernel
+    # (K3a) when the apply advertises this flag
+    apply_fn.supports_valid_mask = True
     return apply_fn

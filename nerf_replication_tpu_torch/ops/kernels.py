@@ -51,12 +51,13 @@ ARGTYPES = {
                                  _P, _P, _P, _P, _P, _P],
     },
     "fused_mlp": {
-        # x, v, m, desc*, w_stream, bf16, w_heads, raw8, stream
-        "nrt_fused_mlp_fwd": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
-        # x, v, draw, m, desc*, w_stream, bf16, w_heads, w_transposed, acts,
-        # partials, n_ctas, dx, dv, grad, stream
-        "nrt_fused_mlp_bwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                              _I, _P, _P, _P, _P],
+        # x, v, valid (null: K1), m, desc*, w_stream, bf16, w_heads, raw8,
+        # stream
+        "nrt_fused_mlp_fwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
+        # x, v, valid (null: K2), draw, m, desc*, w_stream, bf16, w_heads,
+        # w_transposed, acts, partials, n_ctas, dx, dv, grad, stream
+        "nrt_fused_mlp_bwd": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                              _P, _I, _P, _P, _P, _P],
     },
 }
 

@@ -2,10 +2,11 @@
 ``nerf_replication_tpu/renderer/gate.py``).
 
 ``full_image_render_fn`` is the one factory every whole-image surface uses
-(in-training validation, eval). The port has its single-device branch: the
-renderer's chunked render. The occupancy-march branch (``use_grid``) comes
-with port slice 3 and the sequence-parallel one (``eval.sharded`` on several
-cards) with slice 7; both raise.
+(in-training validation, eval). The port has the single-device branches:
+the renderer's chunked render, and with ``use_grid`` its occupancy-
+accelerated march (``Renderer.render_accelerated``, a grid already loaded).
+The sequence-parallel branch (``eval.sharded`` on several cards) comes with
+port slice 7 and raises.
 """
 
 from __future__ import annotations
@@ -33,14 +34,10 @@ def check_baked_bounds(baked_near, baked_far, near, far,
 
 def full_image_render_fn(cfg, network, renderer, test_ds, use_grid=False):
     """``render(batch) -> out`` for whole test images (``batch`` holds
-    ``rays`` on the renderer's device, ``near`` and ``far``)."""
+    ``rays`` on the renderer's device, ``near`` and ``far``). ``use_grid``
+    selects the occupancy-accelerated march."""
     import torch
 
-    if use_grid:
-        raise NotImplementedError(
-            "full_image_render_fn(use_grid=True): the occupancy-accelerated "
-            "whole-image march comes with port slice 3"
-        )
     if bool(cfg.get("eval", {}).get("sharded", False)) and \
             torch.cuda.device_count() > 1:
         raise NotImplementedError(
@@ -48,8 +45,11 @@ def full_image_render_fn(cfg, network, renderer, test_ds, use_grid=False):
             "comes with port slice 7"
         )
 
+    whole = renderer.render_accelerated if use_grid else \
+        renderer.render_chunked
+
     def render(batch):
         with torch.no_grad():
-            return renderer.render_chunked(batch)
+            return whole(batch)
 
     return render

@@ -187,6 +187,20 @@ def load_occupancy_pyramid(path: str):
     return levels, bbox
 
 
+def occupancy_stats(grid: np.ndarray) -> dict:
+    """Sanity-check stats of a baked grid (bool, 3-D)."""
+    if grid.dtype != np.bool_ or grid.ndim != 3:
+        raise ValueError(f"grid must be a 3-D bool array, got {grid.dtype} "
+                         f"{grid.shape}")
+    occupied = int(grid.sum())
+    return {
+        "shape": tuple(grid.shape),
+        "occupied": occupied,
+        "total": grid.size,
+        "occupancy_pct": 100.0 * occupied / grid.size,
+    }
+
+
 def world_to_voxel(pts: torch.Tensor, bbox: torch.Tensor,
                    resolution: int) -> torch.Tensor:
     """World points → int64 voxel indices, clamped into the grid:

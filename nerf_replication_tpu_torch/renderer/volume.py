@@ -20,6 +20,17 @@ otherwise; ``render`` renders a training batch and ``render_chunked`` a whole
 image in ``chunk_size``-ray chunks. ``task_arg.remat`` is accepted and has
 no effect: the fused MLP's backward already recomputes its activations, and
 the plain path keeps autograd's. ``sampling.mode: proposal`` raises.
+
+The occupancy-accelerated eval (``render_accelerated``, after
+``load_occupancy_grid``) renders a whole image in ``march_chunk_size``-ray
+chunks through the route ``_build_march_fn`` picks, as the JAX renderer
+does: ``march_fused full`` (K5) or ``gather`` (K4); else the packed march
+when ``march_coarse_block > 0`` or ``march_clip_bbox`` (its MLP through K3a
+under ``fused_trunk``); else the per-ray march (through K1 under
+``fused_trunk``). Without a grid it is the chunked render, with the JAX
+package's message. Deliberate difference: the JAX renderer caches one jitted
+executable per (chunks, bounds, options); PyTorch runs eagerly, so the port
+builds the route per render and caches nothing.
 """
 
 from __future__ import annotations
@@ -221,6 +232,21 @@ class Renderer:
             from ..ops.fused_mlp import make_fused_apply
 
             self._fused_apply = make_fused_apply(network, cfg)
+        # occupancy-accelerated eval state (the eval march budget)
+        from .accelerated import MarchOptions
+
+        self.march_options = MarchOptions.eval_from_cfg(cfg)
+        self.packed_cap = eval_packed_cap(cfg, self.march_options)
+        self.occupancy_grid = None
+        self.grid_bbox = None
+        # rays that exhausted the march budget while still transparent,
+        # summed on the device; report_truncation reads it once
+        self._n_truncated = None
+        # the last marched render's traversal stats ([n_chunks] tensors on
+        # the device) with a monotone sweep stamp; a chunked render clears
+        # them
+        self.last_march_stats: dict = {}
+        self._march_sweep = 0
 
     def _apply_fn(self):
         if self._fused_apply is not None:
@@ -241,18 +267,148 @@ class Renderer:
         does), outputs concatenated and cut back to the N rays. Drawn
         without a generator, as the JAX package's validation renders with
         no key: eval is deterministic."""
-        rays = batch["rays"]
-        n = rays.shape[0]
-        chunk = min(self.eval_options.chunk_size, n)
-        n_chunks = -(-n // chunk)
-        pad = n_chunks * chunk - n
-        if pad:
-            rays = torch.cat([rays, rays.new_zeros((pad, rays.shape[-1]))], 0)
-        outs = [render_rays(self._apply_fn(), rays[i * chunk:(i + 1) * chunk],
-                            batch["near"], batch["far"], None,
-                            self.eval_options)
-                for i in range(n_chunks)]
-        return {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
+        self.last_march_stats = {}
+        apply_fn = self._apply_fn()
+        return map_chunks(
+            lambda rc: render_rays(apply_fn, rc, batch["near"], batch["far"],
+                                   None, self.eval_options),
+            batch["rays"], self.eval_options.chunk_size)
+
+    # -- occupancy-accelerated path (ESS + ERT) ------------------------------
+
+    def _device(self) -> torch.device:
+        return next(self.network.parameters()).device
+
+    def load_occupancy_grid(self, grid_path: str) -> bool:
+        """Load a baked grid onto the network's device; a missing or
+        unusable file prints the JAX package's message and returns False
+        (``render_accelerated`` then renders chunked, the reference's slow
+        mode). Only the fine level is held: the coarse level is derived
+        from it where a route needs it."""
+        import os
+
+        import numpy as np
+
+        from .occupancy import load_occupancy_pyramid
+
+        if not os.path.exists(grid_path):
+            print(f"Occupancy grid file not found: {grid_path}, run in slow "
+                  "mode.")
+            return False
+        try:
+            levels, bbox = load_occupancy_pyramid(grid_path)
+        except OSError as exc:
+            print(f"Occupancy grid unusable ({exc}), run in slow mode.")
+            return False
+        dev = self._device()
+        self.occupancy_grid = torch.from_numpy(
+            np.ascontiguousarray(levels[0])).to(dev)
+        self.grid_bbox = torch.from_numpy(np.asarray(bbox, np.float32)).to(dev)
+        return True
+
+    def _build_march_fn(self, near: float, far: float):
+        """``fn(rays_chunk [chunk, 6]) -> out`` for one route, chosen as the
+        JAX renderer (and the serving engine) choose it: ``march_fused``
+        wins; otherwise ``coarse_block > 0`` or ``clip_bbox`` take the
+        packed march; the per-ray march runs last."""
+        options = self.march_options
+        grid, bbox = self.occupancy_grid, self.grid_bbox
+
+        if options.march_fused == "full":
+            from ..ops.fused_march import FusedWeights, march_rays_fused_full
+            from ..ops.fused_mlp import fused_spec_for
+
+            network = self.network
+            weights = FusedWeights(fused_spec_for(network), network.fine)
+            return lambda rc: march_rays_fused_full(
+                weights, network.xyz_encoder, network.dir_encoder, rc, near,
+                far, grid, bbox, options)
+
+        return staged_march_fn(self._apply_fn(), near, far, grid, bbox,
+                               options, self.packed_cap)
+
+    def render_accelerated(self, batch: dict) -> dict:
+        """Whole-image ESS + ERT render in ``march_chunk_size``-ray chunks
+        (the last one zero-padded); the chunked render when no grid is
+        loaded. The per-chunk traversal stats move to
+        ``last_march_stats`` and the truncation flags into the device
+        counter that :meth:`report_truncation` reads."""
+        if self.occupancy_grid is None:
+            return self.render_chunked(batch)
+        fn = self._build_march_fn(float(batch["near"]), float(batch["far"]))
+        out = map_chunks(fn, batch["rays"], self.march_options.chunk_size)
+        stats = {k: out.pop(k) for k in (
+            "march_candidates", "march_samples_out", "march_coarse_occ",
+            "overflow_frac") if k in out}
+        self._march_sweep += 1
+        stats["sweep"] = self._march_sweep
+        self.last_march_stats = stats
+        self.accumulate_truncated(out.pop("truncated"))
+        return out
+
+    def accumulate_truncated(self, flags_or_count) -> None:
+        """Fold per-ray truncation flags (or a count) into the on-device
+        counter read by :meth:`report_truncation`."""
+        n = torch.sum(torch.as_tensor(flags_or_count)).to(torch.int64)
+        self._n_truncated = n if self._n_truncated is None else \
+            self._n_truncated + n.to(self._n_truncated.device)
+
+    def report_truncation(self, log=print) -> int:
+        """One host sync: rays (since the last call) that exhausted the
+        ``max_march_samples`` budget while still transparent."""
+        n_truncated = 0 if self._n_truncated is None else \
+            int(self._n_truncated)
+        self._n_truncated = None
+        if n_truncated:
+            log(f"render_accelerated: {n_truncated} rays exceeded the "
+                f"max_march_samples={self.march_options.max_samples} budget "
+                f"while still transparent (far contributions truncated)")
+        return n_truncated
+
+
+def eval_packed_cap(cfg, options) -> int:
+    """Stream cap per ray of the eval packed (hierarchical / clip_bbox)
+    march: ``task_arg.packed_cap_avg_eval``, else the per-ray budget."""
+    return int(cfg.task_arg.get("packed_cap_avg_eval", options.max_samples))
+
+
+def staged_march_fn(apply_fn, near: float, far: float, grid: torch.Tensor,
+                    bbox: torch.Tensor, options, packed_cap: int):
+    """``fn(rays_chunk) -> out`` of the march routes that call ``apply_fn``
+    (the renderer's and the serving engine's): ``march_fused gather`` (K4);
+    else the packed march when ``coarse_block > 0`` or ``clip_bbox``, with a
+    stream of ``packed_cap`` rows per ray; else the per-ray march."""
+    if options.march_fused == "gather":
+        from ..ops.fused_march import march_rays_fused
+
+        return lambda rc: march_rays_fused(apply_fn, rc, near, far, grid,
+                                           bbox, options)
+    if options.coarse_block > 0 or options.clip_bbox:
+        from .packed_march import march_rays_packed
+
+        return lambda rc: march_rays_packed(apply_fn, rc, near, far, grid,
+                                            bbox, options, cap_avg=packed_cap)
+    from .accelerated import march_rays_accelerated
+
+    return lambda rc: march_rays_accelerated(apply_fn, rc, near, far, grid,
+                                             bbox, options)
+
+
+def map_chunks(fn, rays: torch.Tensor, chunk_size: int) -> dict:
+    """``fn`` over ``chunk_size``-ray chunks of ``rays`` (the last chunk
+    zero-padded to the same shape, as the JAX package's ``lax.map`` over
+    padded chunks): per-ray outputs concatenated and cut back to the N
+    rays, per-chunk scalars stacked into ``[n_chunks]``."""
+    n = rays.shape[0]
+    chunk = min(int(chunk_size), n)
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    if pad:
+        rays = torch.cat([rays, rays.new_zeros((pad, rays.shape[-1]))], 0)
+    outs = [fn(rays[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
+    return {k: (torch.cat([o[k] for o in outs], 0)[:n] if outs[0][k].dim()
+                else torch.stack([o[k] for o in outs]))
+            for k in outs[0]}
 
 
 def make_renderer(cfg, network) -> Renderer:

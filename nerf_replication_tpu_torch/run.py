@@ -1,0 +1,177 @@
+"""Stage-by-stage eval CLI of the port (the counterpart of the root
+``run.py``):
+
+    python -m nerf_replication_tpu_torch.run --type evaluate \\
+        --cfg_file configs/nerf/lego.yaml --device cuda [key value ...]
+    python -m nerf_replication_tpu_torch.run --type network  --cfg_file ...
+    python -m nerf_replication_tpu_torch.run --type dataset  --cfg_file ...
+
+* ``dataset``: 1000 timed draws of a training batch from the ray bank on the
+  device (the port's data path: the trainer samples there, with no host
+  loader).
+* ``network``: a timed whole-image render of every test view (chunked).
+* ``evaluate``: render every test view through the render gate — the
+  occupancy-accelerated march when ``task_arg.accelerated_renderer`` is set
+  and ``logs/<cfg>/occupancy_grid.npz`` loads, else the chunked render —
+  score PSNR/SSIM with ``evaluators/nerf.py`` (PNGs and ``summary.json`` in
+  ``result_dir``), and print the mean net_time / fps and the summary.
+
+The first view is left out of the mean net_time (the reference does the
+same; here it pays the kernels' first build). ``--device cpu`` runs the
+plain PyTorch path on the CPU. The telemetry rows of the JAX CLI come with
+port slice 10; ``--type mesh`` comes with slice 6.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _load_eval_setup(cfg, device):
+    """(network from the trained checkpoint, renderer, test set, device)."""
+    from .datasets import make_dataset
+    from .renderer.volume import make_renderer
+    from .train.checkpoint import load_trained_network
+    from .utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    network, _ = load_trained_network(cfg, dev)
+    renderer = make_renderer(cfg, network)
+    test_ds = make_dataset(cfg, "test")
+    return network, renderer, test_ds, dev
+
+
+def _device_of(args) -> str:
+    return getattr(args, "device", None) or "cuda"
+
+
+def _batch_on(batch: dict, dev) -> dict:
+    return {"rays": torch.from_numpy(np.ascontiguousarray(batch["rays"])).to(
+        dev), "near": float(batch["near"]), "far": float(batch["far"])}
+
+
+def _mean_times(net_times: list[float]) -> float:
+    times = net_times[1:] if len(net_times) > 1 else net_times
+    return float(np.mean(times))
+
+
+def run_dataset(cfg, args=None):
+    """1000 timed batch draws from the train split's ray bank on the
+    device (the trainer's sampler)."""
+    from .datasets import make_dataset
+    from .datasets.sampling import sample_rays, step_generator
+    from .utils.platform import resolve_device
+
+    dev = resolve_device(_device_of(args))
+    bank = [torch.from_numpy(a).to(dev)
+            for a in make_dataset(cfg, "train").ray_bank()]
+    n_rays = int(cfg.task_arg.get("N_rays", 1024))
+    t0 = time.perf_counter()
+    n = 1000
+    for step in range(n):
+        sample_rays(step_generator(int(cfg.get("seed", 0)), step, dev),
+                    bank[0], bank[1], n_rays)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"iterated {n} batches in {dt:.2f}s ({n / dt:.1f} it/s)")
+
+
+def run_network(cfg, args=None):
+    """Timed whole-image render of every test view (chunked)."""
+    from .renderer.gate import full_image_render_fn
+
+    network, renderer, test_ds, dev = _load_eval_setup(cfg, _device_of(args))
+    render = full_image_render_fn(cfg, network, renderer, test_ds)
+    net_times = []
+    for i in range(len(test_ds)):
+        batch = _batch_on(test_ds.image_batch(i), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        render(batch)
+        _sync(dev)
+        net_times.append(time.perf_counter() - t0)
+    mean = _mean_times(net_times)
+    print(f"mean net_time: {mean:.4f}s  fps: {1.0 / mean:.3f}")
+    return {"mean_net_time_s": mean, "n_images": len(net_times)}
+
+
+def run_evaluate(cfg, args=None):
+    """Render every test view, PSNR/SSIM, summary.json. Returns the
+    evaluator's summary plus ``mean_net_time_s``, ``fps``, ``n_images``,
+    ``used_grid``, ``n_truncated`` and, for a march that reports them, the
+    per-chunk traversal stats averaged over the views (``march``)."""
+    from .evaluators import make_evaluator
+    from .renderer.gate import full_image_render_fn
+    from .renderer.occupancy import default_grid_path
+
+    network, renderer, test_ds, dev = _load_eval_setup(cfg, _device_of(args))
+    evaluator = make_evaluator(cfg)
+
+    grid_loaded = False
+    if bool(cfg.task_arg.get("accelerated_renderer", False)):
+        grid_path = default_grid_path(getattr(args, "cfg_file", "config"))
+        grid_loaded = renderer.load_occupancy_grid(grid_path)
+    render = full_image_render_fn(cfg, network, renderer, test_ds,
+                                  use_grid=grid_loaded)
+
+    net_times, march = [], {}
+    for i in range(len(test_ds)):
+        host = test_ds.image_batch(i)
+        batch = _batch_on(host, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = render(batch)
+        _sync(dev)
+        net_times.append(time.perf_counter() - t0)
+        for k, v in renderer.last_march_stats.items():
+            if k != "sweep":
+                march.setdefault(k, []).append(v.float().mean().item())
+        evaluator.evaluate({k: v.cpu().numpy() for k, v in out.items()},
+                           host)
+
+    result = evaluator.summarize()
+    n_truncated = renderer.report_truncation()
+    mean = _mean_times(net_times)
+    print(f"mean net_time: {mean:.4f}s  fps: {1.0 / mean:.3f}")
+    march = {k: float(np.mean(v)) for k, v in march.items()}
+    if march:
+        print("march: " + "  ".join(f"{k}: {v:.6g}" for k, v in march.items()))
+    print(result)
+    return {**(result or {}), "mean_net_time_s": mean, "fps": 1.0 / mean,
+            "n_images": len(net_times), "used_grid": grid_loaded,
+            "n_truncated": n_truncated, "march": march or None}
+
+
+def run_mesh(cfg, args=None):
+    raise NotImplementedError(
+        "--type mesh (density iso-surface to PLY) comes with port slice 6"
+    )
+
+
+def main(argv=None) -> int:
+    from .config import cfg_from_args, make_parser
+
+    parser = make_parser()
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    cfg = cfg_from_args(args)
+    fn = globals().get("run_" + args.type)
+    if fn is None:
+        known = sorted(n[len("run_"):] for n in globals()
+                       if n.startswith("run_"))
+        raise SystemExit(f"unknown --type {args.type!r}; choose from {known}")
+    fn(cfg, args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,7 @@ routes exists — ``full`` / ``bf16`` / ``reduced_k`` / ``coarse``
 (serve/policy.py's degradation ladder; ``half_res`` reuses ``coarse`` with
 host-side ray striding) — and all of them are warmed before the first request.
 
-Routes of this port slice (``task_arg.march_fused``):
+Routes (``task_arg.march_fused``, with a grid):
 
 * ``full`` — the whole march in the K5 CUDA kernel, one launch per bucket
   (the JAX engine maps the same body over ``march_chunk_size`` chunks; rays
@@ -16,11 +16,17 @@ Routes of this port slice (``task_arg.march_fused``):
 * ``gather`` — the K4 CUDA traversal per chunk, then the plain
   :class:`~..models.nerf.network.Network` on the valid slots and per-ray
   compositing in PyTorch, as the JAX engine's stage (a).
+* ``off`` — the staged march per chunk: the packed march
+  (``renderer/packed_march.py``) when ``march_coarse_block > 0`` or
+  ``march_clip_bbox``, else the per-ray march
+  (``renderer/accelerated.py``).
 
-The staged routes (``march_fused: off``: the accelerated and packed
-marches) and the grid-less chunked volume route come with later port slices
-and raise :class:`NotImplementedError` here. Mesh, fleet, AOT and tracing
-are not ported.
+Without a grid (``accelerated_renderer: false``, or a grid file that is
+missing or unusable) every family renders through the chunked volume
+renderer (``renderer/volume.render_rays``) in ``chunk_size``-ray chunks.
+The staged and grid-less routes run the plain Network, as the JAX engine's
+do (its fused MLP is the one-shot surfaces' option, not the engine's). Mesh,
+fleet, AOT and tracing are not ported.
 """
 
 from __future__ import annotations
@@ -72,13 +78,6 @@ def _normalize_buckets(buckets, chunk: int) -> tuple[int, ...]:
     return tuple(sorted(norm))
 
 
-_LATER_SLICE = (
-    "is not ported to PyTorch yet: this port slice serves the fused march "
-    "(task_arg.march_fused full|gather with march_coarse_block > 0); the "
-    "staged march and volume routes come with the packed-march eval slice"
-)
-
-
 class RenderEngine:
     """Checkpoint-resident render server core (single caller; the
     MicroBatcher's worker thread owns concurrent dispatch)."""
@@ -86,6 +85,7 @@ class RenderEngine:
     def __init__(self, cfg, network, near, far, grid=None, bbox=None,
                  device="cuda", warmup_families: tuple[str, ...] | None = None):
         from ..renderer.accelerated import MarchOptions
+        from ..renderer.volume import RenderOptions, eval_packed_cap
         from ..utils.platform import resolve_device
 
         self.device = resolve_device(device)
@@ -95,22 +95,17 @@ class RenderEngine:
         self.far = float(far)
         self.options = ServeOptions.from_cfg(cfg)
         self.march_options = MarchOptions.eval_from_cfg(cfg)
-        if grid is None or bbox is None:
-            raise NotImplementedError(
-                f"serving without an occupancy grid (chunked volume route) "
-                f"{_LATER_SLICE}"
-            )
-        if self.march_options.march_fused not in ("full", "gather"):
-            raise NotImplementedError(
-                f"march_fused={self.march_options.march_fused!r} "
-                f"{_LATER_SLICE}"
-            )
-        self.use_grid = True
-        self.grid = torch.as_tensor(np.asarray(grid, bool)).to(
-            torch.int8).to(self.device).contiguous()
-        self.bbox = torch.as_tensor(np.asarray(bbox, np.float32)).to(
-            self.device)
-        self.chunk = self.march_options.chunk_size
+        self.eval_options = RenderOptions.from_cfg(cfg, train=False)
+        self.packed_cap = eval_packed_cap(cfg, self.march_options)
+        self.use_grid = grid is not None
+        self.grid = self.bbox = None
+        if self.use_grid:
+            self.grid = torch.as_tensor(np.asarray(grid, bool)).to(
+                self.device).contiguous()
+            self.bbox = torch.as_tensor(np.asarray(bbox, np.float32)).to(
+                self.device)
+        self.chunk = (self.march_options.chunk_size if self.use_grid
+                      else self.eval_options.chunk_size)
         self.buckets = _normalize_buckets(self.options.buckets, self.chunk)
         self.cache = PoseCache(
             capacity=self.options.cache_entries,
@@ -143,25 +138,44 @@ class RenderEngine:
             return base
         return replace(base, max_samples=max(1, base.max_samples // 2))
 
+    def _family_eval_options(self, family: str):
+        base = self.eval_options
+        if family in ("full", "bf16"):
+            return base
+        if family == "reduced_k":
+            return replace(base, n_importance=base.n_importance // 2)
+        return replace(base, n_importance=0)  # coarse-only
+
     def _family_network(self, family: str):
         if family != "bf16":
             return self.network
         return self.network.clone(compute_dtype=torch.bfloat16)
 
     def _build_fn(self, bucket: int, family: str):
-        """``fn(rays [bucket, 6] on device) -> dict of tensors`` with
-        per-chunk traversal stats ([bucket // chunk] each)."""
+        """``fn(rays [bucket, 6] on device) -> dict of tensors``; the grid
+        routes add per-chunk traversal stats ([bucket // chunk] each)."""
         from ..ops.fused_march import (
             FusedWeights,
             compositing_tile,
-            march_rays_fused,
             march_rays_fused_full,
         )
         from ..ops.fused_mlp import fused_spec_for
+        from ..renderer.volume import map_chunks, render_rays, staged_march_fn
 
         network = self._family_network(family)
         near, far, chunk = self.near, self.far, self.chunk
         model = "coarse" if family == "coarse" else "fine"
+
+        if not self.use_grid:
+            options = self._family_eval_options(family)
+
+            def apply_m(pts, viewdirs, m):
+                return network(pts, viewdirs, model=m)
+
+            return lambda rays: map_chunks(
+                lambda rc: render_rays(apply_m, rc, near, far, None, options),
+                rays, chunk)
+
         options = self._family_march_options(family)
         grid, bbox = self.grid, self.bbox
 
@@ -182,18 +196,9 @@ class RenderEngine:
         def apply_fn(pts, viewdirs, _model):
             return network(pts, viewdirs, model=model)
 
-        def fn(rays):
-            outs = [
-                march_rays_fused(apply_fn, rays[i:i + chunk], near, far,
-                                 grid, bbox, options)
-                for i in range(0, rays.shape[0], chunk)
-            ]
-            return {k: (torch.cat([o[k] for o in outs])
-                        if outs[0][k].dim() > 0
-                        else torch.stack([o[k] for o in outs]))
-                    for k in outs[0]}
-
-        return fn
+        march = staged_march_fn(apply_fn, near, far, grid, bbox, options,
+                                self.packed_cap)
+        return lambda rays: map_chunks(march, rays, chunk)
 
     def _get_fn(self, bucket: int, family: str):
         key = (bucket, family)
@@ -232,18 +237,24 @@ class RenderEngine:
         n = rays.shape[0]
         rays_b = np.pad(rays, ((0, bucket - n), (0, 0)))
         out = dict(self._dispatch(rays_b, bucket, family))
+        # per-chunk traversal stats (the packed and fused routes only)
         stats = {k: out.pop(k).cpu().numpy() for k in (
             "march_candidates", "march_samples_out", "march_coarse_occ",
-            "overflow_frac")}
+            "overflow_frac") if k in out}
         out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
-        trunc = out.pop("truncated")
+        trunc = out.pop("truncated", None)
         if not warm:
-            self.march_chunks += stats["march_candidates"].size
-            self.march_candidates += float(stats["march_candidates"].sum())
-            self.march_samples_out += float(stats["march_samples_out"].sum())
-            self.march_coarse_occ_sum += float(stats["march_coarse_occ"].sum())
-            self.march_overflow_sum += float(stats["overflow_frac"].sum())
-            self.n_truncated += int(np.sum(trunc))
+            if stats:
+                self.march_chunks += stats["march_candidates"].size
+                self.march_candidates += float(
+                    stats["march_candidates"].sum())
+                self.march_samples_out += float(
+                    stats["march_samples_out"].sum())
+                self.march_coarse_occ_sum += float(
+                    stats["march_coarse_occ"].sum())
+                self.march_overflow_sum += float(stats["overflow_frac"].sum())
+            if trunc is not None:
+                self.n_truncated += int(np.sum(trunc))
         return out
 
     def bucket_for(self, n_rays: int) -> int:
@@ -323,7 +334,9 @@ class RenderEngine:
         else:
             out = self.render_request(rays, self.near, self.far, tier=tier)
         served_tier = out.get("tier", tier)
-        rgb = np.clip(np.asarray(out["rgb_map_f"]).reshape(H, W, 3), 0.0, 1.0)
+        # the grid-less coarse tier renders coarse only
+        rgb_key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
+        rgb = np.clip(np.asarray(out[rgb_key]).reshape(H, W, 3), 0.0, 1.0)
         image = (rgb * 255).astype(np.uint8)
         cache.put(key, (image, served_tier))
         return image, {"tier": served_tier, "cache_hit": False}
@@ -369,41 +382,38 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
                     device="cuda") -> RenderEngine:
     """Boot a serving engine from an experiment's config.
 
-    The grid comes from ``default_grid_path(cfg_file)`` (relative to the
-    working directory, as in the JAX package), the weights from the port's
-    checkpoint in ``cfg.trained_model_dir`` (else the seeded init, as
-    ``load_network`` leaves it), the camera from the test split's
-    ``transforms_test.json``."""
+    With ``task_arg.accelerated_renderer`` the grid comes from
+    ``default_grid_path(cfg_file)`` (relative to the working directory, as
+    in the JAX package); a missing or unusable grid file, or no
+    ``accelerated_renderer``, serves through the chunked volume route, with
+    the JAX engine's message. The weights come from the port's checkpoint
+    in ``cfg.trained_model_dir`` (else the seeded init, as ``load_network``
+    leaves it), the camera from the test split's ``transforms_test.json``."""
     import os
 
     from ..datasets import make_camera
-    from ..models import init_params_for, make_network
     from ..renderer.occupancy import default_grid_path, load_occupancy_pyramid
-    from ..train.checkpoint import load_network
+    from ..train.checkpoint import load_trained_network
     from ..utils.platform import resolve_device
 
     dev = resolve_device(device)
-    if not bool(cfg.task_arg.get("accelerated_renderer", False)):
-        raise NotImplementedError(
-            f"task_arg.accelerated_renderer: false (chunked volume route) "
-            f"{_LATER_SLICE}"
-        )
-    path = default_grid_path(cfg_file or "config")
-    if not os.path.exists(path):
-        raise NotImplementedError(
-            f"occupancy grid not found at {path}; serving without a grid "
-            f"(chunked volume route) {_LATER_SLICE}"
-        )
-    levels, bbox = load_occupancy_pyramid(path)
-    network = make_network(cfg)
+    grid = bbox = None
+    if bool(cfg.task_arg.get("accelerated_renderer", False)):
+        path = default_grid_path(cfg_file or "config")
+        if os.path.exists(path):
+            try:
+                levels, bbox = load_occupancy_pyramid(path)
+                grid = levels[0]
+            except OSError as exc:
+                print(f"occupancy grid unusable ({exc}); "
+                      "serving through the chunked volume path")
+        else:
+            print(f"occupancy grid not found at {path}; "
+                  "serving through the chunked volume path")
     test_ds = make_camera(cfg, "test")
-    gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-    init_params_for(cfg)(network, gen)
-    epoch = load_network(cfg.trained_model_dir, network,
-                         epoch=int(cfg.test.get("epoch", -1)))
-    print(f"loaded network from {cfg.trained_model_dir} (epoch {epoch})")
+    network, _ = load_trained_network(cfg, dev)
     engine = RenderEngine(cfg, network, near=test_ds.near, far=test_ds.far,
-                          grid=levels[0], bbox=bbox, device=dev)
+                          grid=grid, bbox=bbox, device=dev)
     engine.default_camera = {
         "H": int(test_ds.H), "W": int(test_ds.W), "focal": float(test_ds.focal),
     }

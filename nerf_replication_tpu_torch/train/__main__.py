@@ -7,8 +7,9 @@
 builds everything from the YAML config plus ``key value`` overrides, resumes
 from ``trained_model_dir`` when a checkpoint is there, and runs the epoch
 loop with its save/eval cadence on one card. ``--device cpu`` runs the plain
-PyTorch path on the CPU (small configurations only). ``--test`` (evaluation
-only) comes with a later port slice.
+PyTorch path on the CPU (small configurations only). ``--test`` evaluates the
+trained model instead (``run.run_evaluate``: through the occupancy grid when
+one is baked).
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ def main(argv=None) -> int:
     parser = make_parser()
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.test:
-        raise NotImplementedError(
-            "--test (evaluate a trained model) comes with a later port slice"
-        )
     cfg = cfg_from_args(args)
+    if args.test:
+        from ..run import run_evaluate
+
+        run_evaluate(cfg, args)
+        return 0
     from .trainer import fit
 
     fit(cfg, device=args.device)

@@ -139,3 +139,20 @@ def load_network(model_dir: str, network: torch.nn.Module,
     blob = torch.load(target, map_location="cpu", weights_only=True)
     network.load_state_dict(blob["network"], strict=True)
     return picked
+
+
+def load_trained_network(cfg, device="cpu", verbose: bool = True):
+    """``(network, epoch)``: the config's network, initialised from
+    ``cfg.seed`` as the trainer does, then loaded from the checkpoint in
+    ``cfg.trained_model_dir`` (epoch ``cfg.test.epoch``, -1 = latest; the
+    seeded init stays when there is none), on ``device``, in eval mode."""
+    from ..models import init_params_for, make_network
+
+    network = make_network(cfg)
+    gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    init_params_for(cfg)(network, gen)
+    epoch = load_network(cfg.trained_model_dir, network,
+                         epoch=int(cfg.test.get("epoch", -1)))
+    if verbose:
+        print(f"loaded network from {cfg.trained_model_dir} (epoch {epoch})")
+    return network.to(device).eval(), epoch

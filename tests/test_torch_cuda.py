@@ -22,7 +22,15 @@ another bf16 value or take the other side of a relu, which changes that
 row's backward by a whole term — at most 5% of the dx/dv rows off by more
 than 5e-3 of the max and each weight gradient within 5e-2 in relative
 Frobenius norm. The chunked comparison is exact on dx/dv (a row's
-arithmetic does not depend on its CTA) and within 1e-5 on dW/db."""
+arithmetic does not depend on its CTA) and within 1e-5 on dW/db.
+
+K3a/K3b (the masked MLP) in the same cases under three masks — sorted
+valid-first (the packed stream), random 60%, all invalid: K3a's invalid rows
+exactly 0 and its valid rows bitwise K1's; K3b's dx/dv bitwise K2's under
+``draw × valid`` and its dW/db within 1e-5 of them (the same sums in the same
+CTA order, skipped tiles adding nothing); both against their plain versions
+at the K1/K2 tolerances; all invalid gives exactly zero gradients (a CTA
+whose tiles all skip still zeroes its partial)."""
 
 import os
 import sys
@@ -196,6 +204,58 @@ MLP_CASES = [(64, 4, 1, 37), (64, 4, 1, 64 * 3 + 5), (256, 8, 4, 20),
 def test_k1_k2_kernel_match_plain(dev, W, D, skip, m):
     for dtype in ("float32", "bfloat16"):
         _k1_k2_case(dev, W, D, skip, m, dtype)
+        for kind in ("sorted", "random", "all_invalid"):
+            _k3_case(dev, W, D, skip, m, dtype, kind)
+
+
+def _mask(kind, m, n, seed):
+    """[n] float32 0/1 over the first m real rows."""
+    valid = torch.zeros(n)
+    if kind == "sorted":  # the packed stream: a valid prefix of ~5%
+        valid[:max(1, m // 20)] = 1.0
+    elif kind == "random":
+        g = torch.Generator().manual_seed(seed)
+        valid[:m] = (torch.rand(m, generator=g) < 0.6).float()
+    return valid
+
+
+def _k3_case(dev, W, D, skip, m, dtype, kind):
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+
+    spec, x, v, draw, flat = _mlp_case(dev, W, D, skip, dtype, m, seed=W + m)
+    valid = _mask(kind, m, x.shape[0], W + m).to(dev)
+    n0 = dict(fmlp.LAUNCHES)
+    raw_m = fmlp.mlp_forward(spec, x, v, flat, m, valid=valid)
+    dx_m, dv_m, g_m = fmlp.mlp_backward(spec, x, v, draw, flat, m,
+                                        valid=valid)
+    raw = fmlp.mlp_forward(spec, x, v, flat, m)
+    dx, dv, g = fmlp.mlp_backward(spec, x, v, draw * valid[:, None], flat, m)
+    torch.cuda.synchronize()
+    assert fmlp.LAUNCHES["fused_mlp_fwd_masked"] == \
+        n0["fused_mlp_fwd_masked"] + 1
+    assert fmlp.LAUNCHES["fused_mlp_bwd_masked"] == \
+        n0["fused_mlp_bwd_masked"] + 1
+    ok = valid > 0
+    assert not raw_m[~ok].any(), (kind, "K3a invalid rows")
+    assert torch.equal(raw_m[ok], raw[ok]), (kind, "K3a vs K1")
+    assert torch.equal(dx_m, dx) and torch.equal(dv_m, dv), (kind, "dx/dv")
+    for a, b in zip(g_m, g):
+        assert _rel_err(a, b) <= 1e-5, (kind, dtype)
+    if kind == "all_invalid":
+        assert not dx_m.any() and not dv_m.any()
+        assert not any(t.any() for t in g_m)
+        return
+    ref = fmlp.forward_tile(spec, x[:m], v[:m], flat) * valid[:m, None]
+    rdx, rdv, rg = fmlp.backward_tile(spec, x[:m], v[:m],
+                                      draw[:m] * valid[:m, None], flat)
+    if dtype == "float32":
+        assert float((raw_m[:m] - ref).abs().max()) <= 1e-5
+        for a, b in [(dx_m[:m], rdx), (dv_m[:m], rdv), *zip(g_m, rg)]:
+            assert _rel_err(a, b) <= 1e-4, kind
+        return
+    assert _rel_err(raw_m[:m], ref) <= 5e-3
+    for a, b in zip(g_m, rg):
+        assert float((a - b).norm()) <= 5e-2 * float(b.norm())
 
 
 def _k1_k2_case(dev, W, D, skip, m, dtype):

@@ -11,7 +11,11 @@ Tolerances: f32 raw atol 1e-5, gradients within 1e-5 of the largest |value|
 of their tensor (sums over rows in another order than XLA's); bf16 raw atol
 2e-3 and gradients within 1e-2 (an f32 activation that differs by an ulp
 can round to the neighbouring bf16 value and carry that through the chain;
-the weight gradients are rounded to bf16 on both sides)."""
+the weight gradients are rounded to bf16 on both sides).
+
+The masked path (K3a/K3b, ``fused_mlp_raw_masked``) under a sorted valid
+prefix, a random 60% and an all-invalid mask, f32 at the same tolerances:
+invalid rows give raw 0 exactly and all-invalid gives zero gradients."""
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ from test_torch_helpers import jax_tree_numpy, nets
 
 from nerf_replication_tpu.ops.fused_mlp import (
     fused_mlp_raw as jax_fused_mlp_raw,
+    fused_mlp_raw_masked as jax_masked,
     fused_spec_for as jax_spec_for,
 )
 from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
@@ -146,3 +151,80 @@ def test_wrappers_pad_and_skip_rows(setup):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="x must be"):
         fmlp.mlp_forward(spec, x[:, :10], v, flat, M)
+
+
+# -- the masked MLP (K3a/K3b plain versions) -------------------------------
+
+def _mask(kind: str, m: int) -> np.ndarray:
+    rng = np.random.default_rng(21)
+    if kind == "sorted":  # the packed stream: a valid prefix
+        return (np.arange(m) < m // 5).astype(np.float32)
+    if kind == "random":
+        return (rng.random(m) < 0.6).astype(np.float32)
+    return np.zeros(m, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "random", "all_invalid"])
+def test_masked_fused_mlp_matches_jax_vjp(setup, kind):
+    """``fused_mlp_raw_masked`` (plain K3a forward, K3b backward through
+    autograd) against the JAX one and its custom VJP under the Pallas
+    interpreter: raw, dx, dv and every parameter gradient. Invalid rows
+    give raw 0 exactly; all-invalid gives zero gradients exactly."""
+    jnet, params, pnet, x_enc, d_enc, ct = setup
+    valid = _mask(kind, M)
+    jspec = jax_spec_for(jnet)
+    raw_j, vjp = jax.vjp(
+        lambda b, x, d: jax_masked(jspec, b, x, d, jnp.asarray(valid),
+                                   tile=TILE),
+        params["params"]["fine"], jnp.asarray(x_enc), jnp.asarray(d_enc))
+    g_branch, g_x, g_d = vjp(jnp.asarray(ct))
+    g_branch = jax_tree_numpy(g_branch)
+
+    pspec = fmlp.fused_spec_for(pnet)
+    pnet.zero_grad()
+    x = torch.from_numpy(x_enc).requires_grad_(True)
+    d = torch.from_numpy(d_enc).requires_grad_(True)
+    raw = fmlp.fused_mlp_raw_masked(pspec, pnet.fine, x, d,
+                                    torch.from_numpy(valid), tile=TILE)
+    raw.backward(torch.from_numpy(ct))
+    assert not raw.detach()[valid == 0].any()
+    np.testing.assert_allclose(raw.detach().numpy(), np.asarray(raw_j),
+                               rtol=0, atol=1e-5)
+    if kind == "all_invalid":
+        assert float(x.grad.abs().max()) == 0.0
+        for p in pnet.fine.parameters():
+            assert float(p.grad.abs().max()) == 0.0
+        return
+    assert _rel(x.grad.numpy(), np.asarray(g_x)) <= 1e-5
+    assert _rel(d.grad.numpy(), np.asarray(g_d)) <= 1e-5
+    for name, layer in pnet.fine.named_children():
+        ref = g_branch[name]
+        assert _rel(layer.weight.grad.T.numpy(), ref["kernel"]) <= 1e-5, name
+        assert _rel(layer.bias.grad.numpy(), ref["bias"]) <= 1e-5, name
+
+
+def test_masked_wrappers_are_unmasked_times_valid(setup):
+    """On CPU tensors: K3a's plain version is K1's times the bit, K3b's is
+    K2's with ``draw × valid``; no launch is counted."""
+    _, _, pnet, x_enc, d_enc, ct = setup
+    spec = fmlp.fused_spec_for(pnet)
+    x = fmlp._pad_rows(fmlp._pad_cols(torch.from_numpy(x_enc),
+                                      spec.c_in_pad), 256)
+    v = fmlp._pad_rows(fmlp._pad_cols(torch.from_numpy(d_enc),
+                                      spec.c_views_pad), 256)
+    draw = fmlp._pad_rows(fmlp._pad_cols(torch.from_numpy(ct), 8), 256)
+    valid = fmlp._pad_rows(torch.from_numpy(_mask("random", M)), 256)
+    flat = [t.detach() for t in spec.flatten_params(pnet.fine)]
+    before = dict(fmlp.LAUNCHES)
+    raw_m = fmlp.mlp_forward(spec, x, v, flat, M, valid=valid)
+    raw = fmlp.mlp_forward(spec, x, v, flat, M)
+    assert torch.equal(raw_m, raw * valid[:, None])
+    dx_m, dv_m, g_m = fmlp.mlp_backward(spec, x, v, draw, flat, M,
+                                        valid=valid)
+    dx, dv, g = fmlp.mlp_backward(spec, x, v, draw * valid[:, None], flat, M)
+    assert torch.equal(dx_m, dx) and torch.equal(dv_m, dv)
+    for a, b in zip(g_m, g):
+        assert torch.equal(a, b)
+    assert fmlp.LAUNCHES == before
+    with pytest.raises(ValueError, match="valid"):
+        fmlp.mlp_forward(spec, x, v, flat, M, valid=valid[:10])

@@ -270,9 +270,12 @@ def test_checkpoint_roundtrip_and_epochs(weights, tmp_path):
         assert torch.equal(fresh.state_dict()[k], v)
 
 
-def test_guards_refuse_silent_fallbacks(weights, tmp_path, monkeypatch):
-    """No CUDA → a cuda engine raises; unported routes raise, naming the
-    later slice, instead of rendering some other way."""
+def test_guards_refuse_silent_fallbacks(weights, tmp_path, monkeypatch,
+                                       capsys):
+    """No CUDA → a cuda engine raises; an unported route (the learned
+    sampler) raises, naming its slice; a missing grid file serves through
+    the chunked volume route only after saying so, as the JAX engine does
+    — never silently."""
     from nerf_replication_tpu_torch.config import make_cfg
 
     _, _, pnet = weights
@@ -284,16 +287,14 @@ def test_guards_refuse_silent_fallbacks(weights, tmp_path, monkeypatch):
         engine_from_cfg(cfg, cfg_file=LEGO, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_from_cfg(cfg, cfg_file=LEGO)  # the default device is cuda
-    _, pcfg = both_cfgs(SERVE_OPTS)  # march_fused off: the staged march
-    with pytest.raises(NotImplementedError, match="slice"):
+    _, pcfg = both_cfgs(SERVE_OPTS + ["sampling.mode", "proposal"])
+    with pytest.raises(NotImplementedError, match="slice 5"):
         RenderEngine(pcfg, pnet, NEAR, FAR, grid=box_grid(16), bbox=BBOX,
                      device="cpu")
-    _, pcfg = both_cfgs(SERVE_OPTS + ["task_arg.march_fused", "full"])
-    with pytest.raises(NotImplementedError, match="volume"):
-        RenderEngine(pcfg, pnet, NEAR, FAR, device="cpu")
-    with pytest.raises(NotImplementedError, match="grid"):
-        engine_from_cfg(make_cfg(LEGO, opts), cfg_file="other.yaml",
-                        device="cpu")
+    eng = engine_from_cfg(make_cfg(LEGO, opts), cfg_file="other.yaml",
+                          device="cpu")
+    assert "occupancy grid not found" in capsys.readouterr().out
+    assert not eng.use_grid and eng.chunk == eng.eval_options.chunk_size
 
 
 def test_http_entry_answers_render(weights, tmp_path):

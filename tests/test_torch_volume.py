@@ -94,7 +94,8 @@ def test_render_rays_matches_jax(fused):
 
 def test_render_chunked_and_gate_match_one_pass():
     """The gate's chunked render (last chunk padded) equals one pass, and
-    matches the JAX render_chunked."""
+    matches the JAX render_chunked; the gate's occupancy branch
+    (``use_grid``) with no grid loaded renders the same chunked images."""
     extra = NET + ["task_arg.chunk_size", "16"]
     jnet, params, pnet = nets(extra=extra)
     jcfg, pcfg = both_cfgs(extra)
@@ -112,8 +113,10 @@ def test_render_chunked_and_gate_match_one_pass():
         torch.testing.assert_close(out[k], one[k], rtol=0, atol=1e-6)
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
                                    rtol=0, atol=1e-4, err_msg=k)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        full_image_render_fn(pcfg, pnet, pr, None, use_grid=True)
+    grid_render = full_image_render_fn(pcfg, pnet, pr, None, use_grid=True)
+    for k, v in grid_render({"rays": _t(rays), "near": NEAR,
+                             "far": FAR}).items():
+        assert torch.equal(v, out[k]), k
 
 
 def test_render_options_refuse_proposal():
