@@ -52,6 +52,21 @@ imports nothing of JAX. Phases, each fatal on failure:
    ``march_fused off`` (the packed march) and one through the grid-less
    chunked volume route.
 
+10. K6/K6b (the hash encoder, ``csrc/hash_encode.cu``) against their plain
+   versions at lego_hash's full geometry (16 levels x 2 features, a
+   5,738,832-row table), at the NGP warm step's 131,072 points (1024 rays x
+   128 samples) and its grid refresh's 16,384 cells: K6 within 1e-6 of
+   max|out|, K6b's dtable within 1e-5 (relative Frobenius) of a float64
+   reference and dx within 1e-5 of max|dx|; kernel, plain and bound times;
+11. NGP training (the slice-4 main path) on the 200x200 scene, each run's
+   hash-kernel launch counts reset right before and read right after:
+   (a) lego_hash, ``ngp_training``, f32, the per-ray march, 1024 rays, 30
+   warm + 70 march steps (the grid decaying fast enough to carve in 100
+   steps), the loss falling, validation on both test views;
+   (b) the packed march in bf16 at 4096 rays; (c) lego_hash_packed.yaml
+   with the packed march (the cell-packed encoder: plain PyTorch, no K6);
+   (d) lego_hash through the ordinary coarse+fine trainer, 20 steps.
+
 Phase 4 also holds K3a/K3b (the masked MLP) against their plain versions and
 against K1/K2 under three masks, and times K3a at the packed stream's shape
 (786,432 rows, 5% valid, sorted valid-first) beside K1 on the same rows and
@@ -111,6 +126,15 @@ MASKS = ("sorted", "random", "all_invalid")
 TOL_EVAL_MAPS = 1e-4
 TRAIN_HW = 200
 DEVICE = "cuda"  # the card; only a CPU rehearsal of the phases changes it
+# K6/K6b at the NGP step's shapes: the warm step's stratified points (1024
+# rays x 128 samples) and the grid refresh's cells (64³ / 16)
+HASH_N = (1024 * 128, 64**3 // 16)
+# K6 vs plain: every float operation of the kernel is the plain version's
+# (measured bitwise); the bound leaves room for the FMA of pos, which the
+# plain version emulates in float64
+TOL_K6 = 1e-6  # of max|out|
+TOL_K6B_FRO = 1e-5  # dtable vs float64: float32 atomics reorder the sums
+TOL_K6B_DX = 1e-5  # of max|dx|: the same closed form in another order
 
 
 def require(cond, msg):
@@ -138,6 +162,25 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(torch, fn, iters: int, names) -> float:
+    """Device time per call of ``fn`` in the kernels whose names contain
+    one of ``names`` (torch.profiler): the kernels' own time, without the
+    wrapper's host work, which back-to-back CUDA-event timing includes once
+    a kernel is shorter than it."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.name for n in names))
+    return us / 1e3 / iters
 
 
 def mlp_flops_per_sample(spec) -> int:
@@ -1129,6 +1172,223 @@ def phase_engine_routes(torch, np, tmp, data):
               f"{float(image.mean()):.2f}, march {json.dumps(st['march'])}")
 
 
+def phase_hash_kernels(torch, np, dev):
+    """Phase 10: K6/K6b against their plain versions at lego_hash's full
+    geometry, at the NGP warm step's and grid refresh's point counts."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.models.encoding import get_encoder
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+
+    cfg = make_cfg(os.path.join(REPO, "configs", "nerf", "lego_hash.yaml"))
+    enc, out_dim = get_encoder(cfg.network.xyz_encoder)
+    geo = enc.geometry
+    n_levels, c, d = enc.num_levels, enc.level_dim, enc.input_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    table = torch.rand((enc.n_entries, c), generator=gen, device=dev) * 2 - 1
+    print(f"lego_hash table {tuple(table.shape)} ({table.numel() * 4 / 1e6:.1f}"
+          f" MB), {sum(geo[3])} of {n_levels} levels hashed")
+    res = {}
+    for n in HASH_N:
+        x = torch.rand((n, d), generator=gen, device=dev)
+        g = torch.randn((n, out_dim), generator=gen, device=dev)
+        with torch.no_grad():
+            out = he.hash_encode_fwd(x, table, geo)
+            ref = he.forward_plain(x, table, geo)
+            dt, dx = he.hash_encode_bwd(x, g, table, geo, want_dx=True)
+            ref_dt, _ = he.backward_plain(x, g, table, geo, want_dx=False,
+                                          accum=torch.float64)
+            _, ref_dx = he.backward_plain(x, g, table, geo)
+        torch.cuda.synchronize()
+        errs = {
+            "fwd_abs": float((out - ref).abs().max()),
+            "fwd_rel": _rel(out, ref),
+            "dtable_fro": _fro(dt.double(), ref_dt),
+            "dtable_abs": float((dt.double() - ref_dt).abs().max()),
+            "dx_rel": _rel(dx, ref_dx),
+        }
+        require(bool(torch.isfinite(out).all()) and bool(
+            torch.isfinite(dt).all()), f"K6/K6b N={n}: not finite")
+        require(errs["fwd_rel"] <= TOL_K6, f"K6 N={n}: error "
+                f"{errs['fwd_rel']} > {TOL_K6} of max|out|")
+        require(errs["dtable_fro"] <= TOL_K6B_FRO, f"K6b N={n}: dtable "
+                f"relative Frobenius error {errs['dtable_fro']} > "
+                f"{TOL_K6B_FRO}")
+        require(errs["dx_rel"] <= TOL_K6B_DX, f"K6b N={n}: dx error "
+                f"{errs['dx_rel']} > {TOL_K6B_DX} of max|dx|")
+        with torch.no_grad():
+            # the main path's calls: the forward, and the backward without
+            # dx; the kernels' device time, and each wrapper's whole call
+            # (host work, and K6b's zeroing of dtable, included)
+            fwd = lambda: he.hash_encode_fwd(x, table, geo)  # noqa: E731
+            bwd = lambda: he.hash_encode_bwd(x, g, table, geo)  # noqa: E731
+            k6 = kernel_ms(torch, fwd, 20, ("hash_fwd",))
+            k6b = kernel_ms(torch, bwd, 20, ("hash_bwd",))
+            k6_call, k6b_call = time_ms(torch, fwd, 20), time_ms(torch, bwd,
+                                                                 20)
+            k6_plain = time_ms(torch, lambda: he.forward_plain(x, table, geo),
+                               3)
+            k6b_plain = time_ms(torch, lambda: he.backward_plain(
+                x, g, table, geo, want_dx=False), 3)
+            rows = he.touched_rows(x, geo)
+        corners = 1 << d
+        # per (point, level): pos (fma, floor, sub) per dim; per corner the
+        # D weight products and C multiply-adds (forward) or products and
+        # atomic adds (backward)
+        k6_bytes = x.numel() * 4 + out.numel() * 4 + rows * c * 4
+        k6_ops = n * n_levels * (3 * d + corners * (d + 2 * c))
+        k6b_bytes = x.numel() * 4 + g.numel() * 4 + table.numel() * 4
+        k6b_ops = n * n_levels * (3 * d + corners * (d + 2 * c))
+        res[n] = dict(
+            errs=errs, k6_ms=k6, k6b_ms=k6b, k6_plain=k6_plain,
+            k6b_plain=k6b_plain, rows=rows,
+            k6_bound=max(k6_bytes / PEAK_BYTES, k6_ops / PEAK_F32) * 1e3,
+            k6b_bound=max(k6b_bytes / PEAK_BYTES, k6b_ops / PEAK_F32) * 1e3,
+            k6_by="bytes" if k6_bytes / PEAK_BYTES >= k6_ops / PEAK_F32
+            else "operations",
+            k6b_by="bytes" if k6b_bytes / PEAK_BYTES >= k6b_ops / PEAK_F32
+            else "operations")
+        r = res[n]
+        print(f"K6/K6b [N={n}]: " + json.dumps(
+            {k: float(f"{v:.4g}") for k, v in errs.items()})
+            + f"; {rows} table rows touched; K6 kernel {k6:.4f} ms, call "
+            f"{k6_call:.4f} ms (bound {r['k6_bound']:.4f} ms, {r['k6_by']}; "
+            f"plain {k6_plain:.3f} ms); K6b kernel {k6b:.4f} ms, call "
+            f"{k6b_call:.4f} ms incl. zeroing dtable (bound "
+            f"{r['k6b_bound']:.4f} ms, {r['k6b_by']}; plain {k6b_plain:.3f} "
+            f"ms)")
+    warm = res[HASH_N[0]]
+    return [{
+        "name": "hash_encode_fwd (K6)", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/hash_encode.cu",
+        "replaces": "nerf_replication_tpu/models/encoding/pallas_hash.py:102",
+        "max_abs_err": max(v["errs"]["fwd_abs"] for v in res.values()),
+        "ms": warm["k6_ms"], "plain_ms": warm["k6_plain"],
+        "bound_ms": warm["k6_bound"], "bound_by": warm["k6_by"],
+        "library_ms": None,
+    }, {
+        "name": "hash_encode_bwd (K6b)", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/hash_encode.cu",
+        "replaces": "nerf_replication_tpu/models/encoding/pallas_hash.py:102",
+        "max_abs_err": max(v["errs"]["dtable_abs"] for v in res.values()),
+        "ms": warm["k6b_ms"], "plain_ms": warm["k6b_plain"],
+        "bound_ms": warm["k6b_bound"], "bound_by": warm["k6b_by"],
+        "library_ms": None,
+    }], res
+
+
+def _hash_opts(data, out, exp, extra=()):
+    """The training opts with the hash encoder's MLP (no fused trunk: it
+    refuses a learnable encoder) and both test views."""
+    return _train_opts(data, out, exp) + [
+        "network.nerf.fused_trunk", "false", "test_dataset.cams",
+        "[0, -1, 1]", "task_arg.precrop_iters", "0", *extra]
+
+
+def _ngp_run(torch, np, cfg_name, opts, label):
+    """One NGP fit: median step ms and rays/s by phase, the last stats."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.train.trainer import fit
+
+    cfg = make_cfg(os.path.join(REPO, "configs", "nerf", cfg_name), opts)
+    rows, logs = [], []
+    he.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = fit(cfg, device=DEVICE, emit=rows.append, log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(he.LAUNCHES)
+    losses = [r["stats"]["loss"] for r in rows]
+    require(len(rows) == state.step, f"{label}: {len(rows)} rows for "
+            f"{state.step} steps")
+    require(all(np.isfinite(losses)), f"{label}: non-finite loss")
+    n_rays = int(cfg.task_arg.N_rays)
+    by_phase = {}
+    for phase in ("warm", "march", "step"):
+        # NGP rows carry the phase; the ordinary trainer's are plain steps
+        times = [r["step_time_s"] for r in rows if
+                 {True: "warm", False: "march"}.get(r.get("warm")) == phase
+                 or (phase == "step" and "warm" not in r)]
+        if len(times) > 3:
+            med = float(np.median(times[3:])) * 1e3
+            by_phase[phase] = {"steps": len(times), "median_step_ms": med,
+                               "rays_per_s": n_rays / med * 1e3}
+    last = rows[-1]["stats"]
+    print(f"ngp [{label}]: {state.step} steps in {wall:.1f} s; "
+          f"{json.dumps(by_phase)}; loss {losses[0]:.4f} -> {losses[-1]:.4f};"
+          f" last stats " + json.dumps({k: round(v, 4) for k, v in
+                                       last.items()})
+          + f"; launches {json.dumps(counts)}")
+    return dict(state=state, rows=rows, logs=logs, counts=counts,
+                losses=losses, by_phase=by_phase, cfg=cfg)
+
+
+def phase_ngp(torch, np, tmp, data):
+    """Phase 11: NGP training (a)-(c) and lego_hash's ordinary trainer (d)
+    on the procedural scene of phase 5."""
+    out = os.path.join(tmp, "out_hash")
+    # (a) the main path: f32, per-ray march, 30 warm + 70 march steps. The
+    # grid EMA decays 0.1 per 16-step window (0.95 by default) so that it
+    # carves within 100 steps, not thousands
+    a = _ngp_run(torch, np, "lego_hash.yaml", _hash_opts(data, out, "ngp_a", [
+        "task_arg.ngp_training", "true", "task_arg.ngp_warmup_steps", "30",
+        "task_arg.ngp_warmup_max", "30", "task_arg.ngp_grid_decay", "0.1",
+        "ep_iter", "50", "train.epoch", "2", "eval_ep", "2", "save_ep", "2",
+        "save_latest_ep", "2"]), "a: lego_hash f32 per-ray")
+    warm = [r["warm"] for r in a["rows"]]
+    require(warm == [True] * 30 + [False] * 70, "(a) did not run 30 warm "
+            "then 70 march steps")
+    first, last = float(np.mean(a["losses"][:10])), float(
+        np.mean(a["losses"][-10:]))
+    require(last < first, f"(a) loss did not fall: first 10 mean {first}, "
+            f"last 10 mean {last}")
+    val = [line for line in a["logs"] if line.startswith("ngp val")]
+    require(val, "(a) no validation line")
+    blob = torch.load(os.path.join(a["cfg"].trained_model_dir, "latest.pt"),
+                      weights_only=True)
+    require(tuple(blob["grid_ema"].shape) == (64, 64, 64),
+            "(a) checkpoint without grid_ema")
+    occ = [round(r["stats"]["occupancy"], 4) for r in a["rows"][::10]]
+    trunc = [round(r["stats"]["truncated_frac"], 4)
+             for r in a["rows"][30::10]]
+    print(f"(a) loss mean of first 10 steps {first:.4f}, last 10 {last:.4f};"
+          f" occupancy every 10 steps {occ}; truncated_frac in the march "
+          f"phase {trunc}; {val[-1]} (both test views)")
+    for k in ("hash_encode_fwd", "hash_encode_bwd"):
+        require(a["counts"][k] > 0, f"(a) never launched {k}")
+    # (b) the packed march in bf16 at 4096 rays
+    b = _ngp_run(torch, np, "lego_hash.yaml", _hash_opts(data, out, "ngp_b", [
+        "task_arg.ngp_training", "true", "task_arg.ngp_packed_march",
+        "true", "precision.compute_dtype", "bfloat16", "task_arg.N_rays",
+        "4096", "task_arg.ngp_warmup_steps", "10", "task_arg.ngp_warmup_max",
+        "10", "ep_iter", "20", "train.epoch", "1", "eval_ep", "100",
+        "save_ep", "100", "save_latest_ep", "100"]),
+        "b: lego_hash bf16 packed march")
+    over = [round(r["stats"]["overflow_frac"], 4) for r in b["rows"]
+            if "overflow_frac" in r["stats"]]
+    require(over, "(b) no overflow_frac: the packed march did not run")
+    print(f"(b) overflow_frac per march step {over}")
+    # (c) the cell-packed encoder (plain PyTorch) with the packed march
+    c = _ngp_run(torch, np, "lego_hash_packed.yaml", _hash_opts(
+        data, out, "ngp_c", [
+            "task_arg.ngp_training", "true", "task_arg.ngp_packed_march",
+            "true", "task_arg.ngp_warmup_steps", "10",
+            "task_arg.ngp_warmup_max", "10", "ep_iter", "20", "train.epoch",
+            "1", "eval_ep", "100", "save_ep", "100", "save_latest_ep",
+            "100"]), "c: lego_hash_packed packed march")
+    require(sum(c["counts"].values()) == 0,
+            "(c) the cell-packed encoder launched K6/K6b")
+    # (d) lego_hash through the ordinary coarse+fine trainer
+    dd = _ngp_run(torch, np, "lego_hash.yaml", _hash_opts(data, out, "hash_d", [
+        "ep_iter", "20", "train.epoch", "1", "eval_ep", "100", "save_ep",
+        "100", "save_latest_ep", "100"]), "d: lego_hash coarse+fine")
+    for k in ("hash_encode_fwd", "hash_encode_bwd"):
+        require(b["counts"][k] > 0 and dd["counts"][k] > 0,
+                f"(b)/(d) never launched {k}")
+    return {k: a["counts"][k] + b["counts"][k] + dd["counts"][k]
+            for k in a["counts"]}
+
+
 def main() -> int:
     import torch
 
@@ -1160,6 +1420,7 @@ def main() -> int:
 
     rows, _ = phase_kernels(torch, np, dev)
     mlp_rows, _ = phase_mlp_kernels(torch, np, dev)
+    hash_rows, _ = phase_hash_kernels(torch, np, dev)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         try:
@@ -1173,15 +1434,18 @@ def main() -> int:
             _, _, k3a_launches = phase_eval(torch, np, tmp, data)
             grad_counts = phase_packed_grad(torch, np, tmp, data)
             phase_engine_routes(torch, np, tmp, data)
+            hash_counts = phase_ngp(torch, np, tmp, data)
         finally:
             os.chdir(cwd)
     counts.update(train_counts)
+    counts.update(hash_counts)
     counts["fused_mlp_fwd_masked"] = k3a_launches
     counts["fused_mlp_bwd_masked"] = grad_counts["fused_mlp_bwd_masked"]
     keys = {"K4": "fused_dda_gather", "K5": "fused_march_full",
             "K1": "fused_mlp_fwd", "K2": "fused_mlp_bwd",
-            "K3a": "fused_mlp_fwd_masked", "K3b": "fused_mlp_bwd_masked"}
-    rows = mlp_rows + rows
+            "K3a": "fused_mlp_fwd_masked", "K3b": "fused_mlp_bwd_masked",
+            "K6": "hash_encode_fwd", "K6b": "hash_encode_bwd"}
+    rows = mlp_rows + rows + hash_rows
     for row in rows:
         key = next(v for k, v in keys.items() if f"({k})" in row["name"])
         row["launches"] = counts[key]

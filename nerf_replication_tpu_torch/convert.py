@@ -9,6 +9,9 @@ A JAX checkpoint's parameter tree, as numpy arrays::
 maps onto the port's ``Network`` state dict: kernels are transposed to the
 ``nn.Linear`` layout ``[out, in]``; a SplitDense kernel stays one matrix whose
 input columns split at ``c1`` exactly where the Flax module splits its rows.
+A parametric encoder's table, ``{"xyz_encoder": {"embeddings": [T, C]}}`` (or
+the cell-packed ``[buckets, 2^D·C]``), is carried as it is, without a
+transpose, to ``xyz_encoder.embeddings``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     inner = tree["params"] if set(tree.keys()) == {"params"} else tree
     state: dict[str, torch.Tensor] = {}
     for branch, layers in inner.items():
+        if "embeddings" in layers:  # an encoder table: no transpose
+            state[f"{branch}.embeddings"] = torch.from_numpy(
+                np.asarray(layers["embeddings"], np.float32).copy())
+            continue
         for name, leaf in layers.items():
             kernel = np.asarray(leaf["kernel"], np.float32)
             bias = np.asarray(leaf["bias"], np.float32)

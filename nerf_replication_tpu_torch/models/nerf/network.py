@@ -129,9 +129,12 @@ class NeRFMLP(nn.Module):
 
 
 class Network(nn.Module):
-    """Coarse + fine NeRF pair behind one forward, with parameter-free
-    encoders. ``compute_dtype`` is a forward-time attribute, so
-    :meth:`clone` makes a bfloat16-compute view of the SAME parameters."""
+    """Coarse + fine NeRF pair behind one forward. A parametric
+    ``xyz_encoder`` (a hash grid) is a submodule shared by both MLPs (state
+    key ``xyz_encoder.embeddings``, the JAX tree's
+    ``params["xyz_encoder"]["embeddings"]``); its output stays float32, as in
+    Flax. ``compute_dtype`` is a forward-time attribute, so :meth:`clone`
+    makes a bfloat16-compute view of the SAME parameters, table included."""
 
     def __init__(self, D: int = 8, W: int = 256, skips: Sequence[int] = (4,),
                  use_viewdirs: bool = True, xyz_encoder=None, dir_encoder=None,
@@ -184,7 +187,7 @@ def make_network(cfg) -> Network:
     if str(cfg.get("sampling", {}).get("mode", "coarse_fine")) == "proposal":
         raise NotImplementedError(
             "sampling.mode: proposal (the learned-sampler branch) is not "
-            "ported to PyTorch yet; it comes with a later port slice"
+            "ported to PyTorch yet; it comes with port slice 5"
         )
     if bool(cfg.network.nerf.get("scan_trunk", False)):
         raise NotImplementedError(
@@ -217,9 +220,9 @@ def make_network(cfg) -> Network:
 def init_params(network: Network, generator: torch.Generator) -> Network:
     """Initialize both MLPs in place: lecun-normal kernels (flax's
     truncated normal, fan_in = the layer's input width) and zero biases,
-    drawn from ``generator`` (coarse first, then fine). The draws differ
-    from ``jax.random``'s; tests carry JAX weights over with
-    ``convert.params_from_jax`` instead."""
+    drawn from ``generator`` (coarse first, then fine), then a parametric
+    encoder's table (uniform ±1e-4). The draws differ from ``jax.random``'s;
+    tests carry JAX weights over with ``convert.params_from_jax`` instead."""
     for mlp in (network.coarse, network.fine):
         for module in mlp.modules():
             if isinstance(module, (Dense, SplitDense)):
@@ -230,4 +233,7 @@ def init_params(network: Network, generator: torch.Generator) -> Network:
                                       generator=generator)
                 module.weight.copy_(w)
                 module.bias.zero_()
+    for enc in (network.xyz_encoder, network.dir_encoder):
+        if isinstance(enc, nn.Module):
+            enc.reset_parameters(generator)
     return network

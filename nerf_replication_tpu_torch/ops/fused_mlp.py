@@ -542,6 +542,13 @@ def fused_spec_for(network) -> FusedSpec:
 
     if not isinstance(network, Network):
         raise ValueError("fused_trunk supports the NeRF Network family")
+    if isinstance(network.xyz_encoder, torch.nn.Module) or isinstance(
+            network.dir_encoder, torch.nn.Module):
+        raise ValueError(
+            "fused_trunk requires parameter-free encoders (frequency "
+            "family): a learnable encoder (hashgrid) runs outside the fused "
+            "kernels and its table would get no gradient through them"
+        )
     if not isinstance(network.xyz_encoder, FrequencyEncoder) or not (
             network.dir_encoder is None
             or isinstance(network.dir_encoder, FrequencyEncoder)):

@@ -29,6 +29,7 @@ SOURCES = {
     "fused_dda": "fused_dda.cu",
     "fused_march_full": "fused_march_full.cu",
     "fused_mlp": "fused_mlp.cu",
+    "hash_encode": "hash_encode.cu",
 }
 HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh")
 NVCC_FLAGS = (
@@ -38,6 +39,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 ARGTYPES = {
     "fused_dda": {
         # rays, n, grid, coarse, bbox, statics*, t_sel, valid, flat_sel,
@@ -58,6 +60,12 @@ ARGTYPES = {
         # w_transposed, acts, partials, n_ctas, dx, dv, grad, stream
         "nrt_fused_mlp_bwd": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                               _P, _I, _P, _P, _P, _P],
+    },
+    "hash_encode": {
+        # x, n, D, table, C, desc*, out, stream
+        "nrt_hash_encode_fwd": [_P, _LL, _I, _P, _I, _P, _P, _P],
+        # x, n, D, table, C, desc*, g, dtable, dx (null: none), stream
+        "nrt_hash_encode_bwd": [_P, _LL, _I, _P, _I, _P, _P, _P, _P, _P],
     },
 }
 

@@ -5,7 +5,10 @@ The port stores one ``torch.save`` file per checkpoint:
 ``<model_dir>/latest.pt`` and ``<model_dir>/<epoch>.pt``. A training bundle
 holds the network's state dict, the optimizer's state (Adam moments and step
 counts), the global step, the epoch and the recorder's state; numbered
-checkpoints keep the newest ``KEEP_EPOCHS``. ``load_network`` reads the
+checkpoints keep the newest ``KEEP_EPOCHS``. An NGP state's live grid EMA
+rides the bundle (``grid_ema``), and its host-side warm/carve phase counters a
+JSON sidecar ``<name>_phase.json`` (:func:`load_phase_state`), so a resumed
+run re-enters the phase it left. ``load_network`` reads the
 weights of either a training bundle or a weights-only file
 (``save_network``), which is how the serving engine loads a trained model.
 The JAX package's Orbax directories are not read here;
@@ -14,6 +17,7 @@ The JAX package's Orbax directories are not read here;
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import sys
@@ -56,10 +60,17 @@ def save_network(model_dir: str, network: torch.nn.Module,
                   {"network": _cpu_state(network), "epoch": int(epoch)})
 
 
+def _phase_sidecar(model_dir: str, name: str) -> str:
+    return os.path.join(model_dir, f"{name}_phase.json")
+
+
 def save_model(model_dir: str, state, epoch: int, recorder_state=None,
-               latest: bool = False) -> str:
-    """Save a training bundle (``state``: network, optimizer, step) as
-    ``latest.pt`` or ``<epoch>.pt``; prune numbered ones to KEEP_EPOCHS."""
+               latest: bool = False, phase_state=None) -> str:
+    """Save a training bundle (``state``: network, optimizer, step, and an
+    NGP state's ``grid_ema``) as ``latest.pt`` or ``<epoch>.pt``; prune
+    numbered ones to KEEP_EPOCHS. ``phase_state`` (the NGP trainer's phase
+    counters) goes to a sidecar written atomically AFTER the bundle, so a
+    crash leaves at worst a bundle with a stale or absent sidecar."""
     blob = {
         "network": _cpu_state(state.network),
         "optimizer": state.optimizer.state_dict(),
@@ -67,10 +78,23 @@ def save_model(model_dir: str, state, epoch: int, recorder_state=None,
         "epoch": int(epoch),
         "recorder": recorder_state or {},
     }
-    path = _write(model_dir, "latest" if latest else str(int(epoch)), blob)
+    grid = getattr(state, "grid_ema", None)
+    if grid is not None:
+        blob["grid_ema"] = grid.detach().cpu()
+    name = "latest" if latest else str(int(epoch))
+    path = _write(model_dir, name, blob)
+    if phase_state:
+        sidecar = _phase_sidecar(model_dir, name)
+        tmp = f"{sidecar}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(phase_state, f)
+        os.replace(tmp, sidecar)
     if not latest:
         for old in _available_epochs(model_dir)[:-KEEP_EPOCHS]:
             os.remove(os.path.join(model_dir, f"{old}.pt"))
+            sidecar = _phase_sidecar(model_dir, str(old))
+            if os.path.exists(sidecar):
+                os.remove(sidecar)
     return path
 
 
@@ -104,7 +128,30 @@ def load_model(model_dir: str, state, epoch: int = -1):
     state.network.load_state_dict(blob["network"], strict=True)
     state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])
+    if getattr(state, "grid_ema", None) is not None:
+        if "grid_ema" not in blob:
+            raise ValueError(f"{target} holds no grid_ema to resume an NGP "
+                             "run from")
+        state.grid_ema = blob["grid_ema"].to(state.grid_ema.device)
     return state, int(blob["epoch"]) + 1, dict(blob.get("recorder") or {})
+
+
+def load_phase_state(model_dir: str, epoch: int = -1) -> dict | None:
+    """The NGP phase sidecar matching what ``load_model`` would resume
+    (``latest`` unless a numbered epoch is pinned), or None — a missing or
+    torn sidecar degrades to the trainer's occupancy-based estimate."""
+    if epoch == -1 and os.path.exists(os.path.join(model_dir, "latest.pt")):
+        name = "latest"
+    else:
+        epochs = _available_epochs(model_dir)
+        if not epochs:
+            return None
+        name = str(epoch if epoch != -1 and epoch in epochs else epochs[-1])
+    try:
+        with open(_phase_sidecar(model_dir, name)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
 
 
 def save_trained_config(cfg) -> None:
@@ -141,13 +188,16 @@ def load_network(model_dir: str, network: torch.nn.Module,
     return picked
 
 
-def load_trained_network(cfg, device="cpu", verbose: bool = True):
+def load_trained_network(cfg, device="cuda", verbose: bool = True):
     """``(network, epoch)``: the config's network, initialised from
     ``cfg.seed`` as the trainer does, then loaded from the checkpoint in
     ``cfg.trained_model_dir`` (epoch ``cfg.test.epoch``, -1 = latest; the
-    seeded init stays when there is none), on ``device``, in eval mode."""
+    seeded init stays when there is none), on ``device`` (the card unless
+    the caller asks for the CPU; raises without CUDA), in eval mode."""
     from ..models import init_params_for, make_network
+    from ..utils.platform import resolve_device
 
+    device = resolve_device(device)
     network = make_network(cfg)
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     init_params_for(cfg)(network, gen)

@@ -18,11 +18,13 @@ optimizer step whose lr is the schedule at the step count (optax's order).
 * Validation renders whole test images through the render gate
   (``renderer/gate.py``) and feeds the evaluator.
 
+``task_arg.ngp_training`` routes :func:`fit` to ``ngp.fit_ngp`` (the
+occupancy-accelerated trainer with a live grid), as the JAX package does.
+
 Not in the port yet, each raising ``NotImplementedError`` where a run asks
-for it: a mesh of several cards (slice 7), ``ngp_training`` (slice 4),
-``pretrain`` warm starts, and the divergence rollback (slice 10) — a
-non-finite loss stops the run. The SIGTERM checkpoint flush (slice 10) is
-not installed.
+for it: a mesh of several cards (slice 7), ``pretrain`` warm starts, and the
+divergence rollback (slice 10) — a non-finite loss stops the run. The
+SIGTERM checkpoint flush (slice 10) is not installed.
 """
 
 from __future__ import annotations
@@ -240,8 +242,12 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
     from .recorder import make_recorder
 
     if bool(cfg.task_arg.get("ngp_training", False)):
-        raise _later_slice("task_arg.ngp_training (occupancy-accelerated "
-                           "hash-grid training)", 4)
+        # occupancy-accelerated training has its own state (the live grid
+        # EMA) and march; same entry contract, its own epoch loop
+        from .ngp import fit_ngp
+
+        return fit_ngp(cfg, network=network, log=log, device=device,
+                       emit=emit)
     _check_single_card(cfg)
     if cfg.get("pretrain", ""):
         raise NotImplementedError(

@@ -52,8 +52,9 @@ def test_registry_maps_config_modules_to_the_port():
     mod = resolve_module("nerf_replication_tpu.datasets.blender")
     assert mod.__name__ == "nerf_replication_tpu_torch.datasets.blender"
     # a role the port does not have yet names the missing module
-    with pytest.raises(ImportError, match="nerf_replication_tpu_torch.train.ngp"):
-        resolve_module("nerf_replication_tpu.train.ngp")
+    with pytest.raises(ImportError,
+                       match="nerf_replication_tpu_torch.models.proposal"):
+        resolve_module("nerf_replication_tpu.models.proposal")
 
 
 def test_device_seat_refuses_silent_cpu(monkeypatch):

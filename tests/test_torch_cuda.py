@@ -30,7 +30,17 @@ exactly 0 and its valid rows bitwise K1's; K3b's dx/dv bitwise K2's under
 ``draw × valid`` and its dW/db within 1e-5 of them (the same sums in the same
 CTA order, skipped tiles adding nothing); both against their plain versions
 at the K1/K2 tolerances; all invalid gives exactly zero gradients (a CTA
-whose tiles all skip still zeroes its partial)."""
+whose tiles all skip still zeroes its partial).
+
+K6/K6b (the hash encoder, ``csrc/hash_encode.cu``) against their plain
+versions over every (D, C) the kernels take, a dense level among them, and
+at lego_hash's full table (16 levels, 5,738,832 x 2) at N = 131,072 points
+(the NGP warm step): K6 within 1e-6 of max|out| (its float operations are
+spelled out as the plain version rounds them: measured bitwise); K6b's
+dtable within 1e-5 in relative Frobenius norm of a float64 reference
+(float32 atomics add in another order each launch) and dx within 1e-5 of
+max|dx|. A few NGP steps on the card (per-ray and packed march) launch
+both."""
 
 import os
 import sys
@@ -349,3 +359,90 @@ def test_fused_train_steps_are_finite(dev, tmp_path):
     assert len(losses) == 2 and all(np.isfinite(losses)), losses
     assert fmlp.LAUNCHES["fused_mlp_fwd"] > 0
     assert fmlp.LAUNCHES["fused_mlp_bwd"] > 0
+
+
+HASH_CASES = [
+    # (D, L, C, per-level scale, base resolution, log2 T, N)
+    (3, 4, 2, 1.5, 4, 8, 3000),
+    (3, 6, 2, 1.39, 16, 11, 3001),
+    (2, 3, 4, 2.0, 4, 9, 777),
+    (4, 2, 2, 1.5, 3, 10, 513),
+    (3, 2, 2, 2.0, 1, 8, 100),  # level 0 dense
+    (3, 3, 1, 1.5, 4, 9, 1000),
+    (2, 2, 8, 2.0, 4, 8, 999),
+    (3, 16, 2, float(2 ** (np.log2(1024 / 16) / 15)), 16, 19, 131072),
+]
+
+
+def test_k6_k6b_kernel_match_plain(dev):
+    from nerf_replication_tpu_torch.models.encoding.hashgrid import (
+        level_geometry,
+    )
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+
+    for d, lvls, c, scale, base, log2_t, n in HASH_CASES:
+        geo = level_geometry(d, lvls, scale, base, log2_t)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        table = torch.rand((geo[0][-1], c), generator=gen, device=dev) * 2 - 1
+        x = torch.rand((n, d), generator=gen, device=dev)
+        g = torch.randn((n, lvls * c), generator=gen, device=dev)
+        before = dict(he.LAUNCHES)
+        out = he.hash_encode_fwd(x, table, geo)
+        ref = he.forward_plain(x, table, geo)
+        dt, dx = he.hash_encode_bwd(x, g, table, geo, want_dx=True)
+        _, rdx = he.backward_plain(x, g, table, geo, want_dx=True)
+        torch.cuda.synchronize()
+        assert he.LAUNCHES["hash_encode_fwd"] == before["hash_encode_fwd"] + 1
+        assert he.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"] + 1
+        case = (d, lvls, c, n)
+        assert float((out - ref).abs().max()) <= 1e-6 * float(
+            ref.abs().max()), case
+        ref_dt, _ = he.backward_plain(x, g, table, geo, want_dx=False,
+                                      accum=torch.float64)
+        assert float((dt.double() - ref_dt).norm()) <= 1e-5 * float(
+            ref_dt.norm()), case
+        assert float((dx - rdx).abs().max()) <= 1e-5 * float(
+            rdx.abs().max()), case
+        # without dx the table gradient is the same kernel's
+        dt2, none = he.hash_encode_bwd(x, g, table, geo)
+        assert none is None
+        assert float((dt2 - dt).norm()) <= 1e-5 * float(dt.norm()), case
+
+
+def test_ngp_train_steps_launch_k6_k6b(dev, tmp_path):
+    """A few NGP steps on the card (lego_hash at a small table, a 32x32
+    procedural scene), warm then march, per-ray and packed: finite losses
+    and K6/K6b launched."""
+    from nerf_replication_tpu_torch.datasets.procedural import generate_scene
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.train.trainer import fit
+
+    root = str(tmp_path / "data")
+    generate_scene(root, "procedural", H=32, W=32, n_train=4, n_test=1)
+    hash_cfg = os.path.join(os.path.dirname(LEGO), "lego_hash.yaml")
+    for packed in ("false", "true"):
+        out = str(tmp_path / f"out_{packed}")
+        cfg = make_cfg(hash_cfg, [
+            "scene", "procedural", "exp_name", "card",
+            "train_dataset.data_root", root, "test_dataset.data_root", root,
+            "train_dataset.H", "32", "train_dataset.W", "32",
+            "test_dataset.H", "32", "test_dataset.W", "32",
+            "network.xyz_encoder.log2_hashmap_size", "14",
+            "task_arg.ngp_training", "true", "task_arg.ngp_packed_march",
+            packed, "task_arg.ngp_warmup_steps", "2",
+            "task_arg.ngp_warmup_max", "2", "task_arg.N_rays", "256",
+            "ep_iter", "4", "train.epoch", "1", "log_interval", "1",
+            "eval_ep", "1", "save_ep", "1", "save_latest_ep", "1",
+            "trained_model_dir", os.path.join(out, "trained"),
+            "record_dir", os.path.join(out, "record"),
+            "result_dir", os.path.join(out, "result"),
+            "trained_config_dir", os.path.join(out, "config")])
+        rows = []
+        he.reset_launch_counts()
+        state = fit(cfg, device="cuda", emit=rows.append, log=lambda s: None)
+        torch.cuda.synchronize()
+        assert state.step == 4
+        assert [r["warm"] for r in rows] == [True, True, False, False]
+        assert all(np.isfinite(r["stats"]["loss"]) for r in rows)
+        assert he.LAUNCHES["hash_encode_fwd"] > 0
+        assert he.LAUNCHES["hash_encode_bwd"] > 0
