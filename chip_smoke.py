@@ -21,10 +21,13 @@ imports nothing of JAX. Phases, each fatal on failure:
    over every tier, a few concurrent ``MicroBatcher.submit``s, and one
    request through a second engine with ``march_fused gather`` (K4). Launch
    counts are reset right before this phase and read right after.
-4. K1/K2 (the fused MLP, ``csrc/fused_mlp.cu``) against their plain
-   versions at lego width in both families, at M = 65,536 + 37 rows and at a
-   small ragged M: raw, dx, dv and every weight gradient, each held to its
-   stated tolerance; kernel, plain and bound times;
+4. K1/K2 (the fused MLP: K1 ``csrc/fused_mlp.cu``, K2 = K2a + K2b + the
+   reduce, ``csrc/fused_mlp_bwd.cu``) against their plain versions at lego
+   width in both families, at M = 65,536 + 37 rows and at a small ragged M:
+   raw, dx, dv and every weight gradient, each held to its stated
+   tolerance; K2 in its default row chunks and splits against a forced
+   small chunk with one split, and against a second call; kernel, plain and
+   bound times, and K2's split by kernel (K2a, K2b, reduce) with bounds;
 5. training (the slice-2 main path): a 200x200 procedural scene (20 train,
    2 test views) generated into a temporary directory, then ``fit`` on
    lego.yaml with ``network.nerf.fused_trunk true network.nerf.fused_tile
@@ -68,10 +71,10 @@ imports nothing of JAX. Phases, each fatal on failure:
    (d) lego_hash through the ordinary coarse+fine trainer, 20 steps.
 
 Phase 4 also holds K3a/K3b (the masked MLP) against their plain versions and
-against K1/K2 under three masks, and times K3a at the packed stream's shape
-(786,432 rows, 5% valid, sorted valid-first) beside K1 on the same rows and
-on the compacted valid rows; K1 on those 786,432 rows is held against its
-plain version too.
+against K1/K2 under three masks, and times K3a/K3b at the packed stream's
+shape (786,432 rows, 5% valid, sorted valid-first; K3b split by kernel)
+beside K1/K2 on the same rows and on the compacted valid rows; K1 on those
+786,432 rows is held against its plain version too.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -88,12 +91,20 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# the published H100 peaks and the fused MLP's operations per row (one
+# definition, shared with the K2 profiler); outside a checkout this import
+# fails and the script ends before any result
+from nerf_replication_tpu_torch.tools.profile_fused_mlp import (  # noqa: E402
+    PEAK_BF16,
+    PEAK_BYTES,
+    PEAK_F32,
+    PEAK_TF32,
+    mlp_flops_per_sample,
+)
+
 SEED = 0
 N_RAYS = 16384
-# published H100 SXM peaks (NVIDIA data sheet: dense, no sparsity)
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_BF16 = 989e12
 # tolerances of kernel vs plain on the card
 # K5 maps: the kernel and cuBLAS sum the 256-long products in different
 # orders (float32: ~1e-7 relative per layer); bf16 operands can round to the
@@ -109,13 +120,14 @@ TOL_BF16 = {"rgb": 1e-3, "acc": 1e-3, "depth": 1e-2}
 # So: raw (continuous in the flips) elementwise — f32 absolute, bf16
 # relative to max|raw|; dx/dv by the share of rows with an element off by
 # more than `el` x max|value|; every dW/db tensor by its relative Frobenius
-# error. The persistent grid's accumulation is held exactly apart from
-# that: K2 over all rows against K2 over chunks of one tile per CTA (dx/dv
-# bitwise — a row's arithmetic does not depend on its CTA — and dW/db within
-# CHUNK_REL, the order of the float32 sums).
+# error. K2's row chunks and splits are held exactly apart from that: K2 in
+# its default chunks and splits against chunks of K2_CHUNK rows with one
+# split each (dx/dv bitwise — a row's arithmetic does not depend on its
+# chunk — and dW/db within CHUNK_REL, the order of the float32 sums).
 TOL_MLP = {"f32": {"raw": 1e-5, "el": 1e-4, "rows": 1e-3, "fro": 5e-3},
            "bf16": {"raw_rel": 5e-3, "el": 5e-3, "rows": 5e-2, "fro": 5e-2}}
 CHUNK_REL = 1e-5
+K2_CHUNK = 8192  # the forced small chunk of K2's chunking check
 MLP_M = (333, 65536 + 37)
 # the packed stream of one 4096-ray chunk at packed_cap 192, and the valid
 # share of a carved lego grid
@@ -183,12 +195,45 @@ def kernel_ms(torch, fn, iters: int, names) -> float:
     return us / 1e3 / iters
 
 
-def mlp_flops_per_sample(spec) -> int:
-    """Multiply-adds x 2 of the padded fused MLP (heads 8 wide)."""
-    W, W2, cin, cvp = spec.W, spec.W2, spec.c_in_pad, spec.c_views_pad
-    macs = cin * W + (spec.D - 1) * W * W + cin * W + W * 8 + W * W \
-        + (W + cvp) * W2 + W2 * 8
-    return 2 * macs
+def k2_ops_seconds(fwd: float, peak: float) -> float:
+    """The operations of K2 (K3b) at the least time their types allow: the
+    recompute at the compute type's peak, and the two float32 backward
+    products of the forward's size (the dX chain, the weight gradients),
+    each run as three TF32 products, at the TF32 peak."""
+    return fwd / peak + 2 * 3 * fwd / PEAK_TF32
+
+
+def k2_split(torch, fmlp, spec, x, v, draw, flat, m, valid, label):
+    """Device ms per call of K2a, K2b, the reduce and the rest of one
+    mlp_backward (torch.profiler), each printed beside its bound."""
+    from nerf_replication_tpu_torch.tools.profile_fused_mlp import (
+        device_ms,
+        k2_bounds,
+    )
+
+    from nerf_replication_tpu_torch.ops.kernels import load
+
+    lib = load("fused_mlp_bwd")
+    tile_floats, jobs, n_grad, max_tiles = fmlp._bwd_layout(
+        lib, fmlp._desc(spec))
+    live_rows = m if valid is None else int(valid[:m].sum())
+    tiles = fmlp.chunk_tiles(m, 64 * max_tiles)
+    n_part = sum(fmlp._splits(x.device, t, jobs) for t in tiles)
+    live_tiles = -(-live_rows // 64) if valid is not None else sum(tiles)
+    bounds = k2_bounds(spec, m, live_tiles * 64, n_part, n_grad, tile_floats,
+                       live_tiles)
+    with torch.no_grad():
+        ms = device_ms(torch, lambda: fmlp.mlp_backward(
+            spec, x, v, draw, flat, m, valid=valid), 5)
+    name = "K2" if valid is None else "K3b"
+    print(f"{name} split [{label}] M={m} ({live_tiles} live tiles, {len(tiles)}"
+          f" chunk(s), {n_part} partials): K2a fused_mlp_bwd_rows "
+          f"{ms.get('k2a', 0.0):.4f} ms (bound {bounds['k2a']:.4f}), K2b "
+          f"fused_mlp_bwd_dw {ms.get('k2b', 0.0):.4f} ms (bound "
+          f"{bounds['k2b']:.4f}), reduce {ms.get('reduce', 0.0):.4f} ms (bound "
+          f"{bounds['reduce']:.4f}), other {ms.get('other', 0.0):.4f} ms "
+          f"(packing the weights, zeroing dx/dv)")
+    return {"ms": ms, "bounds": bounds}
 
 
 def phase_kernels(torch, np, dev):
@@ -650,7 +695,8 @@ def _k3_times(torch, np, fmlp, spec, net, flat, label, dev):
     a_ops = fwd / peak
     b_bytes = m * (row_in + 8 * 4) + m * (spec.c_in_pad + spec.c_views_pad) \
         * 4 + wbytes + n_grad * 4 * 2
-    b_ops = fwd / peak + 2 * fwd / PEAK_F32
+    b_ops = k2_ops_seconds(fwd, peak)
+    split = k2_split(torch, fmlp, spec, x, v, draw, flat, m, valid, label)
     res = dict(
         k3a_ms=k3a, k3b_ms=k3b, k1_all_ms=k1_all, k1_valid_ms=k1_val,
         k2_valid_ms=k2_val, k3a_plain=pl_f, k3b_plain=pl_b, k1_err=k1_err,
@@ -658,7 +704,7 @@ def _k3_times(torch, np, fmlp, spec, net, flat, label, dev):
         k3b_bound=max(b_bytes / PEAK_BYTES, b_ops) * 1e3,
         k3a_by="bytes" if a_bytes / PEAK_BYTES >= a_ops else "operations",
         k3b_by="bytes" if b_bytes / PEAK_BYTES >= b_ops else "operations",
-        skipped_tiles=skipped)
+        skipped_tiles=skipped, k3b_split=split)
     print(f"K3a fused_mlp_fwd_masked [{label}] at the packed shape (M={m}, "
           f"{n_valid} valid, sorted; {skipped:.4f} of {tiles} tiles skip): "
           f"kernel {k3a:.4f} ms, bound {res['k3a_bound']:.4f} ms "
@@ -734,27 +780,24 @@ def phase_mlp_kernels(torch, np, dev):
                         f"{errs[k]} > {tol['rows']}")
             require(errs["dW_fro"] <= tol["fro"], f"K2 {label} M={m}: dW "
                     f"Frobenius error {errs['dW_fro']} > {tol['fro']}")
-        # the persistent grid against one tile per CTA, at the big M
-        chunk = fmlp._backward_ctas(dev, 10**9) * 64
+        # K2's row chunks and splits against a forced small chunk with one
+        # split, and a second call, at the big M
         with torch.no_grad():
-            parts = [fmlp.mlp_backward(spec, x[i:i + chunk], v[i:i + chunk],
-                                       draw[i:i + chunk], flat,
-                                       min(chunk, m - i))
-                     for i in range(0, m, chunk)]
-        cdx = torch.cat([p[0][:min(chunk, m - i)] for i, p in
-                         zip(range(0, m, chunk), parts)])
-        cdv = torch.cat([p[1][:min(chunk, m - i)] for i, p in
-                         zip(range(0, m, chunk), parts)])
-        require(torch.equal(cdx, dx[:m]) and torch.equal(cdv, dv[:m]),
-                f"K2 {label}: dx/dv depend on the grid")
-        csum = [sum(p[2][j] for p in parts) for j in range(len(grads))]
-        chunk_err = max(_rel(g, c) for g, c in zip(grads, csum))
-        require(chunk_err <= CHUNK_REL, f"K2 {label}: persistent-grid dW "
-                f"differs from the chunked sum by {chunk_err} > {CHUNK_REL}")
-        print(f"K2 [{label}] persistent grid ({-(-m // 64)} tiles on "
-              f"{fmlp._backward_ctas(dev, m)} CTAs) vs {len(parts)} chunks of "
-              f"one tile per CTA: dx/dv bitwise equal, dW/db max relative "
-              f"{chunk_err:.3e} (tol {CHUNK_REL})")
+            cdx, cdv, cg = fmlp.mlp_backward(spec, x, v, draw, flat, m,
+                                             chunk_rows=K2_CHUNK, splits=1)
+            _, _, g2 = fmlp.mlp_backward(spec, x, v, draw, flat, m)
+        require(torch.equal(cdx, dx) and torch.equal(cdv, dv),
+                f"K2 {label}: dx/dv depend on the chunking")
+        require(all(torch.equal(a, b) for a, b in zip(grads, g2)),
+                f"K2 {label}: two calls give different dW/db")
+        chunk_err = max(_rel(c, g) for c, g in zip(cg, grads))
+        require(chunk_err <= CHUNK_REL, f"K2 {label}: dW/db over chunks of "
+                f"{K2_CHUNK} rows, one split each, differ by {chunk_err} > "
+                f"{CHUNK_REL}")
+        print(f"K2 [{label}] M={m}: default chunks and splits vs "
+              f"{-(-m // K2_CHUNK)} chunks of {K2_CHUNK} rows with one split"
+              f": dx/dv bitwise equal, dW/db max relative {chunk_err:.3e} "
+              f"(tol {CHUNK_REL}); two calls bitwise equal")
         k3_errs = _k3_checks(torch, np, fmlp, spec, flat, x, v, draw, m,
                              label, dev)
         # times at the big M
@@ -774,16 +817,16 @@ def phase_mlp_kernels(torch, np, dev):
         n_grad = sum(t.numel() for t in flat)
         k1_bytes = m * (spec.c_in_pad + spec.c_views_pad + 8) * 4 + wbytes
         k1_ops_s = fwd / peak
-        # K2: the recompute in the compute type, both backward products f32
         k2_bytes = m * (spec.c_in_pad + spec.c_views_pad + 8) * 4 \
             + m * (spec.c_in_pad + spec.c_views_pad) * 4 + wbytes \
             + n_grad * 4 * 2
-        k2_ops_s = fwd / peak + 2 * fwd / PEAK_F32
+        k2_ops_s = k2_ops_seconds(fwd, peak)
+        split = k2_split(torch, fmlp, spec, x, v, draw, flat, m, None, label)
         b1 = max(k1_bytes / PEAK_BYTES, k1_ops_s) * 1e3
         b2 = max(k2_bytes / PEAK_BYTES, k2_ops_s) * 1e3
         out[label] = dict(
             errs=errs, k1_ms=ms_f, k2_ms=ms_b, k1_plain=pl_f, k2_plain=pl_b,
-            k1_bound=b1, k2_bound=b2, k3_errs=k3_errs,
+            k1_bound=b1, k2_bound=b2, k3_errs=k3_errs, k2_split=split,
             k3=_k3_times(torch, np, fmlp, spec, net, flat, label, dev),
             k1_by="bytes" if k1_bytes / PEAK_BYTES >= k1_ops_s
             else "operations",
@@ -804,8 +847,9 @@ def phase_mlp_kernels(torch, np, dev):
         "plain_ms": f32["k1_plain"], "bound_ms": f32["k1_bound"],
         "bound_by": f32["k1_by"], "library_ms": None,
     }, {
-        "name": "fused_mlp_bwd (K2)", "route": "cuda",
-        "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
+        "name": "fused_mlp_bwd (K2): K2a fused_mlp_bwd_rows + K2b "
+                "fused_mlp_bwd_dw + reduce", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "nerf_replication_tpu/ops/fused_mlp.py:348",
         "max_abs_err": f32["errs"]["dW_abs"], "ms": f32["k2_ms"],
         "plain_ms": f32["k2_plain"], "bound_ms": f32["k2_bound"],
@@ -818,8 +862,9 @@ def phase_mlp_kernels(torch, np, dev):
         "plain_ms": f32["k3"]["k3a_plain"], "bound_ms": f32["k3"]["k3a_bound"],
         "bound_by": f32["k3"]["k3a_by"], "library_ms": None,
     }, {
-        "name": "fused_mlp_bwd_masked (K3b)", "route": "cuda",
-        "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
+        "name": "fused_mlp_bwd_masked (K3b): K2a + K2b under MASKED + "
+                "reduce", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/fused_mlp_bwd.cu",
         "replaces": "nerf_replication_tpu/ops/fused_mlp.py:397",
         "max_abs_err": f32["k3_errs"]["dW_abs"], "ms": f32["k3"]["k3b_ms"],
         "plain_ms": f32["k3"]["k3b_plain"], "bound_ms": f32["k3"]["k3b_bound"],
@@ -897,7 +942,8 @@ def phase_train(torch, np, tmp):
         "eval_ep", "2", "save_ep", "2", "save_latest_ep", "2"], "f32 fused")
     counts = dict(fmlp.LAUNCHES)
     print(f"launches on the training path: {json.dumps(counts)}")
-    for k in ("fused_mlp_fwd", "fused_mlp_bwd"):
+    for k in ("fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_bwd_rows",
+              "fused_mlp_bwd_dw", "fused_mlp_bwd_reduce"):
         require(counts[k] > 0, f"the f32 training run never launched {k}")
     losses = f32["losses"]
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
@@ -1127,8 +1173,9 @@ def phase_packed_grad(torch, np, tmp, data):
                       for n, p in net.fine.named_parameters()})
         if apply_fn is fused:
             counts = dict(fmlp.LAUNCHES)
-    require(counts["fused_mlp_bwd_masked"] > 0,
-            "the packed-march gradient never launched K3b")
+    for k in ("fused_mlp_bwd_masked", "fused_mlp_bwd_rows",
+              "fused_mlp_bwd_dw"):
+        require(counts[k] > 0, f"the packed-march gradient never launched {k}")
     for g in grads[0].values():
         require(bool(torch.isfinite(g).all()), "K3b gradient not finite")
     fro = max(_fro(grads[0][n], grads[1][n]) for n in grads[0])
@@ -1395,11 +1442,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "nerf_replication_tpu_torch")):
-        print("chip_smoke: run it from a checkout of the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
     import numpy as np
 
     from nerf_replication_tpu_torch.ops import kernels
@@ -1446,10 +1488,19 @@ def main() -> int:
             "K3a": "fused_mlp_fwd_masked", "K3b": "fused_mlp_bwd_masked",
             "K6": "hash_encode_fwd", "K6b": "hash_encode_bwd"}
     rows = mlp_rows + rows + hash_rows
+    # K2 and K3b run as K2a + K2b + the reduce: their launches on the same
+    # main-path run stand beside the call count
+    parts = {"K2": train_counts, "K3b": grad_counts}
     for row in rows:
         key = next(v for k, v in keys.items() if f"({k})" in row["name"])
         row["launches"] = counts[key]
         require(row["launches"] > 0, f"{row['name']} never launched")
+        for k, c in parts.items():
+            if f"({k})" in row["name"]:
+                row["part_launches"] = {
+                    "K2a": c["fused_mlp_bwd_rows"],
+                    "K2b": c["fused_mlp_bwd_dw"],
+                    "reduce": c["fused_mlp_bwd_reduce"]}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,22 @@ order every fused kernel reads, differentiable as the JAX one is),
 :func:`fused_spec_for` (the family gate), :func:`fused_mlp_raw` and
 :func:`make_fused_apply` (the MLP of ``network.nerf.fused_trunk: true``).
 
-Two TPU kernels become two hand-written CUDA kernels (``csrc/fused_mlp.cu``),
-each beside a plain PyTorch version of the same function:
+Two TPU kernels become hand-written CUDA kernels, each beside a plain
+PyTorch version of the same function:
 
-* **K1**, :func:`mlp_forward` (replaces ``_fwd_kernel``, fused_mlp.py:339):
-  the whole MLP per tile of rows, writing only ``raw8 [M, 8]``; plain
-  version :func:`forward_tile`.
-* **K2**, :func:`mlp_backward` (replaces ``_bwd_kernel``, fused_mlp.py:348):
-  recompute of the tile forward, then the chain backward; dx, dv and one
-  float32 gradient per weight tensor, summed over the rows by per-CTA
-  partials and a reduce kernel; plain version :func:`backward_tile`.
+* **K1**, :func:`mlp_forward` (replaces ``_fwd_kernel``, fused_mlp.py:339;
+  ``csrc/fused_mlp.cu``): the whole MLP per tile of rows, writing only
+  ``raw8 [M, 8]``; plain version :func:`forward_tile`.
+* **K2**, :func:`mlp_backward` (replaces ``_bwd_kernel``, fused_mlp.py:348;
+  ``csrc/fused_mlp_bwd.cu``): two kernels and an ordered reduce. **K2a**
+  recomputes the forward per 64-row tile, runs the dX chain and writes
+  every operand of the weight gradients to a scratch (plain version
+  :func:`backward_rows`); **K2b** sums ``dW = A^T Z`` and ``db = sum Z``
+  over all rows as long-K products, each split of the rows into its own
+  partial (plain version :func:`weight_grads`). Rows go through in chunks
+  of at most MAX_CHUNK_TILES x 64 rows (``csrc/fused_mlp_bwd.cu``: bounds
+  the scratch, ~2.8 GB at lego width); one reduce sums every chunk's
+  partials in order. Plain version of the whole: :func:`backward_tile`.
 
 :class:`FusedMLPFunction` ties them into autograd: its forward launches K1
 and saves only ``(x, v, flat weights)``; its backward launches K2. A wrapper
@@ -42,9 +48,9 @@ the K1/K2 bodies):
   per-row valid bit; a 64-row tile with no valid row writes zeros and skips
   its chain. Plain version: ``forward_tile(...) * valid``.
 * **K3b** (replaces ``_bwd_kernel_masked``, fused_mlp.py:397): K2 with the
-  cotangent times the valid bit; a skipped tile writes zero dx/dv and adds
-  nothing to its CTA's partial, and a CTA whose tiles all skip still zeroes
-  its partial. Plain version: ``backward_tile`` with ``draw * valid``.
+  cotangent times the valid bit; K2a flags a tile with no valid row dead
+  (zero dx/dv, nothing into the scratch) and K2b skips dead tiles. Plain
+  version: ``backward_tile`` with ``draw * valid``.
 
 :class:`FusedMLPMaskedFunction` ties K3a/K3b into autograd; the bit is data
 routing and gets no gradient. :func:`fused_mlp_raw_masked` pads rows to the
@@ -53,16 +59,18 @@ tile as the JAX package does, the pad rows invalid.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
 # kernel launches per wrapper since the last reset (chip_smoke.py resets it
 # right before it drives the training path and reads it right after)
+# (K2 / K3b count once per backward call; their kernels K2a, K2b and the
+# reduce count per launch beside them)
 LAUNCHES: dict[str, int] = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
                             "fused_mlp_fwd_masked": 0,
-                            "fused_mlp_bwd_masked": 0}
+                            "fused_mlp_bwd_masked": 0,
+                            "fused_mlp_bwd_rows": 0, "fused_mlp_bwd_dw": 0,
+                            "fused_mlp_bwd_reduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -250,10 +258,18 @@ def forward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     return _forward_acts(spec, x, v, ws)[0]
 
 
-def backward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
+def _t_dot(a, b):  # a.T @ b, float32
+    return a.to(torch.float32).T @ b.to(torch.float32)
+
+
+def backward_rows(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
                   draw: torch.Tensor, ws: list[torch.Tensor]):
-    """The JAX ``_backward_tile``: recompute the forward, return ``(dx,
-    dv, grads)`` with one float32 gradient per tensor of ``ws``. Every
+    """K2a's plain version: the recompute and the dX chain of the JAX
+    ``_backward_tile``. Returns ``(dx, dv, rows)``; ``rows`` holds every
+    float32 operand of the weight gradients, what K2a writes to its
+    scratch: ``x``, ``v``, ``d8`` (the cotangent), ``acts`` (the D trunk
+    outputs after relu, the feature, the views branch), ``dz`` (the D
+    trunk cotangents after their relu masks), ``df`` and ``dvh``. Every
     product is float32; both heads take the full ``[M, 8]`` cotangent."""
     f32 = torch.float32
     _, acts = _forward_acts(spec, x, v, ws)
@@ -273,44 +289,72 @@ def backward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     def dot_t(a, b):  # a @ b.T
         return a.to(f32) @ b.to(f32).T
 
-    def t_dot(a, b):  # a.T @ b
-        return a.to(f32).T @ b.to(f32)
-
-    def colsum(a):
-        return a.sum(0, keepdim=True)
-
     draw = draw.to(f32)
-    h_last = acts[spec.D - 1]
-    f, vh = acts[spec.D], acts[spec.D + 1]
-    dwr, dbr = t_dot(vh, draw), colsum(draw)
+    vh = acts[spec.D + 1]
     dvh = dot_t(draw, wr) * (vh > 0)
-    dwvf, dwvv, dbv = t_dot(f, dvh), t_dot(v, dvh), colsum(dvh)
     df = dot_t(dvh, wvf)
     dv = dot_t(dvh, wvv)
-    dwf, dbf = t_dot(h_last, df), colsum(df)
-    dwa, dba = t_dot(h_last, draw), colsum(draw)
     dh = dot_t(df, wf) + dot_t(draw, wa)
     dx = torch.zeros_like(x, dtype=f32)
-    trunk_grads = []
+    dz = [None] * spec.D
     for i in range(spec.D - 1, 0, -1):
-        dz = dh * (acts[i] > 0)
-        a_prev = acts[i - 1]
+        dz[i] = dh * (acts[i] > 0)
         if spec.skip is not None and i == spec.skip + 1:
             wx, wh, _ = trunk[i - 1]
-            trunk_grads.append([t_dot(x, dz), t_dot(a_prev, dz), colsum(dz)])
-            dx = dx + dot_t(dz, wx)
-            dh = dot_t(dz, wh)
+            dx = dx + dot_t(dz[i], wx)
+            dh = dot_t(dz[i], wh)
         else:
             w, _ = trunk[i - 1]
-            trunk_grads.append([t_dot(a_prev, dz), colsum(dz)])
-            dh = dot_t(dz, w)
-    dz0 = dh * (acts[0] > 0)
-    grads = [t_dot(x, dz0), colsum(dz0)]
-    dx = dx + dot_t(dz0, w0)
-    for g in reversed(trunk_grads):
-        grads += g
-    grads += [dwa, dba, dwf, dbf, dwvf, dwvv, dbv, dwr, dbr]
-    return dx, dv, grads
+            dh = dot_t(dz[i], w)
+    dz[0] = dh * (acts[0] > 0)
+    dx = dx + dot_t(dz[0], w0)
+    rows = {"x": x, "v": v, "d8": draw, "acts": acts, "dz": dz, "df": df,
+            "dvh": dvh}
+    return dx, dv, rows
+
+
+def grad_operands(spec: FusedSpec, rows: dict):
+    """``(A, Z)`` of every tensor of the flatten order: its gradient is
+    ``A^T Z`` for a weight and the column sum of ``Z`` for a bias (``A``
+    None) — the jobs of K2b."""
+    x, v, d8, acts, dz = (rows[k] for k in ("x", "v", "d8", "acts", "dz"))
+    ops = [(x, dz[0]), (None, dz[0])]
+    for i in range(1, spec.D):
+        if spec.skip is not None and i == spec.skip + 1:
+            ops += [(x, dz[i]), (acts[i - 1], dz[i]), (None, dz[i])]
+        else:
+            ops += [(acts[i - 1], dz[i]), (None, dz[i])]
+    h, f, vh = acts[spec.D - 1], acts[spec.D], acts[spec.D + 1]
+    df, dvh = rows["df"], rows["dvh"]
+    return ops + [(h, d8), (None, d8), (h, df), (None, df), (f, dvh),
+                  (v, dvh), (None, dvh), (vh, d8), (None, d8)]
+
+
+def weight_grads(spec: FusedSpec, rows: dict, bounds=None):
+    """K2b and the reduce, plain: one float32 gradient per tensor of the
+    flatten order from K2a's operands ``rows``, each taken over the row
+    ranges ``bounds`` (``[(lo, hi), ...]``; default all rows at once) and
+    summed in their order, as the kernels sum their splits and chunks."""
+    if bounds is None:
+        bounds = [(0, rows["d8"].shape[0])]
+    grads = []
+    for a, z in grad_operands(spec, rows):
+        g = None
+        for lo, hi in bounds:
+            part = z[lo:hi].sum(0, keepdim=True) if a is None \
+                else _t_dot(a[lo:hi], z[lo:hi])
+            g = part if g is None else g + part
+        grads.append(g)
+    return grads
+
+
+def backward_tile(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
+                  draw: torch.Tensor, ws: list[torch.Tensor]):
+    """The JAX ``_backward_tile``: recompute the forward, return ``(dx,
+    dv, grads)`` with one float32 gradient per tensor of ``ws`` — K2a's
+    and K2b's plain versions over all rows at once."""
+    dx, dv, rows = backward_rows(spec, x, v, draw, ws)
+    return dx, dv, weight_grads(spec, rows)
 
 
 # -- kernels -------------------------------------------------------------------
@@ -407,21 +451,49 @@ def mlp_forward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _backward_ctas(device: torch.device, m: int) -> int:
-    """K2's persistent grid: one CTA per SM, at most one per 64-row tile."""
+def _bwd_layout(lib, desc) -> tuple[int, int, int, int]:
+    """(scratch floats per 64-row tile, K2b gradient tiles, gradient
+    floats, the most tiles a chunk may hold) of one geometry."""
+    import ctypes
+
+    out = (ctypes.c_longlong * 4)()
+    err = lib.nrt_fused_mlp_bwd_layout(ctypes.byref(desc), out)
+    if err:
+        raise ValueError(
+            "the fused MLP backward kernels take what the forward takes and "
+            "D relu-mask tiles in K2a's shared memory (D <= 12 at W = 256)")
+    return tuple(int(t) for t in out)
+
+
+def chunk_tiles(m: int, chunk: int) -> list[int]:
+    """The 64-row tiles of each K2a + K2b chunk of ``chunk`` rows over the
+    first ``m`` rows."""
+    return [-(-min(chunk, m - c0) // 64) for c0 in range(0, m, chunk)]
+
+
+def _splits(device: torch.device, n_tiles: int, jobs: int) -> int:
+    """K2b's row splits of a chunk of ``n_tiles`` tiles: about eight waves
+    of its ``jobs`` x splits CTAs (one an SM), so that the short jobs (the
+    heads, the narrow x and v operands) fill the gaps of the long ones, and
+    at least sixteen tiles a split."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(sms, math.ceil(m / 64)))
+    return max(1, min(8 * sms // jobs, n_tiles // 16))
 
 
 def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
                  draw: torch.Tensor, flat: list[torch.Tensor],
                  m: int | None = None, want_dx: bool = True,
-                 want_dv: bool = True, valid: torch.Tensor | None = None):
+                 want_dv: bool = True, valid: torch.Tensor | None = None, *,
+                 chunk_rows: int | None = None, splits: int | None = None):
     """K2 (or K3b with ``valid``): ``(dx, dv, grads)`` of the first ``m``
     rows under cotangent ``draw [M, 8]`` (times the row's valid bit when
     ``valid [M]`` is given): dx/dv float32 (rows past ``m`` zero; ``None``
     unless asked for), one float32 gradient per tensor of ``flat``. The
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    plain version for CPU tensors, the CUDA kernels for CUDA tensors:
+    K2a + K2b per chunk of ``chunk_rows`` rows (a multiple of 64; default
+    the most a chunk may hold), each chunk's rows in
+    ``splits`` partials (default :func:`_splits`), then one ordered
+    reduce."""
     m = x.shape[0] if m is None else int(m)
     _check(spec, x, v, flat, m)
     if draw.shape != (x.shape[0], 8) or draw.device != x.device:
@@ -444,31 +516,59 @@ def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     from .kernels import _ptr, _raise_on, _stream, load
 
     dev = x.device
-    lib = load("fused_mlp")
+    lib = load("fused_mlp_bwd")
+    desc = _desc(spec)
+    tile_floats, jobs, total, max_tiles = _bwd_layout(lib, desc)
+    chunk = 64 * max_tiles if chunk_rows is None else int(chunk_rows)
+    if chunk % 64 or not 64 <= chunk <= 64 * max_tiles:
+        raise ValueError(f"chunk_rows={chunk}: a multiple of 64 up to "
+                         f"{64 * max_tiles}")
     stream, heads = pack_for_kernel(spec, flat)
     wt = pack_transposed(flat)
     x, v = x.contiguous(), v.contiguous()
     sizes = [t.numel() for t in flat]
-    total = sum(sizes)
+    if sum(sizes) != total:
+        raise ValueError(f"{sum(sizes)} gradient floats, the kernel "
+                         f"counts {total}")
     grad = torch.empty((total,), dtype=torch.float32, device=dev)
     dx = torch.zeros_like(x) if want_dx else None
     dv = torch.zeros_like(v) if want_dv else None
     if m:
-        n_ctas = _backward_ctas(dev, m)
-        acts = torch.empty((n_ctas, spec.D + 2, 64, spec.W),
-                           dtype=torch.float32, device=dev)
-        partials = torch.empty((n_ctas, total), dtype=torch.float32,
+        starts = range(0, m, chunk)
+        tiles = chunk_tiles(m, chunk)
+        n_split = [_splits(dev, t, jobs) if splits is None else int(splits)
+                   for t in tiles]
+        scratch = torch.empty((max(tiles) * tile_floats,),
+                              dtype=torch.float32, device=dev)
+        live = torch.empty((max(tiles),), dtype=torch.int32, device=dev)
+        partials = torch.empty((sum(n_split), total), dtype=torch.float32,
                                device=dev)
-        desc = _desc(spec)
         bf16 = int(spec.compute_dtype == torch.bfloat16)
-        name = "fused_mlp_bwd" if valid is None else "fused_mlp_bwd_masked"
-        err = lib.nrt_fused_mlp_bwd(
-            _ptr(x), _ptr(v), _ptr(valid), _ptr(draw), m, ctypes.byref(desc),
-            _ptr(stream), bf16, _ptr(heads), _ptr(wt), _ptr(acts),
-            _ptr(partials), n_ctas, _ptr(dx), _ptr(dv), _ptr(grad),
-            _stream(dev))
-        _raise_on(lib, err, name)
-        LAUNCHES[name] += 1
+        p0 = 0
+        for c0, s_c in zip(starts, n_split):
+            mc = min(chunk, m - c0)
+            rows = slice(c0, c0 + mc)
+            err = lib.nrt_fused_mlp_bwd_rows(
+                _ptr(x[rows]), _ptr(v[rows]),
+                _ptr(None if valid is None else valid[rows]),
+                _ptr(draw[rows]), mc, ctypes.byref(desc), _ptr(stream), bf16,
+                _ptr(heads), _ptr(wt), _ptr(scratch), _ptr(live),
+                _ptr(None if dx is None else dx[rows]),
+                _ptr(None if dv is None else dv[rows]), _stream(dev))
+            _raise_on(lib, err, "fused_mlp_bwd_rows (K2a)")
+            LAUNCHES["fused_mlp_bwd_rows"] += 1
+            err = lib.nrt_fused_mlp_bwd_dw(
+                mc, ctypes.byref(desc), _ptr(scratch), _ptr(live), s_c,
+                _ptr(partials[p0]), _stream(dev))
+            _raise_on(lib, err, "fused_mlp_bwd_dw (K2b)")
+            LAUNCHES["fused_mlp_bwd_dw"] += 1
+            p0 += s_c
+        err = lib.nrt_fused_mlp_bwd_reduce(ctypes.byref(desc), _ptr(partials),
+                                           p0, _ptr(grad), _stream(dev))
+        _raise_on(lib, err, "fused_mlp_reduce")
+        LAUNCHES["fused_mlp_bwd_reduce"] += 1
+        LAUNCHES["fused_mlp_bwd" if valid is None
+                 else "fused_mlp_bwd_masked"] += 1
     else:
         grad.zero_()
     grads = [g.view(t.shape) for g, t in zip(torch.split(grad, sizes), flat)]

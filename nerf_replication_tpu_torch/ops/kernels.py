@@ -29,9 +29,10 @@ SOURCES = {
     "fused_dda": "fused_dda.cu",
     "fused_march_full": "fused_march_full.cu",
     "fused_mlp": "fused_mlp.cu",
+    "fused_mlp_bwd": "fused_mlp_bwd.cu",
     "hash_encode": "hash_encode.cu",
 }
-HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh")
+HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh", "mlp_rows.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -56,10 +57,19 @@ ARGTYPES = {
         # x, v, valid (null: K1), m, desc*, w_stream, bf16, w_heads, raw8,
         # stream
         "nrt_fused_mlp_fwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
-        # x, v, valid (null: K2), draw, m, desc*, w_stream, bf16, w_heads,
-        # w_transposed, acts, partials, n_ctas, dx, dv, grad, stream
-        "nrt_fused_mlp_bwd": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                              _P, _I, _P, _P, _P, _P],
+    },
+    "fused_mlp_bwd": {
+        # desc*, out (long long[4]: scratch floats per tile, K2b tiles,
+        # gradient floats, most tiles a chunk)
+        "nrt_fused_mlp_bwd_layout": [_P, _P],
+        # K2a: x, v, valid (null: K2), draw, m, desc*, w_stream, bf16,
+        # w_heads, w_transposed, scratch, live, dx, dv, stream
+        "nrt_fused_mlp_bwd_rows": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P,
+                                   _P, _P, _P, _P, _P],
+        # K2b: m, desc*, scratch, live, splits, partials, stream
+        "nrt_fused_mlp_bwd_dw": [_I, _P, _P, _P, _I, _P, _P],
+        # desc*, partials, n_part, grad, stream
+        "nrt_fused_mlp_bwd_reduce": [_P, _P, _I, _P, _P],
     },
     "hash_encode": {
         # x, n, D, table, C, desc*, out, stream

@@ -13,7 +13,9 @@ repeat the trainer's step (``Trainer.step``) phase by phase:
 * CUDA events split each step into the batch draw + coarse/fine render +
   loss (``forward``), ``backward`` and the optimizer (clip + Adam);
 * ``torch.profiler`` over the same steps sums device time by kernel: K1
-  (``fused_mlp_fwd_kernel``), K2 (``fused_mlp_bwd_kernel``), K2's reduce,
+  (``fused_mlp_fwd_kernel``), K2's two kernels K2a
+  (``fused_mlp_bwd_rows_kernel``) and K2b (``fused_mlp_bwd_dw_kernel``),
+  K2's reduce,
   cuBLAS/CUTLASS products (the plain network) and everything else
   (encoding, sampling, sort, compositing, autograd's elementwise work,
   Adam's kernels);
@@ -82,8 +84,10 @@ def _category(name: str) -> str:
         return "k6b"
     if "fused_mlp_fwd" in name:
         return "k1"
-    if "fused_mlp_bwd" in name:
-        return "k2"
+    if "fused_mlp_bwd_rows" in name:
+        return "k2a"
+    if "fused_mlp_bwd_dw" in name:
+        return "k2b"
     if "fused_mlp_reduce" in name:
         return "k2_reduce"
     low = name.lower()
@@ -120,8 +124,8 @@ def _device_profile(torch, step, steps, n_parts):
     parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / steps
              for i in range(n_parts)]
     device_ms = sum(parts)
-    kernels = {"k6": 0.0, "k6b": 0.0, "k1": 0.0, "k2": 0.0, "k2_reduce": 0.0,
-               "matmul": 0.0, "other": 0.0}
+    kernels = {"k6": 0.0, "k6b": 0.0, "k1": 0.0, "k2a": 0.0, "k2b": 0.0,
+               "k2_reduce": 0.0, "matmul": 0.0, "other": 0.0}
     n_kernels = 0
     for e in prof.events():  # one event per kernel launch on the card
         if e.device_type != torch.autograd.DeviceType.CUDA:

@@ -13,8 +13,9 @@ CTA, and a small non-lego width. K4 is exact; K5 maps are held to 1e-5
 
 K1/K2 (the fused MLP) against their plain versions at W = 64 and 256, skip
 after layer 1 and 4, both families, fewer rows than one 64-row tile and a
-row count that is not a multiple of 64; and K2's persistent grid (several
-tiles per CTA) against K2 over chunks of one tile per CTA. Tolerances: f32
+row count that is not a multiple of 64; and K2 (and K3b) in its default row
+chunks and splits against K2 with a forced small chunk and one split a
+chunk, at M = 333, 65,573 (lego width) and a ragged last chunk. Tolerances: f32
 raw atol 1e-5 and dx, dv and every weight gradient within 1e-4 of the
 largest |value| of that tensor (summation order); bf16 raw within 5e-3 of
 max |raw|, and — because an activation that differs by an ulp can round to
@@ -22,15 +23,17 @@ another bf16 value or take the other side of a relu, which changes that
 row's backward by a whole term — at most 5% of the dx/dv rows off by more
 than 5e-3 of the max and each weight gradient within 5e-2 in relative
 Frobenius norm. The chunked comparison is exact on dx/dv (a row's
-arithmetic does not depend on its CTA) and within 1e-5 on dW/db.
+arithmetic does not depend on its chunk) and within 1e-5 on dW/db; two calls
+give bitwise-equal dW/db.
 
 K3a/K3b (the masked MLP) in the same cases under three masks — sorted
 valid-first (the packed stream), random 60%, all invalid: K3a's invalid rows
 exactly 0 and its valid rows bitwise K1's; K3b's dx/dv bitwise K2's under
-``draw × valid`` and its dW/db within 1e-5 of them (the same sums in the same
-CTA order, skipped tiles adding nothing); both against their plain versions
-at the K1/K2 tolerances; all invalid gives exactly zero gradients (a CTA
-whose tiles all skip still zeroes its partial).
+``draw × valid`` and its dW/db within 1e-5 of them (the same products, dead
+tiles skipped, so the splits group the rows differently); both against
+their plain versions at the K1/K2 tolerances; all invalid gives exactly zero
+gradients (every split of a chunk without live tiles writes a zero
+partial).
 
 K6/K6b (the hash encoder, ``csrc/hash_encode.cu``) against their plain
 versions over every (D, C) the kernels take, a dense level among them, and
@@ -298,26 +301,38 @@ def _k1_k2_case(dev, W, D, skip, m, dtype):
         assert float((g - r).norm()) <= 5e-2 * float(r.norm())
 
 
-def test_k2_persistent_grid_matches_one_tile_per_cta(dev):
+# (W, D, skip, M, forced chunk rows): fewer rows than a chunk, lego width at
+# the smoke's M = 65,573, and an M whose last chunk is ragged
+CHUNK_CASES = [(64, 4, 1, 333, 128), (256, 8, 4, 65536 + 37, 8192),
+               (64, 4, 1, 2 * 4096 + 3 * 64 + 7, 4096)]
+
+
+@pytest.mark.parametrize("W,D,skip,m,chunk", CHUNK_CASES)
+def test_k2_chunks_and_splits_match(dev, W, D, skip, m, chunk):
+    """K2 (and K3b under three masks) over all rows in its default chunks
+    and splits against K2 with a forced small chunk and one split a chunk:
+    dx/dv bitwise (a row's arithmetic does not depend on its chunk), dW/db
+    within 1e-5 of max|value| (the order of the float32 sums); a second
+    call gives bitwise-equal dW/db (no atomics)."""
     from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
 
-    chunk = fmlp._backward_ctas(dev, 10**9) * 64
-    m = 2 * chunk + 3 * 64 + 7  # CTAs with three and with two tiles
     for dtype in ("float32", "bfloat16"):
-        spec, x, v, draw, flat = _mlp_case(dev, 64, 4, 1, dtype, m, seed=5)
-        dx, dv, grads = fmlp.mlp_backward(spec, x, v, draw, flat, m)
-        parts = [fmlp.mlp_backward(spec, x[i:i + chunk], v[i:i + chunk],
-                                   draw[i:i + chunk], flat,
-                                   min(chunk, m - i))
-                 for i in range(0, m, chunk)]
-        rows = [min(chunk, m - i) for i in range(0, m, chunk)]
-        assert torch.equal(
-            torch.cat([p[0][:r] for p, r in zip(parts, rows)]), dx[:m])
-        assert torch.equal(
-            torch.cat([p[1][:r] for p, r in zip(parts, rows)]), dv[:m])
-        for j, g in enumerate(grads):
-            assert _rel_err(g, sum(p[2][j] for p in parts)) <= 1e-5, \
-                (dtype, j)
+        spec, x, v, draw, flat = _mlp_case(dev, W, D, skip, dtype, m, seed=5)
+        for kind in (None, "sorted", "random", "all_invalid"):
+            valid = None if kind is None else \
+                _mask(kind, m, x.shape[0], m).to(dev)
+            dx, dv, g = fmlp.mlp_backward(spec, x, v, draw, flat, m,
+                                          valid=valid)
+            _, _, g2 = fmlp.mlp_backward(spec, x, v, draw, flat, m,
+                                         valid=valid)
+            cdx, cdv, cg = fmlp.mlp_backward(spec, x, v, draw, flat, m,
+                                             valid=valid, chunk_rows=chunk,
+                                             splits=1)
+            case = (dtype, kind)
+            assert torch.equal(cdx, dx) and torch.equal(cdv, dv), case
+            for a, b, c in zip(g, g2, cg):
+                assert torch.equal(a, b), case
+                assert _rel_err(c, a) <= 1e-5, case
 
 
 def test_k2_skips_dx_dv_and_is_deterministic(dev):

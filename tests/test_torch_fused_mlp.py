@@ -15,7 +15,11 @@ the weight gradients are rounded to bf16 on both sides).
 
 The masked path (K3a/K3b, ``fused_mlp_raw_masked``) under a sorted valid
 prefix, a random 60% and an all-invalid mask, f32 at the same tolerances:
-invalid rows give raw 0 exactly and all-invalid gives zero gradients."""
+invalid rows give raw 0 exactly and all-invalid gives zero gradients.
+
+K2's two kernels through their plain versions in turn (K2a's
+``backward_rows``, K2b's chunked ``weight_grads``), f32 and bf16, unmasked
+and masked, against ``backward_tile`` and the JAX custom VJP."""
 
 import jax
 import jax.numpy as jnp
@@ -228,3 +232,70 @@ def test_masked_wrappers_are_unmasked_times_valid(setup):
     assert fmlp.LAUNCHES == before
     with pytest.raises(ValueError, match="valid"):
         fmlp.mlp_forward(spec, x, v, flat, M, valid=valid[:10])
+
+
+# -- K2's two phases (K2a rows, K2b weight gradients), plain ----------------
+
+# K2b's row ranges in a chunked run: the 64-row tiles of two chunks of 128
+# rows (the second one ragged), each tile a split
+K2B_BOUNDS = [(0, 64), (64, 128), (128, 185)]
+
+
+@pytest.mark.parametrize("dtype,masked", [
+    ("float32", False), ("float32", True), ("bfloat16", False),
+    ("bfloat16", True)])
+def test_k2a_k2b_plain_phases_match(setup, dtype, masked):
+    """The plain versions of K2's kernels in turn: K2a's (``backward_rows``:
+    dx, dv and the operands it writes to its scratch — the activations and
+    the masked per-layer cotangents) and K2b's (``weight_grads``: ``t_dot``
+    and column sums over row ranges, summed in order; here split at tile
+    and chunk boundaries). Held against ``backward_tile`` (dx/dv equal,
+    gradients within 1e-6 of max|value|: only the order of the row sums
+    differs) and, through the flatten's VJP, against the JAX custom VJP
+    under the Pallas interpreter at the file's tolerances (f32 1e-5 of
+    max|value|, bf16 1e-2); masked: the K3b cotangent draw × valid."""
+    jnet, params, pnet, x_enc, d_enc, ct = setup
+    rel_tol = 1e-5 if dtype == "float32" else 1e-2
+    valid = _mask("random", M) if masked else None
+    jspec = jax_spec_for(jnet.clone(
+        compute_dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32))
+    if masked:
+        def apply(b, x, d):
+            return jax_masked(jspec, b, x, d, jnp.asarray(valid), tile=TILE)
+    else:
+        def apply(b, x, d):
+            return jax_fused_mlp_raw(jspec, b, x, d, tile=TILE)
+    _, vjp = jax.vjp(apply, params["params"]["fine"], jnp.asarray(x_enc),
+                     jnp.asarray(d_enc))
+    g_branch, g_x, g_d = vjp(jnp.asarray(ct))
+    g_branch = jax_tree_numpy(g_branch)
+
+    spec = fmlp.fused_spec_for(pnet.clone(getattr(torch, dtype)))
+    x = fmlp._pad_cols(torch.from_numpy(x_enc), spec.c_in_pad)
+    v = fmlp._pad_cols(torch.from_numpy(d_enc), spec.c_views_pad)
+    draw = fmlp._pad_cols(torch.from_numpy(ct), 8)
+    if masked:
+        draw = draw * torch.from_numpy(valid)[:, None]
+    pnet.zero_grad()
+    flat = spec.flatten_params(pnet.fine)
+    ws = [t.detach() for t in flat]
+    dx, dv, rows = fmlp.backward_rows(spec, x, v, draw, ws)
+    assert len(rows["dz"]) == spec.D and len(rows["acts"]) == spec.D + 2
+    grads = fmlp.weight_grads(spec, rows, K2B_BOUNDS)
+    rdx, rdv, rgrads = fmlp.backward_tile(spec, x, v, draw, ws)
+    assert torch.equal(dx, rdx) and torch.equal(dv, rdv)
+    for g, r in zip(grads, rgrads):
+        assert g.shape == r.shape and _rel(g.numpy(), r.numpy()) <= 1e-6
+    if masked:  # invalid rows carry no cotangent
+        assert not dx[torch.from_numpy(valid) == 0].any()
+
+    torch.autograd.backward(flat, [g.to(t.dtype) for g, t in zip(grads,
+                                                                 flat)])
+    assert _rel(dx[:, :x_enc.shape[1]].numpy(), np.asarray(g_x)) <= rel_tol
+    assert _rel(dv[:, :d_enc.shape[1]].numpy(), np.asarray(g_d)) <= rel_tol
+    for name, layer in pnet.fine.named_children():
+        ref = g_branch[name]
+        assert _rel(layer.weight.grad.T.numpy(),
+                    np.asarray(ref["kernel"], np.float32)) <= rel_tol, name
+        assert _rel(layer.bias.grad.numpy(),
+                    np.asarray(ref["bias"], np.float32)) <= rel_tol, name
