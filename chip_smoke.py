@@ -76,6 +76,13 @@ shape (786,432 rows, 5% valid, sorted valid-first; K3b split by kernel)
 beside K1/K2 on the same rows and on the compacted valid rows; K1 on those
 786,432 rows is held against its plain version too.
 
+K1, K3a and K5 run the Hopper forward chain (``csrc/mlp_chain_sm90.cuh``:
+wgmma products, bf16 or 3xTF32, weights through a TMA ring); phases 2 and
+4 print each family's TFLOP/s, and their rows of the kernels line carry two
+bounds: ``bound_ms`` counts a float32 product as three TF32 products at the
+TF32 peak (the chain's arithmetic, K2's convention), ``bound_ms_cuda_cores``
+one product at the CUDA cores' float32 peak (the earlier chain's).
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -193,6 +200,17 @@ def kernel_ms(torch, fn, iters: int, names) -> float:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and any(n in e.name for n in names))
     return us / 1e3 / iters
+
+
+def chain_ops_seconds(fwd: float, bf16: bool) -> tuple[float, float]:
+    """The forward chain's operations (K1, K3a, K5) at the least time their
+    types allow: bf16 products at the bf16 peak; a float32 product as three
+    TF32 products at the TF32 peak (the chain's 3xTF32, K2's convention).
+    Second: the earlier bound of one float32 product at the CUDA cores' f32
+    peak (the bf16 bound is the same in both)."""
+    if bf16:
+        return fwd / PEAK_BF16, fwd / PEAK_BF16
+    return 3 * fwd / PEAK_TF32, fwd / PEAK_F32
 
 
 def k2_ops_seconds(fwd: float, peak: float) -> float:
@@ -354,15 +372,16 @@ def phase_kernels(torch, np, dev):
                 st, spec, enc_x, enc_d, kt, rays, grid_flat, coarse_flat,
                 bbox, weights.flat), 2)
         flops = needed * mlp_flops_per_sample(spec)
-        wbytes = weights.stream.numel() * weights.stream.element_size() \
-            + weights.heads.numel() * 4
+        wbytes = sum(t.numel() * t.element_size() for t in weights.flat)
         k5_bytes = rays.numel() * 4 + grid_flat.numel() + coarse_flat.numel() \
             + 24 + wbytes + n * (12 + 4 + 4 + 1 + 4 + 4)
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-        bound = max(k5_bytes / PEAK_BYTES, flops / peak) * 1e3
+        ops_s, core_s = chain_ops_seconds(flops, dtype == torch.bfloat16)
+        bound = max(k5_bytes / PEAK_BYTES, ops_s) * 1e3
         k5[label] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound=bound,
+                         bound_cuda_cores=max(k5_bytes / PEAK_BYTES,
+                                              core_s) * 1e3,
                          needed=needed, alive_diff=alive_diff,
-                         by="bytes" if k5_bytes / PEAK_BYTES >= flops / peak
+                         by="bytes" if k5_bytes / PEAK_BYTES >= ops_s
                          else "operations",
                          acc_mean=float(ker[2].mean()))
         print(f"K5 fused_march_full [{label}]: max |err| rgb "
@@ -371,14 +390,18 @@ def phase_kernels(torch, np, dev):
               f"{alive_diff} rays; samples needed {needed} "
               f"({flops / 1e9:.2f} GFLOP); mean acc {k5[label]['acc_mean']:.4f}; "
               f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms (one float32 product "
+              f"at the CUDA cores' peak: {k5[label]['bound_cuda_cores']:.4f} "
+              f"ms)")
     f32 = k5["f32"]
     rows.append({
-        "name": "fused_march_full (K5)", "route": "cuda",
+        "name": "fused_march_full (K5), Hopper chain mlp_chain_sm90.cuh "
+                "(wgmma 3xTF32 / bf16, TMA weight ring)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/fused_march_full.cu",
         "replaces": "nerf_replication_tpu/ops/fused_march.py:514",
         "max_abs_err": max(f32["errs"].values()), "ms": f32["ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound"],
+        "bound_ms_cuda_cores": f32["bound_cuda_cores"],
         "bound_by": f32["by"], "library_ms": None,
     })
     return rows, k5
@@ -692,7 +715,8 @@ def _k3_times(torch, np, fmlp, spec, net, flat, label, dev):
     n_grad = sum(t.numel() for t in flat)
     row_in = (spec.c_in_pad + spec.c_views_pad + 1) * 4
     a_bytes = m * (row_in + 8 * 4) + wbytes
-    a_ops = fwd / peak
+    a_ops, a_core = chain_ops_seconds(fwd, spec.compute_dtype ==
+                                      torch.bfloat16)
     b_bytes = m * (row_in + 8 * 4) + m * (spec.c_in_pad + spec.c_views_pad) \
         * 4 + wbytes + n_grad * 4 * 2
     b_ops = k2_ops_seconds(fwd, peak)
@@ -701,6 +725,7 @@ def _k3_times(torch, np, fmlp, spec, net, flat, label, dev):
         k3a_ms=k3a, k3b_ms=k3b, k1_all_ms=k1_all, k1_valid_ms=k1_val,
         k2_valid_ms=k2_val, k3a_plain=pl_f, k3b_plain=pl_b, k1_err=k1_err,
         k3a_bound=max(a_bytes / PEAK_BYTES, a_ops) * 1e3,
+        k3a_bound_cuda_cores=max(a_bytes / PEAK_BYTES, a_core) * 1e3,
         k3b_bound=max(b_bytes / PEAK_BYTES, b_ops) * 1e3,
         k3a_by="bytes" if a_bytes / PEAK_BYTES >= a_ops else "operations",
         k3b_by="bytes" if b_bytes / PEAK_BYTES >= b_ops else "operations",
@@ -816,17 +841,20 @@ def phase_mlp_kernels(torch, np, dev):
         wbytes = sum(t.numel() * t.element_size() for t in flat)
         n_grad = sum(t.numel() for t in flat)
         k1_bytes = m * (spec.c_in_pad + spec.c_views_pad + 8) * 4 + wbytes
-        k1_ops_s = fwd / peak
+        k1_ops_s, k1_core_s = chain_ops_seconds(
+            fwd, dtype == torch.bfloat16)
         k2_bytes = m * (spec.c_in_pad + spec.c_views_pad + 8) * 4 \
             + m * (spec.c_in_pad + spec.c_views_pad) * 4 + wbytes \
             + n_grad * 4 * 2
         k2_ops_s = k2_ops_seconds(fwd, peak)
         split = k2_split(torch, fmlp, spec, x, v, draw, flat, m, None, label)
         b1 = max(k1_bytes / PEAK_BYTES, k1_ops_s) * 1e3
+        b1_core = max(k1_bytes / PEAK_BYTES, k1_core_s) * 1e3
         b2 = max(k2_bytes / PEAK_BYTES, k2_ops_s) * 1e3
         out[label] = dict(
             errs=errs, k1_ms=ms_f, k2_ms=ms_b, k1_plain=pl_f, k2_plain=pl_b,
-            k1_bound=b1, k2_bound=b2, k3_errs=k3_errs, k2_split=split,
+            k1_bound=b1, k1_bound_cuda_cores=b1_core, k2_bound=b2,
+            k3_errs=k3_errs, k2_split=split,
             k3=_k3_times(torch, np, fmlp, spec, net, flat, label, dev),
             k1_by="bytes" if k1_bytes / PEAK_BYTES >= k1_ops_s
             else "operations",
@@ -834,17 +862,20 @@ def phase_mlp_kernels(torch, np, dev):
             else "operations")
         print(f"K1 fused_mlp_fwd [{label}] M={m}: kernel {ms_f:.3f} ms "
               f"({fwd / ms_f / 1e9:.2f} TFLOP/s), plain {pl_f:.3f} ms, bound "
-              f"{b1:.4f} ms; K2 fused_mlp_bwd (+ reduce): kernel {ms_b:.3f} "
+              f"{b1:.4f} ms (one float32 product at the CUDA cores' peak: "
+              f"{b1_core:.4f} ms); K2 fused_mlp_bwd (+ reduce): kernel {ms_b:.3f} "
               f"ms ({3 * fwd / ms_b / 1e9:.2f} TFLOP/s), plain {pl_b:.3f} ms,"
               f" bound {b2:.4f} ms")
     f32 = out["f32"]
     rows = [{
-        "name": "fused_mlp_fwd (K1)", "route": "cuda",
+        "name": "fused_mlp_fwd (K1), Hopper chain mlp_chain_sm90.cuh (wgmma "
+                "3xTF32 / bf16, TMA weight ring)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "nerf_replication_tpu/ops/fused_mlp.py:339",
         "max_abs_err": max(f32["errs"]["raw"], f32["k3"]["k1_err"]),
         "ms": f32["k1_ms"],
         "plain_ms": f32["k1_plain"], "bound_ms": f32["k1_bound"],
+        "bound_ms_cuda_cores": f32["k1_bound_cuda_cores"],
         "bound_by": f32["k1_by"], "library_ms": None,
     }, {
         "name": "fused_mlp_bwd (K2): K2a fused_mlp_bwd_rows + K2b "
@@ -855,11 +886,13 @@ def phase_mlp_kernels(torch, np, dev):
         "plain_ms": f32["k2_plain"], "bound_ms": f32["k2_bound"],
         "bound_by": f32["k2_by"], "library_ms": None,
     }, {
-        "name": "fused_mlp_fwd_masked (K3a)", "route": "cuda",
+        "name": "fused_mlp_fwd_masked (K3a), Hopper chain "
+                "mlp_chain_sm90.cuh (K1's body under MASKED)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "nerf_replication_tpu/ops/fused_mlp.py:370",
         "max_abs_err": f32["k3_errs"]["raw"], "ms": f32["k3"]["k3a_ms"],
         "plain_ms": f32["k3"]["k3a_plain"], "bound_ms": f32["k3"]["k3a_bound"],
+        "bound_ms_cuda_cores": f32["k3"]["k3a_bound_cuda_cores"],
         "bound_by": f32["k3"]["k3a_by"], "library_ms": None,
     }, {
         "name": "fused_mlp_bwd_masked (K3b): K2a + K2b under MASKED + "

@@ -5,14 +5,18 @@
 // :431). On the TPU it never lowered (Mosaic rejects the DDA's in-kernel
 // gathers); production ran the body through lax.map.
 //
-// One CTA of MLP_THREADS threads owns FM_RAYS rays end to end:
+// One CTA of CH_THREADS threads owns FM_RAYS rays end to end:
 //   1. traversal: the whole CTA runs the K4 body (dda.cuh, dda_cta) and
 //      keeps only the valid slots (t, slot index) in shared memory, plus
 //      each ray's encoded view direction;
-//   2. rounds of at most MLP_M = 64 samples: every ray that is alive and has
+//   2. rounds of at most CH_M = 64 samples: every ray that is alive and has
 //      samples left takes up to 64 / (#such rays) of its next samples, the
-//      rows are frequency-encoded in shared memory and run through the MLP
-//      tile chain (mlp_tile.cuh);
+//      rows are frequency-encoded in shared memory (rounded to the compute
+//      type) and run through the Hopper MLP chain (mlp_chain_sm90.cuh) in
+//      its column-split mode: both consumer warpgroups take the round's 64
+//      rows, each half of every layer's columns, with wgmma products (bf16,
+//      or 3xTF32 for float32) while a ninth warp streams the weights
+//      through the TMA ring; the two halves of each head are summed;
 //   3. compositing: one thread per ray folds its rows into log-space
 //      transmittance in slot order, with the JAX package's tile structure
 //      (cumsum within a tile of k_tile slots, carry between tiles), and
@@ -24,20 +28,24 @@
 // ray is finer and gives the same maps.
 //
 // Bound on the card: operations. At lego width the MLP costs ~1.19 MFLOP
-// per sample: float32 on the CUDA cores for the f32 family (67 TFLOP/s
-// peak), bf16 tensor-core products for the bf16 family (989 TFLOP/s dense
-// peak); the ~2.4 MB (f32) / ~1.2 MB (bf16) of weights per 64-row tile
-// come from L2. The TPU's 256-ray x 2-slot block (a 512 x 256
-// f32 tile, 512 KB) does not fit a CTA's 227 KB, hence 64-row tiles and
-// 8 rays per CTA of 256 threads; the rays of a CTA are neighbouring
-// pixels, and the few CTAs that cover the hit-heavy image region set the end
-// of the kernel, so a small ray count spreads their work over more SMs.
+// per sample: three TF32 products (495 TFLOP/s) for the f32 family, bf16
+// tensor-core products (989 TFLOP/s dense peak) for the bf16 family; the
+// ~4.8 MB (f32, split into TF32 high and low parts on the host) / ~1.2 MB
+// (bf16) of weights per 64-row round come from L2. The TPU's 256-ray x
+// 2-slot block (a 512 x 256 f32 tile, 512 KB) does not fit a CTA's 227 KB,
+// hence 64-row rounds and 8 rays per CTA of 256 threads (+ the producer
+// warp); the rays of a CTA are neighbouring pixels, and the few CTAs that
+// cover the hit-heavy image region set the end of the kernel, so a small
+// ray count spreads their work over more SMs.
 #include "dda.cuh"
-#include "mlp_tile.cuh"
+#include "mlp_chain_sm90.cuh"
 
 namespace {
 
+using namespace chain;
+
 constexpr int FM_RAYS = 8;  // rays per CTA
+constexpr int FM_STAGES = 8;  // ring stages (what the shared memory leaves)
 
 #ifdef NRT_PHASE_TIMING
 // Phase-timing build (scripts/profile_fused_march.py compiles this file with
@@ -73,6 +81,17 @@ struct RayState {
   int nvalid, pos, alive, tile, take, off, n_occ, n_blk;
 };
 
+template <typename AT>
+__device__ __forceinline__ AT to_at(float v);
+template <>
+__device__ __forceinline__ float to_at<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_at<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 struct ListSink {
   static constexpr bool kWantsInvalid = false;
   float* t;
@@ -87,16 +106,18 @@ struct ListSink {
   }
 };
 
+// shared memory: the activation buffers of CH_M rows, the ring and its
+// barriers, the heads' halves and raw, then the rays' lists and state
+template <typename CT>
 size_t smem_bytes(const MlpDesc& md, const MarchStatics& st) {
   const int K = st.k_sel;
-  const size_t floats = 2 * static_cast<size_t>(MLP_M) * (md.W + MLP_PAD) +
-                        static_cast<size_t>(MLP_M) * (md.c_in_pad + MLP_PAD) +
-                        static_cast<size_t>(MLP_M) * (md.c_views_pad + MLP_PAD) +
-                        static_cast<size_t>(mlp_stage_floats(md.W)) + MLP_M * 4 +
+  const size_t act = (act_bytes<CT>(md, CH_M) + 127) / 128 * 128;
+  const size_t floats = 2 * CH_M * 4 + CH_M * 4 +
                         FM_RAYS * md.c_views_pad +
                         static_cast<size_t>(FM_RAYS) * K;
-  const size_t head = floats * sizeof(float) + FM_RAYS * sizeof(RayState) +
-                      (2 * MLP_M + 4) * sizeof(int) +
+  const size_t head = act + FM_STAGES * (CH_STAGE_BYTES + 16) +
+                      floats * sizeof(float) + FM_RAYS * sizeof(RayState) +
+                      (2 * CH_M + 4) * sizeof(int) +
                       static_cast<size_t>(FM_RAYS) * K * sizeof(int16_t);
   return (head + 15) / 16 * 16 + dda_smem_bytes(FM_RAYS, st, false);
 }
@@ -127,13 +148,14 @@ __device__ __forceinline__ void flush_tile(RayState& s) {
   s.tacc = 0.0f;
 }
 
-template <typename CT>
-__global__ void __launch_bounds__(MLP_THREADS, 1)
+template <typename CT, int W>
+__global__ void __launch_bounds__(CH_THREADS, 1)
 fused_march_full_kernel(const float* __restrict__ rays, int n,
                         const int8_t* __restrict__ grid,
                         const int8_t* __restrict__ coarse,
                         const float* __restrict__ bbox, MarchStatics st,
-                        MlpDesc md, const CT* __restrict__ ws,
+                        MlpDesc md, const unsigned char* __restrict__ wmat,
+                        const float* __restrict__ bias,
                         const float* __restrict__ wh,
                         float* __restrict__ rgb_out,
                         float* __restrict__ depth_out,
@@ -141,21 +163,27 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
                         uint8_t* __restrict__ alive_out,
                         int* __restrict__ nocc_out,
                         int* __restrict__ nblk_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = md.W, cin = md.c_in_pad, cvp = md.c_views_pad, K = st.k_sel;
-  const int ldx = cin + MLP_PAD, ldv = cvp + MLP_PAD;
-  float* hA = reinterpret_cast<float*>(smem);
-  float* hB = hA + MLP_M * (W + MLP_PAD);
-  float* xs = hB + MLP_M * (W + MLP_PAD);
-  float* vs = xs + MLP_M * ldx;
-  float* wst = vs + MLP_M * ldv;
-  float* raw = wst + mlp_stage_floats(W);
-  float* denc = raw + MLP_M * 4;
+  using AT = typename Fam<CT>::AT;
+  constexpr int pad = Fam<CT>::kPad;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cin = md.c_in_pad, cvp = md.c_views_pad, K = st.k_sel;
+  const int ldh = W + pad, ldx = cin + pad, ldv = cvp + pad;
+  AT* H = reinterpret_cast<AT*>(smem);
+  AT* xs = H + CH_M * ldh;
+  AT* vs = xs + CH_M * ldx;
+  unsigned char* ring_mem =
+      smem + (act_bytes<CT>(md, CH_M) + 127) / 128 * 128;
+  Ring ring{reinterpret_cast<uint64_t*>(ring_mem + FM_STAGES * CH_STAGE_BYTES),
+            nullptr, smem_u32(ring_mem), FM_STAGES};
+  ring.empty = ring.full + FM_STAGES;
+  float* hp = reinterpret_cast<float*>(ring.empty + FM_STAGES);  // [2][64][4]
+  float* raw = hp + 2 * CH_M * 4;
+  float* denc = raw + CH_M * 4;
   float* list_t = denc + FM_RAYS * cvp;
   RayState* rs = reinterpret_cast<RayState*>(list_t + FM_RAYS * K);
   int* row_ray = reinterpret_cast<int*>(rs + FM_RAYS);
-  int* row_idx = row_ray + MLP_M;
-  int* ctrl = row_idx + MLP_M;
+  int* row_idx = row_ray + CH_M;
+  int* ctrl = row_idx + CH_M;
   int16_t* list_slot = reinterpret_cast<int16_t*>(ctrl + 4);
   const size_t dda_off =
       (reinterpret_cast<unsigned char*>(list_slot + FM_RAYS * K) - smem + 15) /
@@ -164,6 +192,9 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
 
   const int tid = threadIdx.x;
   const int ray0 = blockIdx.x * FM_RAYS;
+  const bool producer = tid >= CH_CONSUMERS;  // the ninth warp
+  RingPos pos;
+  if (tid == 0) ring_init(ring);  // dda_cta's first barrier publishes it
 #ifdef NRT_PHASE_TIMING
   unsigned long long prof[kPhaseCount] = {};
   const long long t_begin = clock64();
@@ -223,7 +254,7 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
       int active = 0;
       for (int r = 0; r < FM_RAYS; ++r)
         active += (rs[r].alive && rs[r].pos < rs[r].nvalid) ? 1 : 0;
-      const int q = active ? max(1, MLP_M / active) : 0;
+      const int q = active ? max(1, CH_M / active) : 0;
       int off = 0;
       for (int r = 0; r < FM_RAYS; ++r) {
         RayState& s = rs[r];
@@ -250,31 +281,61 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
     }
 #endif
 
-    // 2b. encode the rows
-    for (int e = tid; e < MLP_M * cin; e += MLP_THREADS) {
-      const int row = e / cin, c = e - row * cin;
-      float v = 0.0f;
-      if (row < used) {
-        const RayState& s = rs[row_ray[row]];
-        const float t = list_t[row_ray[row] * K + row_idx[row]];
-        float p[3];
+    // 2b. encode the rows (the consumers), rounded to the compute type
+    if (!producer) {
+      for (int e = tid; e < CH_M * cin; e += CH_CONSUMERS) {
+        const int row = e / cin, c = e - row * cin;
+        float v = 0.0f;
+        if (row < used) {
+          const RayState& s = rs[row_ray[row]];
+          const float t = list_t[row_ray[row] * K + row_idx[row]];
+          float p[3];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) p[a] = __fadd_rn(s.o[a], __fmul_rn(s.d[a], t));
-        v = enc_feature(p, c, md.n_freq_xyz);
+          for (int a = 0; a < 3; ++a)
+            p[a] = __fadd_rn(s.o[a], __fmul_rn(s.d[a], t));
+          v = enc_feature(p, c, md.n_freq_xyz);
+        }
+        xs[row * ldx + c] = to_at<AT>(v);
       }
-      xs[row * ldx + c] = v;
-    }
-    for (int e = tid; e < MLP_M * cvp; e += MLP_THREADS) {
-      const int row = e / cvp, c = e - row * cvp;
-      vs[row * ldv + c] = row < used ? denc[row_ray[row] * cvp + c] : 0.0f;
+      for (int e = tid; e < CH_M * cvp; e += CH_CONSUMERS) {
+        const int row = e / cvp, c = e - row * cvp;
+        vs[row * ldv + c] =
+            to_at<AT>(row < used ? denc[row_ray[row] * cvp + c] : 0.0f);
+      }
     }
 
 #ifdef NRT_PHASE_TIMING
     __syncthreads();
     NRT_MARK(kEncode);
 #endif
-    // 2c. the MLP tile chain (starts and ends with a barrier)
-    mlp_tile_forward<CT>(md, ws, wh, xs, vs, hA, hB, wst, raw);
+    // 2c. the MLP chain: the producer warp streams one pass of the weights,
+    // the consumers run the products, then raw = the heads' two column
+    // halves + their biases
+    if (producer) {
+      if (tid == CH_CONSUMERS) produce_pass<CT>(md, wmat, ring, pos);
+    } else {
+      consumers_sync();  // the encoded rows
+      const HeadOut ho = chain_forward<CT, W, true>(md, bias, wh, xs, ldx, vs,
+                                                    ldv, H, ldh, ring, pos);
+      const int lane = tid & 31;
+      if ((lane & 3) == 0) {
+        float* part = hp + (tid >> 7) * CH_M * 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * ((tid >> 5) & 3) + (lane >> 2) + 8 * h;
+          *reinterpret_cast<float4*>(part + row * 4) = make_float4(
+              ho.rgb[h][0], ho.rgb[h][1], ho.rgb[h][2], ho.alpha[h]);
+        }
+      }
+      consumers_sync();
+      if (tid < CH_M * 4) {
+        const int c = tid & 3;
+        const float hb = c < 3 ? __ldg(wh + W * 8 + 8 + (W / 2) * 8 + c)
+                               : __ldg(wh + W * 8 + 3);
+        raw[tid] = (hp[tid] + hp[CH_M * 4 + tid]) + hb;
+      }
+      consumers_sync();
+    }
     NRT_MARK(kMlp);
 
     // 3. composite, one thread per ray, in slot order
@@ -341,22 +402,45 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
 #endif
 }
 
-template <typename CT>
+template <typename CT, int W>
 int launch(const float* rays, int n, const int8_t* grid, const int8_t* coarse,
            const float* bbox, const MarchStatics& st, const MlpDesc& md,
-           const void* ws, const float* wh, float* rgb, float* depth,
-           float* acc, uint8_t* alive, int* n_occ, int* n_blk,
+           const void* wmat, const float* bias, const float* wh, float* rgb,
+           float* depth, float* acc, uint8_t* alive, int* n_occ, int* n_blk,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(md, st);
+  const size_t smem = smem_bytes<CT>(md, st);
+  auto kernel = fused_march_full_kernel<CT, W>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_march_full_kernel<CT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (n + FM_RAYS - 1) / FM_RAYS;
-  fused_march_full_kernel<CT><<<blocks, MLP_THREADS, smem, stream>>>(
-      rays, n, grid, coarse, bbox, st, md, static_cast<const CT*>(ws), wh,
-      rgb, depth, acc, alive, n_occ, n_blk);
+  kernel<<<blocks, CH_THREADS, smem, stream>>>(
+      rays, n, grid, coarse, bbox, st, md,
+      static_cast<const unsigned char*>(wmat), bias, wh, rgb, depth, acc,
+      alive, n_occ, n_blk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CT>
+int launch_width(const float* rays, int n, const int8_t* grid,
+                 const int8_t* coarse, const float* bbox,
+                 const MarchStatics& st, const MlpDesc& md, const void* wmat,
+                 const float* bias, const float* wh, float* rgb, float* depth,
+                 float* acc, uint8_t* alive, int* n_occ, int* n_blk,
+                 cudaStream_t s) {
+#define NRT_K5_WIDTH(w)                                                   \
+  case w:                                                                 \
+    return launch<CT, w>(rays, n, grid, coarse, bbox, st, md, wmat, bias, \
+                         wh, rgb, depth, acc, alive, n_occ, n_blk, s);
+  switch (md.W) {
+    NRT_K5_WIDTH(64)
+    NRT_K5_WIDTH(128)
+    NRT_K5_WIDTH(192)
+    NRT_K5_WIDTH(256)
+  }
+#undef NRT_K5_WIDTH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -373,25 +457,29 @@ extern "C" int nrt_phase_read(unsigned long long* host) {
 }
 #endif
 
+// `wmat` is pack_for_chain's weight image, `bias` its float32 biases, `wh`
+// the float32 heads
 extern "C" int nrt_fused_march_full(const float* rays, int n,
                                     const int8_t* grid, const int8_t* coarse,
                                     const float* bbox, const MarchStatics* st,
-                                    const MlpDesc* md, const void* ws,
-                                    int bf16, const float* wh, float* rgb,
-                                    float* depth, float* acc, uint8_t* alive,
-                                    int* n_occ, int* n_blk, void* stream) {
+                                    const MlpDesc* md, const void* wmat,
+                                    const float* bias, int bf16,
+                                    const float* wh, float* rgb, float* depth,
+                                    float* acc, uint8_t* alive, int* n_occ,
+                                    int* n_blk, void* stream) {
   if (n <= 0) return 0;
-  const bool shape_ok = md->W % 64 == 0 && md->W <= 256 &&
-                        md->c_in_pad % MMA_KS == 0 && md->c_in_pad <= 64 &&
-                        md->c_views_pad % MMA_KS == 0 &&
-                        md->c_views_pad <= 32 && st->k_tile > 0 &&
+  const size_t smem = bf16 ? smem_bytes<__nv_bfloat16>(*md, *st)
+                           : smem_bytes<float>(*md, *st);
+  const bool shape_ok = chain_shape_ok(*md) && st->k_tile > 0 &&
                         st->k_sel > 0 && st->k_sel <= 32767 &&
-                        st->s_c <= 32767 && smem_bytes(*md, *st) <= 232448;
+                        st->s_c <= 32767 && smem <= 232448;
   if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(rays, n, grid, coarse, bbox, *st, *md, ws,
-                                 wh, rgb, depth, acc, alive, n_occ, n_blk, s);
-  return launch<float>(rays, n, grid, coarse, bbox, *st, *md, ws, wh, rgb,
-                       depth, acc, alive, n_occ, n_blk, s);
+    return launch_width<__nv_bfloat16>(rays, n, grid, coarse, bbox, *st, *md,
+                                       wmat, bias, wh, rgb, depth, acc, alive,
+                                       n_occ, n_blk, s);
+  return launch_width<float>(rays, n, grid, coarse, bbox, *st, *md, wmat,
+                             bias, wh, rgb, depth, acc, alive, n_occ, n_blk,
+                             s);
 }

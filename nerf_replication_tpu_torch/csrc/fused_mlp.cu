@@ -8,93 +8,210 @@
 // Rows: x [M, c_in_pad] and v [M, c_views_pad] float32 from global memory;
 // the first `m` rows are real (the host pads M to the TPU tile multiple as
 // the JAX package does; the kernels skip the padded rows, whose outputs the
-// caller slices off). Tiles are MLP_M = 64 rows; a ragged last tile reads
+// caller slices off). A CTA takes 2 x CH_M = 128 rows: each of two
+// consumer warpgroups reads its 64 rows into shared memory (rounded to the
+// compute type as they are stored) and runs the Hopper chain of
+// mlp_chain_sm90.cuh on them, every column its own (wgmma products: bf16,
+// or 3xTF32 for the float32 family), while one thread of a third
+// (producer) warpgroup streams one pass of the weights through the TMA ring
+// that both read. The producer warpgroup gives its registers to the
+// consumers (setmaxnreg), whose m64n256 float32 accumulator alone is 128
+// registers a thread. A ragged last tile reads
 // zeros and writes only its real rows.
 //
-// K1 is one CTA per tile running mlp_tile_forward (mlp_tile.cuh): float32
-// products on the CUDA cores for the f32 family, bf16 mma.sync for the bf16
-// family, each with the rounding points of `_forward_tile`.
-//
-// Bound on the card: operations. Forward 1.19 MFLOP per row at lego width
-// (f32 CUDA cores: 67 TFLOP/s; bf16 tensor cores: 989 TFLOP/s).
+// Bound on the card: operations. Forward 1.19 MFLOP per row at lego width:
+// bf16 at the tensor cores' 989 TFLOP/s; float32 as three TF32 products at
+// 495 TFLOP/s (the CUDA cores' 67 TFLOP/s for one float32 product was the
+// bound of the earlier chain). The weights (4.8 MB split float32, 1.2 MB
+// bf16) come from L2 once per 128 rows.
 //
 // K3a is the same body with the compile-time flag MASKED (K1 is the
 // MASKED = false instantiation). K3a replaces `_fwd_kernel_masked`
 // (fused_mlp.py:370, launched :528): the packed march's per-row occupancy
-// bit `valid` [M] (float32 0/1) streams in, a 64-row tile with no valid row
-// writes exact zeros and skips its chain (one block-uniform
+// bit `valid` [M] (float32 0/1) streams in, a 128-row tile with no valid
+// row writes exact zeros and skips its chain (one block-uniform
 // __syncthreads_or over the tile's bits), and every other tile stores
-// raw8 * valid. The packed stream is sorted valid-first, so at ~5%
-// occupancy ~95% of its tiles skip: K3a's bound is then the bytes of x, v
-// and the bit of all M rows plus raw8, or the operations of the valid rows
-// — whichever is larger. Skipping at 64 rows (512 on the TPU) changes no
-// row's result.
-#include "mlp_rows.cuh"
+// raw8 * valid. A row's arithmetic does not depend on the other rows of its
+// tile, so K3a's valid rows are bitwise K1's. The packed stream is sorted
+// valid-first, so at ~5% occupancy ~95% of its tiles skip: K3a's bound is
+// then the bytes of x, v and the bit of all M rows plus raw8, or the
+// operations of the valid rows — whichever is larger.
+#include "mlp_chain_sm90.cuh"
 
 namespace {
 
-// K1 (MASKED = false, valid unused) and K3a (MASKED = true)
-template <typename CT, bool MASKED>
-__global__ void __launch_bounds__(MLP_THREADS, 1)
+using namespace chain;
+
+constexpr int TILE = 2 * CH_M;  // rows per CTA
+
+// shared memory: the activation buffers of TILE rows, then the ring, then
+// its barriers
+template <typename CT>
+__host__ __device__ inline size_t fwd_fixed_bytes(const MlpDesc& md) {
+  return (act_bytes<CT>(md, TILE) + 127) / 128 * 128;
+}
+template <typename CT>
+int fwd_stages(const MlpDesc& md) {
+  const long long room = 232448 - static_cast<long long>(fwd_fixed_bytes<CT>(md)) -
+                         2 * CH_MAX_STAGES * 8;
+  const long long fit = room / CH_STAGE_BYTES;
+  return static_cast<int>(fit < CH_MAX_STAGES ? fit : CH_MAX_STAGES);
+}
+
+// dst[r, 0:C] (pitch C + pad, type AT) = src[row0 + r, 0:C] for the CH_M
+// rows of one warpgroup (zeros past m); the warpgroup's 128 threads
+template <typename AT>
+__device__ __forceinline__ void load_rows(AT* dst, int pitch,
+                                          const float* __restrict__ src, int C,
+                                          int row0, int m) {
+  const int c4 = C / 4;
+  for (int e = threadIdx.x & 127; e < CH_M * c4; e += 128) {
+    const int r = e / c4, q = e - r * c4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < m)
+      val = *reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(row0 + r) * C + 4 * q);
+    AT* d = dst + r * pitch + 4 * q;
+    store2(d, val.x, val.y);
+    store2(d + 2, val.z, val.w);
+  }
+}
+
+template <typename CT, int W, bool MASKED>
+__global__ void __launch_bounds__(CH_THREADS_WS, 1)
     fused_mlp_fwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ v,
                          const float* __restrict__ valid, int m, MlpDesc md,
-                         const CT* __restrict__ ws,
-                         const float* __restrict__ wh, float* __restrict__ raw8) {
-  extern __shared__ __align__(16) float smem[];
-  const TileSmem s = carve(smem, md);
-  const int row0 = blockIdx.x * MLP_M;
-  if (MASKED && !tile_has_valid(valid, row0, m)) {
-    zero_rows(raw8, 8, row0, m);  // the whole block leaves together
+                         const unsigned char* __restrict__ wmat,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ wh, int n_stages,
+                         float* __restrict__ raw8) {
+  using AT = typename Fam<CT>::AT;
+  constexpr int pad = Fam<CT>::kPad;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldh = W + pad, ldx = md.c_in_pad + pad, ldv = md.c_views_pad + pad;
+  AT* H = reinterpret_cast<AT*>(smem);
+  AT* xs = H + TILE * ldh;
+  AT* vs = xs + TILE * ldx;
+  unsigned char* ring_mem = smem + fwd_fixed_bytes<CT>(md);
+  Ring ring{reinterpret_cast<uint64_t*>(ring_mem + n_stages * CH_STAGE_BYTES),
+            nullptr, smem_u32(ring_mem), n_stages};
+  ring.empty = ring.full + n_stages;
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * TILE;
+  if (MASKED) {
+    const bool mine = tid < TILE && row0 + tid < m && valid[row0 + tid] != 0.0f;
+    if (!__syncthreads_or(mine)) {  // block-uniform: the whole block leaves
+      for (int e = tid; e < TILE * 8; e += CH_THREADS_WS)
+        if (row0 + e / 8 < m) raw8[static_cast<size_t>(row0) * 8 + e] = 0.0f;
+      return;
+    }
+  }
+  if (tid == 0) ring_init(ring);
+  __syncthreads();
+  RingPos pos;
+  if (tid >= CH_CONSUMERS) {  // the producer warpgroup: one thread copies
+    producer_regs();
+    if (tid == CH_CONSUMERS) produce_pass<CT>(md, wmat, ring, pos);
     return;
   }
-  load_rows(s.xs, x, md.c_in_pad, row0, m);
-  load_rows(s.vs, v, md.c_views_pad, row0, m);
-  // the first GEMM's barrier makes the rows visible
-  mlp_tile_forward<CT>(md, ws, wh, s.xs, s.vs, s.b1, s.b2, s.wst, s.raw);
-  for (int e = threadIdx.x; e < MLP_M * 8; e += MLP_THREADS) {
-    const int r = e >> 3, c = e & 7;
-    if (row0 + r < m) {
-      float val = c < 4 ? s.raw[r * 4 + c] : 0.0f;
-      if (MASKED) val = val * valid[row0 + r];  // raw8 * valid
-      raw8[static_cast<size_t>(row0 + r) * 8 + c] = val;
+  consumer_regs();  // an m64n256 float32 accumulator is 128 registers
+  const int wg = tid >> 7;
+  const int r0 = row0 + wg * CH_M;
+  AT* Hw = H + wg * CH_M * ldh;
+  AT* xw = xs + wg * CH_M * ldx;
+  AT* vw = vs + wg * CH_M * ldv;
+  load_rows(xw, ldx, x, md.c_in_pad, r0, m);
+  load_rows(vw, ldv, v, md.c_views_pad, r0, m);
+  warpgroup_sync(wg);
+  const HeadOut ho =
+      chain_forward<CT, W, false>(md, bias, wh, xw, ldx, vw, ldv, Hw, ldh,
+                                  ring, pos);
+  const int lane = tid & 31;
+  if ((lane & 3) == 0) {
+    const float ba = __ldg(wh + W * 8 + 3);
+    const float* br = wh + W * 8 + 8 + (W / 2) * 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * ((tid >> 5) & 3) + (lane >> 2) + 8 * h;
+      if (row >= m) continue;
+      float o[4] = {ho.rgb[h][0] + __ldg(br), ho.rgb[h][1] + __ldg(br + 1),
+                    ho.rgb[h][2] + __ldg(br + 2), ho.alpha[h] + ba};
+      if (MASKED) {
+        const float bit = valid[row];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[c] = o[c] * bit;  // raw8 * valid
+      }
+      float4* dst = reinterpret_cast<float4*>(raw8 + static_cast<size_t>(row) * 8);
+      dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-template <typename CT, bool MASKED>
+template <typename CT, int W, bool MASKED>
 int launch_fwd(const float* x, const float* v, const float* valid, int m,
-               const MlpDesc& md, const void* ws, const float* wh,
-               float* raw8, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(md);
+               const MlpDesc& md, const void* wmat, const float* bias,
+               const float* wh, float* raw8, cudaStream_t stream) {
+  const int ns = fwd_stages<CT>(md);
+  if (ns < CH_MIN_STAGES) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_fixed_bytes<CT>(md) +
+                      static_cast<size_t>(ns) * (CH_STAGE_BYTES + 16);
+  auto kernel = fused_mlp_fwd_kernel<CT, W, MASKED>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<CT, MASKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (m + MLP_M - 1) / MLP_M;
-  fused_mlp_fwd_kernel<CT, MASKED><<<blocks, MLP_THREADS, smem, stream>>>(
-      x, v, valid, m, md, static_cast<const CT*>(ws), wh, raw8);
+  const int blocks = (m + TILE - 1) / TILE;
+  kernel<<<blocks, CH_THREADS_WS, smem, stream>>>(
+      x, v, valid, m, md, static_cast<const unsigned char*>(wmat), bias, wh,
+      ns, raw8);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CT, bool MASKED>
+int launch_width(const float* x, const float* v, const float* valid, int m,
+                 const MlpDesc& md, const void* wmat, const float* bias,
+                 const float* wh, float* raw8, cudaStream_t s) {
+  switch (md.W) {
+    case 64:
+      return launch_fwd<CT, 64, MASKED>(x, v, valid, m, md, wmat, bias, wh,
+                                        raw8, s);
+    case 128:
+      return launch_fwd<CT, 128, MASKED>(x, v, valid, m, md, wmat, bias, wh,
+                                         raw8, s);
+    case 192:
+      return launch_fwd<CT, 192, MASKED>(x, v, valid, m, md, wmat, bias, wh,
+                                         raw8, s);
+    case 256:
+      return launch_fwd<CT, 256, MASKED>(x, v, valid, m, md, wmat, bias, wh,
+                                         raw8, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 NRT_DEFINE_ERROR_STRING
 
-// K1 when `valid` is null; K3a with `valid` [M] float32 0/1
+// K1 when `valid` is null; K3a with `valid` [M] float32 0/1. `wmat` is
+// pack_for_chain's weight image, `bias` its float32 biases, `wh` the heads.
 extern "C" int nrt_fused_mlp_fwd(const float* x, const float* v,
                                  const float* valid, int m,
-                                 const MlpDesc* md, const void* ws, int bf16,
+                                 const MlpDesc* md, const void* wmat,
+                                 const float* bias, int bf16,
                                  const float* wh, float* raw8, void* stream) {
   if (m <= 0) return 0;
-  if (!shape_ok(*md)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!chain_shape_ok(*md)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return valid ? launch_fwd<__nv_bfloat16, true>(x, v, valid, m, *md, ws,
-                                                   wh, raw8, s)
-                 : launch_fwd<__nv_bfloat16, false>(x, v, valid, m, *md, ws,
-                                                    wh, raw8, s);
-  return valid ? launch_fwd<float, true>(x, v, valid, m, *md, ws, wh, raw8, s)
-               : launch_fwd<float, false>(x, v, valid, m, *md, ws, wh, raw8,
-                                          s);
+    return valid ? launch_width<__nv_bfloat16, true>(x, v, valid, m, *md,
+                                                     wmat, bias, wh, raw8, s)
+                 : launch_width<__nv_bfloat16, false>(x, v, valid, m, *md,
+                                                      wmat, bias, wh, raw8, s);
+  return valid ? launch_width<float, true>(x, v, valid, m, *md, wmat, bias,
+                                           wh, raw8, s)
+               : launch_width<float, false>(x, v, valid, m, *md, wmat, bias,
+                                            wh, raw8, s);
 }

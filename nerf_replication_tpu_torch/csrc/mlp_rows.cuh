@@ -1,7 +1,7 @@
-// Row-tile helpers shared by the standalone fused-MLP kernels: K1/K3a
-// (fused_mlp.cu) and K2/K3b (fused_mlp_bwd.cu). A tile is MLP_M rows of
-// x [M, c_in_pad] and v [M, c_views_pad] read from global memory into
-// shared memory beside the two activation buffers of mlp_tile_forward.
+// Row-tile helpers of the fused-MLP backward K2/K3b (fused_mlp_bwd.cu). A
+// tile is MLP_M rows of x [M, c_in_pad] and v [M, c_views_pad] read from
+// global memory into shared memory beside the two activation buffers of
+// K2a's forward recompute (mlp_tile.cuh).
 #pragma once
 
 #include "mlp_tile.cuh"

@@ -1,15 +1,13 @@
-// The fused NeRF-MLP tile chain as a __device__ function on one tile of
-// MLP_M rows held in shared memory. K5 (fused_march_full.cu) runs it on the
-// samples of its rays; K1 and K2 (fused_mlp.cu) run it on rows read from
-// global memory, K2 with the activations saved for its backward.
+// CUDA-core and mma.sync pieces of the fused NeRF-MLP tile on MLP_M rows
+// held in shared memory, used by K2a's forward recompute and dX chain
+// (fused_mlp_bwd.cu, through mlp_rows.cuh). The forward kernels K1/K3a and
+// K5 run the Hopper chain of mlp_chain_sm90.cuh instead.
 //
-// Replaces the tile body `_forward_tile` (nerf_replication_tpu/ops/
-// fused_mlp.py:183) and keeps its rounding points: operands rounded to the
+// The rounding points are those of the TPU tile body `_forward_tile`
+// (nerf_replication_tpu/ops/fused_mlp.py:183): operands rounded to the
 // compute type CT (float, or __nv_bfloat16), float32 accumulation, float32
-// activations between layers, biases streamed in CT, the alpha and rgb heads
-// in float32 on float32 activations, raw = rgb8 + alpha8 (rgb in columns
-// 0-2, sigma in column 3; the dead columns are exact zeros and are not
-// computed).
+// activations between layers, biases streamed in CT, the alpha and rgb
+// heads in float32 on float32 activations.
 //
 // Weight layout: `ws` is every CT tensor of FusedSpec.flatten_params in
 // canonical order, concatenated — matrices [in, out] row-major for float32,
@@ -17,24 +15,18 @@
 // is the float32 heads [Wa (W x 8), ba (8), Wr (W/2 x 8), br (8)]
 // (ops/fused_mlp.pack_for_kernel).
 //
-// Bound on the card: ~1.19 MFLOP per sample at lego width, ~2.39 MB of
-// float32 weights per pass (L2 resident). A TPU tile of 512 rows x 256 f32
-// is 512 KB, over a block's 227 KB of shared memory, so the tile here is 64
-// rows: two 64 x W float32 activation buffers ping-pong in shared memory and
-// each layer's weights stream through shared-memory slices, read once per
-// CTA per tile (cp.async copies the next slice into a second buffer while
-// the current one is consumed). Each of 256 threads owns an 8 x 8 register
-// block (rows 8*warp .. +7, columns lane*4 .. +3 and 128 + lane*4 .. +3),
-// reads shared memory in 128-bit words and accumulates with FMAs on the
-// CUDA cores (the f32 family: float32 products have no tensor-core form at
-// this precision). The bf16 family runs its GEMMs on the tensor cores with
-// mma.sync.m16n8k16 (bf16 operands, float32 accumulation — the TPU tile's
-// rounding points): each warp owns 16 rows x N/2 columns, A fragments come
-// from the float32 activations (rounded to bf16 as they are packed), B
-// fragments from a bf16 weight slice staged as [N][32 + 8] in shared memory;
-// for this the bf16 weights are packed [out, in] (ops/fused_mlp.
-// pack_for_kernel). Activation rows are padded by MLP_PAD floats so both
-// paths read them without shared-memory bank conflicts.
+// Tiles are 64 rows: two 64 x W float32 activation buffers ping-pong in
+// shared memory and each layer's weights stream through two shared-memory
+// slices with cp.async, the next slice copied while the current one is
+// consumed. gemm_acc for float32 gives each of 256 threads an 8 x 8
+// register block of FMAs on the CUDA cores (one float32 product; the
+// forward kernels now take theirs as three TF32 tensor-core products,
+// which K2a's dX chain does too). gemm_acc for bf16 runs mma.sync.m16n8k16
+// (bf16 operands, float32 accumulation): each warp owns 16 rows x N/2
+// columns, A fragments come from the float32 activations (rounded to bf16
+// as they are packed), B fragments from a bf16 weight slice staged as
+// [N][32 + 8]. Activation rows are padded by MLP_PAD floats so both paths
+// read them without shared-memory bank conflicts.
 #pragma once
 
 #include "common.cuh"
@@ -333,71 +325,4 @@ __device__ __forceinline__ void head_f32(const float* H, int ldh, int K,
       if (lane == 0) raw[row * 4 + raw_col0 + c] = part + __ldg(bh + col0 + c);
     }
   }
-}
-
-// The whole MLP on the MLP_M rows of xs [M, c_in_pad] / vs [M, c_views_pad]
-// (row pitches c_in_pad + MLP_PAD, c_views_pad + MLP_PAD) into raw [M, 4] =
-// (r, g, b, sigma) pre-activation. hA/hB are [M, W + MLP_PAD] scratch, wst
-// mlp_stage_floats(W) floats. All MLP_THREADS threads call it. With kSave,
-// every activation the backward needs is also written to `save` (global,
-// D + 2 slots of [M, W], pitch W): the trunk outputs after relu in slots
-// 0..D-1, the feature (no activation) in slot D, the views branch after relu
-// (W/2 wide) in slot D + 1 — the `acts` list of the JAX `_forward_tile`.
-template <typename CT, bool kSave = false>
-__device__ void mlp_tile_forward(const MlpDesc& md, const CT* __restrict__ ws,
-                                 const float* __restrict__ wh, const float* xs,
-                                 const float* vs, float* hA, float* hB,
-                                 float* wst, float* raw,
-                                 float* save = nullptr) {
-  const int W = md.W, W2 = md.W / 2, cin = md.c_in_pad, cvp = md.c_views_pad;
-  const int ldh = W + MLP_PAD, ldx = cin + MLP_PAD, ldv = cvp + MLP_PAD;
-  const CT* p = ws;
-  TileAcc<CT> acc;
-  auto slot = [&](int s) -> float* {
-    return kSave ? save + static_cast<size_t>(s) * MLP_M * W : nullptr;
-  };
-
-  zero_acc(acc.v);
-  gemm_acc(acc.v, xs, ldx, cin, p, W, wst);
-  p += static_cast<size_t>(cin) * W;
-  store_act(acc.v, p, W, true, hA, ldh, slot(0), W);
-  p += W;
-  float* cur = hA;
-  float* nxt = hB;
-  for (int i = 1; i < md.D; ++i) {
-    zero_acc(acc.v);
-    if (i == md.skip + 1) {
-      gemm_acc(acc.v, xs, ldx, cin, p, W, wst);
-      p += static_cast<size_t>(cin) * W;
-    }
-    gemm_acc(acc.v, cur, ldh, W, p, W, wst);
-    p += static_cast<size_t>(W) * W;
-    store_act(acc.v, p, W, true, nxt, ldh, slot(i), W);
-    p += W;
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  __syncthreads();  // the last trunk activation is complete
-  // alpha head: column 3 of Wa / ba
-  head_f32(cur, ldh, W, wh, wh + W * 8, 3, 1, 3, raw);
-  // feature (no activation) into nxt
-  zero_acc(acc.v);
-  gemm_acc(acc.v, cur, ldh, W, p, W, wst);
-  p += static_cast<size_t>(W) * W;
-  store_act(acc.v, p, W, false, nxt, ldh, slot(md.D), W);
-  p += W;
-  // views: relu(f @ Wvf + v @ Wvv + bv) into cur (the trunk output is dead:
-  // gemm_acc's barriers order the alpha head's reads before these writes)
-  zero_acc(acc.v);
-  gemm_acc(acc.v, nxt, ldh, W, p, W2, wst);
-  p += static_cast<size_t>(W) * W2;
-  gemm_acc(acc.v, vs, ldv, cvp, p, W2, wst);
-  p += static_cast<size_t>(cvp) * W2;
-  store_act(acc.v, p, W2, true, cur, ldh, slot(md.D + 1), W);
-  __syncthreads();
-  // rgb head: columns 0-2 of Wr / br
-  const float* wr = wh + W * 8 + 8;
-  head_f32(cur, ldh, W2, wr, wr + W2 * 8, 0, 3, 0, raw);
-  __syncthreads();
 }

@@ -67,3 +67,18 @@ class RayBankDataset:
             "i": index,
             "meta": {"H": self.H, "W": self.W, "focal": self.focal},
         }
+
+    def __getitem__(self, index: int) -> dict:
+        if self.split == "train":
+            # a host-side random batch (the loader of ``run --type
+            # dataset``; the trainer samples on the device instead), drawn
+            # from numpy's global RNG as the JAX package does
+            idx = np.random.randint(0, self.rays.shape[0], size=(1024,))
+            return {
+                "rays": self.rays[idx],
+                "rgbs": self.rgbs[idx],
+                "near": np.float32(self.near),
+                "far": np.float32(self.far),
+                "i": index,
+            }
+        return self.image_batch(index)

@@ -12,7 +12,8 @@ version of the same function:
   the plain :class:`~..models.nerf.network.Network`, as in the JAX engine.
 * **K5**, :func:`march_full_block` (replaces ``_full_kernel``,
   fused_march.py:514): the K4 body, then frequency encoding of the surviving
-  samples, the MLP tile chain (``ops/fused_mlp.py`` rounding points) and
+  samples, the Hopper MLP chain (``csrc/mlp_chain_sm90.cuh``, the rounding
+  points of ``ops/fused_mlp.py``) and
   log-space compositing with early ray termination, in one kernel. It is the
   ``march_fused: full`` route (:func:`march_rays_fused_full`).
 
@@ -51,7 +52,7 @@ from ..renderer.occupancy import (
     coarse_from_grid,
     world_to_voxel,
 )
-from .fused_mlp import FusedSpec, _pad_cols, _rup, forward_tile, pack_for_kernel
+from .fused_mlp import FusedSpec, _pad_cols, _rup, forward_tile, pack_for_chain
 from .kernels import MlpDescC, _ptr, _raise_on, _stream
 
 # kernel launches per wrapper since the last reset (chip_smoke.py resets it
@@ -385,13 +386,14 @@ def dda_block(st: FusedStatics, rays: torch.Tensor, grid_flat: torch.Tensor,
 
 class FusedWeights:
     """One branch's weights in the fused kernels' form: the canonical flat
-    list (plain version) and the two packed buffers (CUDA kernel)."""
+    list (plain version) and the chain's three packed buffers (CUDA kernel;
+    :func:`~.fused_mlp.pack_for_chain`), packed once per engine load."""
 
     def __init__(self, spec: FusedSpec, branch):
         self.spec = spec
         with torch.no_grad():  # serving weights: no autograd history
             self.flat = spec.flatten_params(branch)
-            self.stream, self.heads = pack_for_kernel(spec, self.flat)
+            self.wmat, self.bias, self.heads = pack_for_chain(spec, self.flat)
 
 
 def _encoder_bands(enc, width: int) -> int:
@@ -423,19 +425,22 @@ def march_full_block(st: FusedStatics, weights: FusedWeights, xyz_encoder,
     if rays.device.type != "cuda":
         raise ValueError(f"unsupported device {rays.device}")
     if spec.W % 64 or spec.W > 256 or spec.c_in_pad > 64 or \
-            spec.c_views_pad > 32:
+            spec.c_views_pad > 32 or not 1 <= spec.D <= 24:
         raise ValueError(
-            f"the fused march kernel takes W a multiple of 64 up to 256 and "
-            f"padded encodings ≤ 64/32 wide, got W={spec.W}, "
-            f"c_in_pad={spec.c_in_pad}, c_views_pad={spec.c_views_pad}"
+            f"the fused march kernel takes W a multiple of 64 up to 256, "
+            f"padded encodings ≤ 64/32 wide and 1 ≤ D ≤ 24, got W={spec.W}, "
+            f"c_in_pad={spec.c_in_pad}, c_views_pad={spec.c_views_pad}, "
+            f"D={spec.D}"
         )
     bf16 = spec.compute_dtype == torch.bfloat16
     if not bf16 and spec.compute_dtype != torch.float32:
         raise TypeError(f"compute dtype {spec.compute_dtype} (f32 or bf16)")
-    for name, t in (("weights", weights.stream), ("heads", weights.heads)):
+    for name, t in (("weights", weights.wmat), ("biases", weights.bias),
+                    ("heads", weights.heads)):
         if t.device != rays.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {rays.device}")
-    if weights.stream.dtype != spec.compute_dtype or \
+    if weights.wmat.dtype != spec.compute_dtype or \
+            weights.bias.dtype != torch.float32 or \
             weights.heads.dtype != torch.float32:
         raise TypeError("packed weight buffers have the wrong dtype")
     from .kernels import load
@@ -455,8 +460,9 @@ def march_full_block(st: FusedStatics, weights: FusedWeights, xyz_encoder,
     stc = _statics_c(st, k_tile)
     err = lib.nrt_fused_march_full(
         _ptr(rays), n, _ptr(grid_flat), _ptr(coarse_flat), _ptr(bbox),
-        ctypes.byref(stc), ctypes.byref(desc), _ptr(weights.stream),
-        int(bf16), _ptr(weights.heads), _ptr(rgb), _ptr(depth), _ptr(acc),
+        ctypes.byref(stc), ctypes.byref(desc), _ptr(weights.wmat),
+        _ptr(weights.bias), int(bf16), _ptr(weights.heads), _ptr(rgb),
+        _ptr(depth), _ptr(acc),
         _ptr(alive), _ptr(n_occ), _ptr(n_blk), _stream(dev),
     )
     _raise_on(lib, err, "fused_march_full (K5)")

@@ -11,7 +11,9 @@ Two TPU kernels become hand-written CUDA kernels, each beside a plain
 PyTorch version of the same function:
 
 * **K1**, :func:`mlp_forward` (replaces ``_fwd_kernel``, fused_mlp.py:339;
-  ``csrc/fused_mlp.cu``): the whole MLP per tile of rows, writing only
+  ``csrc/fused_mlp.cu``): the whole MLP per 128-row tile on the Hopper chain
+  of ``csrc/mlp_chain_sm90.cuh`` (wgmma products, bf16 or 3xTF32; weights
+  through a TMA ring in :func:`pack_for_chain`'s image), writing only
   ``raw8 [M, 8]``; plain version :func:`forward_tile`.
 * **K2**, :func:`mlp_backward` (replaces ``_bwd_kernel``, fused_mlp.py:348;
   ``csrc/fused_mlp_bwd.cu``): two kernels and an ordered reduce. **K2a**
@@ -183,7 +185,9 @@ def pack_for_kernel(spec: FusedSpec, flat: list[torch.Tensor]):
     each tensor's offset from (D, W, skip, c_in_pad, c_views_pad) in the
     same order. float32 matrices keep the ``[in, out]`` layout of the
     CUDA-core GEMM; bfloat16 matrices are stored ``[out, in]``, the layout
-    the tensor cores take their B operand in (``csrc/mlp_tile.cuh``)."""
+    the tensor cores take their B operand in (``csrc/mlp_tile.cuh``). K2a's
+    forward recompute reads this form; the forward kernels read
+    :func:`pack_for_chain`'s."""
     heads_at = set(spec.head_indices())
     out_major = spec.compute_dtype == torch.bfloat16
 
@@ -199,6 +203,83 @@ def pack_for_kernel(spec: FusedSpec, flat: list[torch.Tensor]):
     heads = torch.cat([flat[i].reshape(-1).to(torch.float32)
                        for i in sorted(heads_at)]).contiguous()
     return stream, heads
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t = hi + lo`` exactly: ``hi`` is ``t`` with its low 13
+    mantissa bits cleared (a TF32 value), ``lo = t - hi``."""
+    hi = (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+    return hi, t - hi
+
+
+# (geometry, compute dtype, device) -> (gather index, low-part flag) of the
+# chain's weight image; see _chain_layout
+_CHAIN_LAYOUTS: dict = {}
+
+
+def _chain_layout(spec: FusedSpec, shapes: list[tuple[int, int]], device):
+    """Where each element of :func:`pack_for_chain`'s ``wmat`` comes from:
+    an index into the matrices concatenated flat (each ``[in, out]``
+    row-major, in flatten order) and, for float32, whether the element is a
+    TF32 low part. Built once per geometry, so that packing is one gather
+    and an elementwise split (a handful of kernels), not a chain of small
+    copies per matrix on every forward call."""
+    cd = spec.compute_dtype
+    key = (spec.D, spec.W, spec.skip, spec.c_in_pad, spec.c_views_pad, cd,
+           str(device))
+    if key not in _CHAIN_LAYOUTS:
+        e = 4 if cd == torch.float32 else 8  # values in 16 bytes
+        idx, low, off = [], [], 0
+        for k, n in shapes:
+            src = torch.arange(off, off + k * n).reshape(k, n)
+            steps = src.T.reshape(n, k // (2 * e), 2, e).permute(1, 2, 0, 3)
+            if cd == torch.float32:  # each step: high part, then low part
+                steps = torch.stack([steps, steps], 1)
+                part = torch.zeros(steps.shape, dtype=torch.bool)
+                part[:, 1] = True
+                low.append(part.reshape(-1))
+            idx.append(steps.reshape(-1))
+            off += k * n
+        _CHAIN_LAYOUTS[key] = (torch.cat(idx).to(device),
+                               torch.cat(low).to(device) if low else None)
+    return _CHAIN_LAYOUTS[key]
+
+
+def pack_for_chain(spec: FusedSpec, flat: list[torch.Tensor]):
+    """The forward chain's three buffers (K1/K3a, K5; ``csrc/
+    mlp_chain_sm90.cuh``): ``wmat``, every matrix of the canonical order but
+    the heads, in the shared-memory image its tensor-core products read;
+    ``bias``, every bias but the heads' as float32 (of its compute-dtype
+    value); ``heads``, the float32 ``[Wa, ba, Wr, br]``.
+
+    A matrix ``w [K, N]`` (``[in, out]``) is stored K-major, ``w.T``, as
+    k-steps of 32 bytes (8 float32 or 16 bf16 values of k), each step as
+    ``[2, N, 16 bytes]`` (the two 16-byte halves of its k, every output row
+    n within each: the core-matrix layout of a no-swizzle wgmma operand).
+    float32 steps hold two such parts: the TF32 high part, then the low
+    part (:func:`split_tf32`), split here once instead of per tile."""
+    heads_at = set(spec.head_indices())
+    cd = spec.compute_dtype
+    if cd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute dtype {cd} (f32 or bf16)")
+    mats, biases = [], []
+    for i, t in enumerate(flat):
+        if i in heads_at:
+            continue
+        if t.dtype != cd:
+            raise TypeError(f"weights stream as {t.dtype}, the spec computes "
+                            f"in {cd}")
+        (biases if t.shape[0] == 1 else mats).append(t)
+    idx, low = _chain_layout(spec, [tuple(t.shape) for t in mats],
+                             flat[0].device)
+    wmat = torch.cat([t.reshape(-1) for t in mats])[idx]
+    if low is not None:
+        hi, lo = split_tf32(wmat)
+        wmat = torch.where(low, lo, hi)
+    heads = torch.cat([flat[i].reshape(-1).to(torch.float32)
+                       for i in sorted(heads_at)])
+    bias = torch.cat([b.reshape(-1) for b in biases]).to(torch.float32)
+    return wmat, bias, heads
 
 
 def pack_transposed(flat: list[torch.Tensor]) -> torch.Tensor:
@@ -433,7 +514,7 @@ def mlp_forward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     from .kernels import _ptr, _raise_on, _stream, load
 
     lib = load("fused_mlp")
-    stream, heads = pack_for_kernel(spec, flat)
+    wmat, bias, heads = pack_for_chain(spec, flat)
     x, v = x.contiguous(), v.contiguous()
     out = torch.empty((x.shape[0], 8), dtype=torch.float32, device=x.device)
     if m < x.shape[0]:
@@ -444,8 +525,8 @@ def mlp_forward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     bf16 = int(spec.compute_dtype == torch.bfloat16)
     name = "fused_mlp_fwd" if valid is None else "fused_mlp_fwd_masked"
     err = lib.nrt_fused_mlp_fwd(
-        _ptr(x), _ptr(v), _ptr(valid), m, ctypes.byref(desc), _ptr(stream),
-        bf16, _ptr(heads), _ptr(out), _stream(x.device))
+        _ptr(x), _ptr(v), _ptr(valid), m, ctypes.byref(desc), _ptr(wmat),
+        _ptr(bias), bf16, _ptr(heads), _ptr(out), _stream(x.device))
     _raise_on(lib, err, name)
     LAUNCHES[name] += 1
     return out

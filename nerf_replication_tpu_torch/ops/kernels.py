@@ -32,7 +32,8 @@ SOURCES = {
     "fused_mlp_bwd": "fused_mlp_bwd.cu",
     "hash_encode": "hash_encode.cu",
 }
-HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh", "mlp_rows.cuh")
+HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh", "mlp_rows.cuh",
+           "mlp_chain_sm90.cuh", "wgmma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -48,15 +49,15 @@ ARGTYPES = {
         "nrt_fused_dda": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "fused_march_full": {
-        # rays, n, grid, coarse, bbox, statics*, desc*, w_stream, bf16,
-        # w_heads, rgb, depth, acc, alive, n_occ, n_blk, stream
-        "nrt_fused_march_full": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                 _P, _P, _P, _P, _P, _P],
+        # rays, n, grid, coarse, bbox, statics*, desc*, w_mat, w_bias,
+        # bf16, w_heads, rgb, depth, acc, alive, n_occ, n_blk, stream
+        "nrt_fused_march_full": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                 _P, _P, _P, _P, _P, _P, _P],
     },
     "fused_mlp": {
-        # x, v, valid (null: K1), m, desc*, w_stream, bf16, w_heads, raw8,
-        # stream
-        "nrt_fused_mlp_fwd": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P],
+        # x, v, valid (null: K1), m, desc*, w_mat, w_bias, bf16, w_heads,
+        # raw8, stream
+        "nrt_fused_mlp_fwd": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     },
     "fused_mlp_bwd": {
         # desc*, out (long long[4]: scratch floats per tile, K2b tiles,

@@ -6,9 +6,11 @@
     python -m nerf_replication_tpu_torch.run --type network  --cfg_file ...
     python -m nerf_replication_tpu_torch.run --type dataset  --cfg_file ...
 
-* ``dataset``: 1000 timed draws of a training batch from the ray bank on the
-  device (the port's data path: the trainer samples there, with no host
-  loader).
+* ``dataset``: iterates the train split's host loader
+  (``datasets.make_data_loader``: sampler → ``__getitem__`` → collate →
+  prefetch), capped at 1000 batches, and prints the JAX CLI's line. numpy
+  on the host: no device is used (the trainer itself samples on the
+  device).
 * ``network``: a timed whole-image render of every test view (chunked).
 * ``evaluate``: render every test view through the render gate — the
   occupancy-accelerated march when ``task_arg.accelerated_renderer`` is set
@@ -65,23 +67,16 @@ def _mean_times(net_times: list[float]) -> float:
 
 
 def run_dataset(cfg, args=None):
-    """1000 timed batch draws from the train split's ray bank on the
-    device (the trainer's sampler)."""
-    from .datasets import make_dataset
-    from .datasets.sampling import sample_rays, step_generator
-    from .utils.platform import resolve_device
+    """Iterate the train loader contract: the full sampler → collate →
+    prefetch pipeline, capped at 1000 batches (the JAX ``run_dataset``)."""
+    from .datasets import make_data_loader
 
-    dev = resolve_device(_device_of(args))
-    bank = [torch.from_numpy(a).to(dev)
-            for a in make_dataset(cfg, "train").ray_bank()]
-    n_rays = int(cfg.task_arg.get("N_rays", 1024))
-    t0 = time.perf_counter()
-    n = 1000
-    for step in range(n):
-        sample_rays(step_generator(int(cfg.get("seed", 0)), step, dev),
-                    bank[0], bank[1], n_rays)
-    _sync(dev)
-    dt = time.perf_counter() - t0
+    loader = make_data_loader(cfg, "train", max_iter=1000)
+    t0 = time.time()
+    n = 0
+    for _ in loader:
+        n += 1
+    dt = time.time() - t0
     print(f"iterated {n} batches in {dt:.2f}s ({n / dt:.1f} it/s)")
 
 

@@ -9,9 +9,12 @@ width, 128³ ball grid, 16384 rays of one view, seed 0) for the f32 and bf16
 families, and prints one JSON line per family: SM cycles summed over CTAs
 per phase (DDA, schedule, encode, MLP, composite, finalize) and their
 shares, MLP rounds and rows per round (tile fill), CTAs with samples, the
-longest CTA against the mean, and the kernel time (CUDA events). The
-timing build adds a barrier after the encode phase and clock reads on
-thread 0, so its kernel time runs a little above the serving build's.
+longest CTA against the mean, the kernel time (CUDA events), and the MLP
+chain's rate: the operations of the rows it ran (1.19 MFLOP a row at lego
+width) over the kernel time's MLP share. The timing build adds a barrier
+after the encode phase and clock reads on thread 0, so its kernel time runs
+a little above the serving build's. Ends with the card's name and power
+limit (nvidia-smi).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ def main() -> int:
     from ..ops.fused_mlp import fused_spec_for
     from ..renderer.accelerated import MarchOptions
     from ..utils.platform import resolve_device
+    from .profile_fused_mlp import mlp_flops_per_sample
     from .slice_inputs import SLICE_OPTS, ball_grid, view_rays
 
     dev = resolve_device("cuda")
@@ -103,8 +107,9 @@ def main() -> int:
             err = lib.nrt_fused_march_full(
                 fm._ptr(rays), n, fm._ptr(grid_flat), fm._ptr(coarse_flat),
                 fm._ptr(bbox), ctypes.byref(stc), ctypes.byref(desc),
-                fm._ptr(weights.stream), int(dtype == torch.bfloat16),
-                fm._ptr(weights.heads), *[fm._ptr(t) for t in outs],
+                fm._ptr(weights.wmat), fm._ptr(weights.bias),
+                int(dtype == torch.bfloat16), fm._ptr(weights.heads),
+                *[fm._ptr(t) for t in outs],
                 fm._stream(dev))
             if err:
                 raise RuntimeError(lib.nrt_error_string(err).decode())
@@ -125,10 +130,13 @@ def main() -> int:
         cycles = dict(zip(PHASES, c[:6]))
         total = sum(cycles.values())
         n_ctas = c[10]
+        kernel_ms = start.elapsed_time(end)
+        mlp_s = kernel_ms * 1e-3 * cycles["mlp"] / total
         print(json.dumps({
             "family": label,
             "device": torch.cuda.get_device_name(0),
-            "kernel_ms": start.elapsed_time(end),
+            "kernel_ms": kernel_ms,
+            "mlp_tflops": c[7] * mlp_flops_per_sample(spec) / mlp_s / 1e12,
             "cta_cycles": cycles,
             "share": {k: v / total for k, v in cycles.items()},
             "rounds": c[6], "rows": c[7],
@@ -136,6 +144,10 @@ def main() -> int:
             "ctas": n_ctas, "ctas_with_samples": c[8],
             "max_cta_cycles": c[9], "mean_cta_cycles": total / n_ctas,
         }))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip())
     return 0
 
 

@@ -150,14 +150,16 @@ def k2_bounds(spec, m: int, live_rows: int, n_part: int, n_grad: int,
 
 
 def case_inputs(torch, np, case: str, dev):
-    """(spec, x, v, draw, flat, m, valid) of one case: ``k2_f32``,
-    ``k2_bf16``, ``k3b_f32`` or ``k3b_bf16``."""
+    """(spec, x, v, draw, flat, m, valid) of one case: ``<kind>_<family>``
+    with kind ``k2`` / ``k1`` (K2_M rows) or ``k3b`` / ``k3a`` (the packed
+    stream, its first 5% valid) and family ``f32`` or ``bf16``."""
     kind, family = case.split("_")
     dtype = torch.float32 if family == "f32" else torch.bfloat16
-    m = PACKED_M if kind == "k3b" else K2_M
+    packed = kind in ("k3b", "k3a")
+    m = PACKED_M if packed else K2_M
     spec, x, v, draw, flat = lego_case(torch, np, dtype, m, SEED + m, dev)
     valid = None
-    if kind == "k3b":
+    if packed:
         bits = np.zeros(x.shape[0], np.float32)
         bits[:int(m * PACKED_VALID)] = 1.0
         valid = torch.from_numpy(bits).to(dev)

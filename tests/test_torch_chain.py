@@ -1,0 +1,175 @@
+"""The Hopper forward chain's host side (``ops/fused_mlp.pack_for_chain``)
+and its float32 arithmetic, on the CPU.
+
+* The packing: decoded by the layout ``csrc/mlp_chain_sm90.cuh`` reads
+  (products in stream order, K-major k-steps of 32 bytes, each as [2, N,
+  16 bytes] core matrices; float32 steps as a TF32-high part then a low
+  part), every matrix comes back exactly: hi + lo == w with hi's low 13
+  mantissa bits clear (float32), the bf16 values themselves (bf16); biases
+  and heads as the flatten order holds them.
+* The error budget of 3xTF32 before any card run: a plain emulation of the
+  chain's products (a_lo b_hi + a_hi b_lo + a_hi b_hi on TF32-truncated
+  parts, float32 sums), fed from the decoded stream, stays within K1's
+  float32 gate (raw atol 1e-5) of the JAX ``fused_mlp_raw`` under the
+  Pallas interpreter, at D=4, W=128 (skip after layer 1) and at lego's
+  D=8, W=256 (skip after layer 4) with its default init.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_helpers import jax_tree_numpy, nets
+
+from nerf_replication_tpu.ops.fused_mlp import (
+    fused_mlp_raw as jax_fused_mlp_raw,
+    fused_spec_for as jax_spec_for,
+)
+from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+
+SMALL = ["network.nerf.W", "128", "network.nerf.D", "4",
+         "network.nerf.skips", "[1]"]
+M, TILE = 185, 64
+
+
+def _products(spec):
+    """(K, N) of every product of the chain, in stream order (the
+    kernel's ``for_each_product``)."""
+    out = [(spec.c_in_pad, spec.W)]
+    for i in range(1, spec.D):
+        if spec.skip is not None and i == spec.skip + 1:
+            out.append((spec.c_in_pad, spec.W))
+        out.append((spec.W, spec.W))
+    return out + [(spec.W, spec.W), (spec.W, spec.W2),
+                  (spec.c_views_pad, spec.W2)]
+
+
+def _decode(spec, wmat):
+    """The stream back as one ``[K, N]`` matrix per product (float32: its
+    (hi, lo) pair), read as the kernel reads it."""
+    f32 = spec.compute_dtype == torch.float32
+    e = 4 if f32 else 8
+    parts = 2 if f32 else 1
+    pos, mats = 0, []
+    for k, n in _products(spec):
+        size = k * n * parts
+        chunk = wmat[pos:pos + size]
+        pos += size
+        # [step, part, kh, n, e] -> per part [K, N]
+        steps = chunk.reshape(k // (2 * e), parts, 2, n, e)
+        per_part = [steps[:, p].permute(0, 1, 3, 2).reshape(k, n)
+                    for p in range(parts)]
+        mats.append(tuple(per_part) if f32 else per_part[0])
+    assert pos == wmat.numel()
+    return mats
+
+
+def _matrices(spec, flat):
+    heads = set(spec.head_indices())
+    return [t for i, t in enumerate(flat)
+            if i not in heads and t.shape[0] > 1]
+
+
+def _flat(dtype, extra=SMALL, seed=1):
+    jnet, params, pnet = nets(extra=extra, seed=seed)
+    rng = np.random.default_rng(5)
+    tree = jax_tree_numpy(params)
+    for layers in tree["params"].values():
+        for leaf in layers.values():
+            leaf["bias"] = rng.normal(0, 0.05, leaf["bias"].shape).astype(
+                np.float32)
+    from nerf_replication_tpu_torch.convert import params_from_jax
+
+    pnet.load_state_dict(params_from_jax(tree), strict=True)
+    spec = fmlp.fused_spec_for(pnet.clone(dtype))
+    with torch.no_grad():
+        flat = spec.flatten_params(pnet.fine)
+    return jnet, jax.tree.map(jnp.asarray, tree), pnet, spec, flat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_for_chain_decodes_exactly(dtype):
+    _, _, _, spec, flat = _flat(dtype)
+    wmat, bias, heads = fmlp.pack_for_chain(spec, flat)
+    assert wmat.dtype == dtype and bias.dtype == heads.dtype == torch.float32
+    mats = _matrices(spec, flat)
+    decoded = _decode(spec, wmat)
+    assert len(decoded) == len(mats)
+    for w, got in zip(mats, decoded):
+        if dtype == torch.float32:
+            hi, lo = got
+            assert torch.equal(hi + lo, w)
+            assert not (hi.view(torch.int32) & 0x1FFF).any()
+            assert torch.equal(hi, fmlp.split_tf32(w)[0])
+            # |lo| < 2^-10 |w|: the high part carries 11 significant bits
+            assert bool((lo.abs() <= w.abs() * 2.0 ** -10).all())
+        else:
+            assert torch.equal(got, w)
+    biases = [t for i, t in enumerate(flat)
+              if i not in set(spec.head_indices()) and t.shape[0] == 1]
+    assert torch.equal(bias, torch.cat([b.reshape(-1).float()
+                                        for b in biases]))
+    assert torch.equal(heads, fmlp.pack_for_kernel(spec, flat)[1])
+
+
+def _trunc(t):
+    """A float32 value as the tensor core reads it as TF32."""
+    return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _emulate(spec, x, v, wmat, bias, heads):
+    """The float32 chain as the kernel computes it: every product as
+    3xTF32 on the decoded stream, bias + relu, the heads in float32."""
+    mats = iter(_decode(spec, wmat))
+    b = iter(torch.split(bias, [spec.W] * (spec.D + 1) + [spec.W2]))
+
+    def mm(a, pair):
+        w_hi, w_lo = pair
+        a_hi, a_lo = fmlp.split_tf32(a)
+        return (_trunc(a_lo) @ w_hi + a_hi @ _trunc(w_lo)) + a_hi @ w_hi
+
+    h = torch.relu(mm(x, next(mats)) + next(b))
+    for i in range(1, spec.D):
+        if spec.skip is not None and i == spec.skip + 1:
+            z = mm(x, next(mats))
+            z = z + mm(h, next(mats))
+        else:
+            z = mm(h, next(mats))
+        h = torch.relu(z + next(b))
+    W, W2 = spec.W, spec.W2
+    wa, ba = heads[:W * 8].reshape(W, 8), heads[W * 8:W * 8 + 8]
+    wr = heads[W * 8 + 8:W * 8 + 8 + W2 * 8].reshape(W2, 8)
+    br = heads[W * 8 + 8 + W2 * 8:]
+    alpha = h @ wa[:, 3] + ba[3]
+    f = mm(h, next(mats)) + next(b)
+    vh = torch.relu(mm(f, next(mats)) + mm(v, next(mats)) + next(b))
+    rgb = vh @ wr[:, :3] + br[:3]
+    return torch.cat([rgb, alpha[:, None]], 1)
+
+
+@pytest.mark.parametrize("extra", [
+    SMALL, ["network.nerf.skips", "[4]"]], ids=["D4_W128", "lego_D8_W256"])
+def test_3xtf32_emulation_within_k1_gate(extra):
+    jnet, params, pnet, spec, flat = _flat(torch.float32, extra)
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-1.5, 1.5, (M, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (M, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    x_enc = pnet.xyz_encoder(torch.from_numpy(pts))
+    d_enc = pnet.dir_encoder(torch.from_numpy(d))
+    jspec = jax_spec_for(jnet)
+    raw_j = np.asarray(jax_fused_mlp_raw(
+        jspec, params["params"]["fine"], jnp.asarray(x_enc.numpy()),
+        jnp.asarray(d_enc.numpy()), tile=TILE))
+    x = fmlp._pad_cols(x_enc, spec.c_in_pad)
+    v = fmlp._pad_cols(d_enc, spec.c_views_pad)
+    with torch.no_grad():
+        wmat, bias, heads = fmlp.pack_for_chain(spec, flat)
+        emu = _emulate(spec, x, v, wmat, bias, heads).numpy()
+        plain = fmlp.forward_tile(spec, x, v, flat)[:, :4].numpy()
+    err = float(np.abs(emu - raw_j).max())
+    assert err <= 1e-5, err
+    # the emulation differs from the float32 products, within that gate
+    assert 0 < float(np.abs(emu - plain).max()) <= 1e-5
