@@ -57,10 +57,15 @@ imports nothing of JAX. Phases, each fatal on failure:
 
 10. K6/K6b (the hash encoder, ``csrc/hash_encode.cu``) against their plain
    versions at lego_hash's full geometry (16 levels x 2 features, a
-   5,738,832-row table), at the NGP warm step's 131,072 points (1024 rays x
-   128 samples) and its grid refresh's 16,384 cells: K6 within 1e-6 of
-   max|out|, K6b's dtable within 1e-5 (relative Frobenius) of a float64
-   reference and dx within 1e-5 of max|dx|; kernel, plain and bound times;
+   5,738,832-row table) on four point sets: ``ray``, the NGP warm step's
+   131,072 ray-ordered points (1024 rays x 128 samples,
+   ``slice_inputs.ngp_points``: the main path's order, whose times the
+   kernels line reports); ``uniform``, 131,072 uniform points; ``uniform16k``,
+   16,384 (the grid refresh's count); ``cell``, 16,384 points inside one
+   level-0 cell (contention): K6 within 1e-6 of max|out| (printed as bitwise
+   or not), K6b's dtable within 1e-5 (relative Frobenius) of a float64
+   reference and dx within 1e-5 of max|dx|; kernel, plain and bound times,
+   and, as a diagnostic only, ``index_add_`` over the same (row, w·g) pairs;
 11. NGP training (the slice-4 main path) on the 200x200 scene, each run's
    hash-kernel launch counts reset right before and read right after:
    (a) lego_hash, ``ngp_training``, f32, the per-ray march, 1024 rays, 30
@@ -145,9 +150,11 @@ MASKS = ("sorted", "random", "all_invalid")
 TOL_EVAL_MAPS = 1e-4
 TRAIN_HW = 200
 DEVICE = "cuda"  # the card; only a CPU rehearsal of the phases changes it
-# K6/K6b at the NGP step's shapes: the warm step's stratified points (1024
-# rays x 128 samples) and the grid refresh's cells (64³ / 16)
-HASH_N = (1024 * 128, 64**3 // 16)
+# K6/K6b's point sets: the NGP warm step's ray-ordered points (1024 rays x
+# 128 samples), uniform points at that count and at the grid refresh's
+# (64³ / 16 cells), and 16,384 points inside one level-0 cell
+HASH_SETS = (("ray", 1024 * 128), ("uniform", 1024 * 128),
+             ("uniform16k", 64**3 // 16), ("cell", 64**3 // 16))
 # K6 vs plain: every float operation of the kernel is the plain version's
 # (measured bitwise); the bound leaves room for the FMA of pos, which the
 # plain version emulates in float64
@@ -1252,9 +1259,53 @@ def phase_engine_routes(torch, np, tmp, data):
               f"{float(image.mean()):.2f}, march {json.dumps(st['march'])}")
 
 
+def _hash_points(torch, kind, n, d, scale0, gen, dev):
+    from nerf_replication_tpu_torch.tools.slice_inputs import (
+        cell_points,
+        ngp_points,
+    )
+
+    if kind == "ray":
+        x = torch.from_numpy(ngp_points(SEED))
+    elif kind == "cell":
+        x = torch.from_numpy(cell_points(n, scale0, d, SEED))
+    else:
+        return torch.rand((n, d), generator=gen, device=dev)
+    require(x.shape == (n, d), f"point set {kind}: {tuple(x.shape)}")
+    return x.to(dev)
+
+
+def _index_add_ms(torch, he, x, g, table, geo):
+    """Diagnostic: ``dtable.index_add_`` over the (row, w·g) pairs of K6b
+    on ``x``, precomputed (PyTorch's own scatter on the same traffic)."""
+    from nerf_replication_tpu_torch.models.encoding.hashgrid import (
+        _corner_index,
+        corner_weight,
+        geometry_levels,
+        level_terms,
+    )
+
+    c = table.shape[1]
+    rows, vals = [], []
+    for lvl, (off, size, scale, res, hashed) in enumerate(
+            geometry_levels(geo)):
+        pos_grid, frac = level_terms(x, scale)
+        for bits in range(1 << x.shape[1]):
+            rows.append(_corner_index(he._corners(pos_grid, bits), res, size,
+                                      hashed) + off)
+            vals.append(corner_weight(frac, bits)[:, None]
+                        * g[:, lvl * c:(lvl + 1) * c])
+    rows, vals = torch.cat(rows), torch.cat(vals)
+    dt = torch.zeros_like(table)
+    # every kernel of the call: index_add_ alone
+    ms = kernel_ms(torch, lambda: dt.index_add_(0, rows, vals), 20, ("",))
+    return ms, rows.numel()
+
+
 def phase_hash_kernels(torch, np, dev):
     """Phase 10: K6/K6b against their plain versions at lego_hash's full
-    geometry, at the NGP warm step's and grid refresh's point counts."""
+    geometry, on the NGP warm step's ray-ordered points, uniform points,
+    and a contention set."""
     from nerf_replication_tpu_torch.config import make_cfg
     from nerf_replication_tpu_torch.models.encoding import get_encoder
     from nerf_replication_tpu_torch.ops import hash_encode as he
@@ -1268,8 +1319,8 @@ def phase_hash_kernels(torch, np, dev):
     print(f"lego_hash table {tuple(table.shape)} ({table.numel() * 4 / 1e6:.1f}"
           f" MB), {sum(geo[3])} of {n_levels} levels hashed")
     res = {}
-    for n in HASH_N:
-        x = torch.rand((n, d), generator=gen, device=dev)
+    for kind, n in HASH_SETS:
+        x = _hash_points(torch, kind, n, d, geo[1][0], gen, dev)
         g = torch.randn((n, out_dim), generator=gen, device=dev)
         with torch.no_grad():
             out = he.hash_encode_fwd(x, table, geo)
@@ -1286,14 +1337,16 @@ def phase_hash_kernels(torch, np, dev):
             "dtable_abs": float((dt.double() - ref_dt).abs().max()),
             "dx_rel": _rel(dx, ref_dx),
         }
+        bitwise = bool(torch.equal(out, ref))
+        label = f"{kind} N={n}"
         require(bool(torch.isfinite(out).all()) and bool(
-            torch.isfinite(dt).all()), f"K6/K6b N={n}: not finite")
-        require(errs["fwd_rel"] <= TOL_K6, f"K6 N={n}: error "
+            torch.isfinite(dt).all()), f"K6/K6b {label}: not finite")
+        require(errs["fwd_rel"] <= TOL_K6, f"K6 {label}: error "
                 f"{errs['fwd_rel']} > {TOL_K6} of max|out|")
-        require(errs["dtable_fro"] <= TOL_K6B_FRO, f"K6b N={n}: dtable "
+        require(errs["dtable_fro"] <= TOL_K6B_FRO, f"K6b {label}: dtable "
                 f"relative Frobenius error {errs['dtable_fro']} > "
                 f"{TOL_K6B_FRO}")
-        require(errs["dx_rel"] <= TOL_K6B_DX, f"K6b N={n}: dx error "
+        require(errs["dx_rel"] <= TOL_K6B_DX, f"K6b {label}: dx error "
                 f"{errs['dx_rel']} > {TOL_K6B_DX} of max|dx|")
         with torch.no_grad():
             # the main path's calls: the forward, and the backward without
@@ -1310,49 +1363,56 @@ def phase_hash_kernels(torch, np, dev):
             k6b_plain = time_ms(torch, lambda: he.backward_plain(
                 x, g, table, geo, want_dx=False), 3)
             rows = he.touched_rows(x, geo)
+            scatter_ms, pairs = _index_add_ms(torch, he, x, g, table, geo)
         corners = 1 << d
         # per (point, level): pos (fma, floor, sub) per dim; per corner the
         # D weight products and C multiply-adds (forward) or products and
-        # atomic adds (backward)
+        # atomic adds (backward). Bytes: x and out or g once, and the rows
+        # this set touches, read (K6) or read and written (K6b's adds; the
+        # wrapper's zeroing of dtable is a separate memset, outside `ms`)
         k6_bytes = x.numel() * 4 + out.numel() * 4 + rows * c * 4
         k6_ops = n * n_levels * (3 * d + corners * (d + 2 * c))
-        k6b_bytes = x.numel() * 4 + g.numel() * 4 + table.numel() * 4
+        k6b_bytes = x.numel() * 4 + g.numel() * 4 + 2 * rows * c * 4
         k6b_ops = n * n_levels * (3 * d + corners * (d + 2 * c))
-        res[n] = dict(
+        res[kind] = dict(
             errs=errs, k6_ms=k6, k6b_ms=k6b, k6_plain=k6_plain,
-            k6b_plain=k6b_plain, rows=rows,
+            k6b_plain=k6b_plain, rows=rows, bitwise=bitwise,
             k6_bound=max(k6_bytes / PEAK_BYTES, k6_ops / PEAK_F32) * 1e3,
             k6b_bound=max(k6b_bytes / PEAK_BYTES, k6b_ops / PEAK_F32) * 1e3,
             k6_by="bytes" if k6_bytes / PEAK_BYTES >= k6_ops / PEAK_F32
             else "operations",
             k6b_by="bytes" if k6b_bytes / PEAK_BYTES >= k6b_ops / PEAK_F32
             else "operations")
-        r = res[n]
-        print(f"K6/K6b [N={n}]: " + json.dumps(
+        r = res[kind]
+        print(f"K6/K6b [{label}]: " + json.dumps(
             {k: float(f"{v:.4g}") for k, v in errs.items()})
-            + f"; {rows} table rows touched; K6 kernel {k6:.4f} ms, call "
-            f"{k6_call:.4f} ms (bound {r['k6_bound']:.4f} ms, {r['k6_by']}; "
-            f"plain {k6_plain:.3f} ms); K6b kernel {k6b:.4f} ms, call "
-            f"{k6b_call:.4f} ms incl. zeroing dtable (bound "
+            + f"; K6 {'bitwise' if bitwise else 'NOT bitwise'} its plain "
+            f"version; {rows} table rows touched; K6 kernel {k6:.4f} ms, "
+            f"call {k6_call:.4f} ms (bound {r['k6_bound']:.4f} ms, "
+            f"{r['k6_by']}; plain {k6_plain:.3f} ms); K6b kernel {k6b:.4f} "
+            f"ms, call {k6b_call:.4f} ms incl. zeroing dtable (bound "
             f"{r['k6b_bound']:.4f} ms, {r['k6b_by']}; plain {k6b_plain:.3f} "
-            f"ms)")
-    warm = res[HASH_N[0]]
+            f"ms); diagnostic: index_add_ of the same {pairs} (row, w·g) "
+            f"pairs {scatter_ms:.4f} ms")
+    ray, uni = res["ray"], res["uniform"]
     return [{
         "name": "hash_encode_fwd (K6)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/hash_encode.cu",
         "replaces": "nerf_replication_tpu/models/encoding/pallas_hash.py:102",
         "max_abs_err": max(v["errs"]["fwd_abs"] for v in res.values()),
-        "ms": warm["k6_ms"], "plain_ms": warm["k6_plain"],
-        "bound_ms": warm["k6_bound"], "bound_by": warm["k6_by"],
-        "library_ms": None,
+        "ms": ray["k6_ms"], "plain_ms": ray["k6_plain"],
+        "bound_ms": ray["k6_bound"], "bound_by": ray["k6_by"],
+        "library_ms": None, "ms_uniform": uni["k6_ms"],
+        "bound_ms_uniform": uni["k6_bound"],
     }, {
         "name": "hash_encode_bwd (K6b)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/hash_encode.cu",
         "replaces": "nerf_replication_tpu/models/encoding/pallas_hash.py:102",
         "max_abs_err": max(v["errs"]["dtable_abs"] for v in res.values()),
-        "ms": warm["k6b_ms"], "plain_ms": warm["k6b_plain"],
-        "bound_ms": warm["k6b_bound"], "bound_by": warm["k6b_by"],
-        "library_ms": None,
+        "ms": ray["k6b_ms"], "plain_ms": ray["k6b_plain"],
+        "bound_ms": ray["k6b_bound"], "bound_by": ray["k6b_by"],
+        "library_ms": None, "ms_uniform": uni["k6b_ms"],
+        "bound_ms_uniform": uni["k6b_bound"],
     }], res
 
 

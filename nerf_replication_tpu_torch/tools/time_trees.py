@@ -1,5 +1,6 @@
-"""The fused-MLP kernels (K1 / K3a forward, K2 / K3b backward) and the fused
-march K5 of several checkouts of the port, timed in turns on one card.
+"""The fused-MLP kernels (K1 / K3a forward, K2 / K3b backward), the fused
+march K5 and the hash encoder (K6 forward, K6b backward) of several
+checkouts of the port, timed in turns on one card.
 
     python nerf_replication_tpu_torch/tools/time_trees.py TREE [TREE ...] \
         [--cases k1_f32,k1_bf16,k3a_f32,k3a_bf16,k5_f32,k5_bf16] \
@@ -13,19 +14,29 @@ A child process per tree puts the tree first on ``sys.path``, so that the
 tree's kernels build into its own ``build/``, and calls that tree's
 wrappers, which every checkout of the port has: ``ops.fused_mlp.
 mlp_forward`` (cases ``k1_*``, ``k3a_*``), ``mlp_backward`` (``k2_*``,
-``k3b_*``) and ``ops.fused_march.march_full_block`` (``k5_*``); this tool
+``k3b_*``), ``ops.fused_march.march_full_block`` (``k5_*``) and
+``ops.hash_encode.hash_encode_fwd`` / ``hash_encode_bwd`` (``k6_*``,
+``k6b_*``; the backward without dx, as the train step calls it); this tool
 knows no kernel's C interface. The MLP inputs are those of
 ``profile_fused_mlp.py`` (``case_inputs``: the same seeds and shapes: M =
 65,573 at lego width; the packed stream's 786,432 rows, 5% valid); K5's are
 chip_smoke.py's serving inputs (16,384 rays of one view, a 128³ ball grid,
-lego width, seed 0).
+lego width, seed 0). K6/K6b run at lego_hash's full geometry (16 levels x
+2, a 5,738,832-row table, uniform in [-1, 1] from seed 11) on point sets
+that this checkout makes once and hands to every tree (``POINT_SETS``):
+``ray``, the NGP warm step's 131,072 ray-ordered points
+(``slice_inputs.ngp_points``, seed 0); ``ray4k``, the bf16 packed warm
+step's 524,288 (4096 rays); ``uniform``, 131,072 uniform points;
+``uniform16k``, 16,384 (the grid refresh's count); ``cell``, 16,384 points
+inside one level-0 cell (the contention set).
 
 The children first build their kernels, all at once. Then they run in
 turns, the trees in order and then in reverse (A B .. B A), so that a drift
 of the card's clock shows. For each case it prints one JSON line: each
 tree's device ms per call by kernel name from torch.profiler (its first
-turn) and its total in each turn. ``--out PATH`` also writes the lines,
-each with the nvidia-smi name/power line, to a JSONL file.
+turn), its total in each turn and each turn's device ms by kernel name.
+``--out PATH`` also writes the lines, each with the nvidia-smi name/power
+line, to a JSONL file.
 """
 
 from __future__ import annotations
@@ -39,6 +50,48 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+POINTS = os.path.join(REPO, "build", "time_trees_points.npz")
+POINT_SETS = ("ray", "ray4k", "uniform", "uniform16k", "cell")
+
+
+def write_point_sets(path: str = POINTS) -> None:
+    """The K6/K6b cases' point sets (float32 [N, 3] in [0, 1]), made by
+    this checkout, into one npz file."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    from nerf_replication_tpu_torch.tools.slice_inputs import (
+        cell_points,
+        ngp_points,
+    )
+
+    rng = np.random.default_rng(1)
+    sets = {"ray": ngp_points(0), "ray4k": ngp_points(0, n_rays=4096),
+            "uniform": rng.random((131072, 3), dtype=np.float32),
+            "uniform16k": rng.random((16384, 3), dtype=np.float32),
+            "cell": cell_points(16384, 15.0)}  # lego_hash level 0: scale 15
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **sets)
+
+
+def _hash_call(torch, np, tree: str, kind: str, family: str, dev):
+    """``tree``'s K6 (``kind`` k6) or K6b (k6b) wrapper on point set
+    ``family``, as a callable."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.models.encoding import get_encoder
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+
+    cfg = make_cfg(os.path.join(tree, "configs", "nerf", "lego_hash.yaml"))
+    enc, out_dim = get_encoder(cfg.network.xyz_encoder)
+    geo = enc.geometry
+    gen = torch.Generator(device=dev).manual_seed(11)
+    table = torch.rand((enc.n_entries, enc.level_dim), generator=gen,
+                       device=dev) * 2 - 1
+    x = torch.from_numpy(np.load(POINTS)[family]).to(dev)
+    g = torch.randn((x.shape[0], out_dim), generator=gen, device=dev)
+    if kind == "k6":
+        return lambda: he.hash_encode_fwd(x, table, geo)
+    return lambda: he.hash_encode_bwd(x, g, table, geo)
 
 
 def _short(name: str) -> str:
@@ -101,13 +154,19 @@ def child(tree: str, cases: list[str], iters: int, warm: bool) -> int:
     dev = torch.device("cuda")
     out = {}
     if warm:
-        kernels.build_all()
+        # the hash cases need only their own source
+        if all(c.split("_")[0] in ("k6", "k6b") for c in cases):
+            kernels.load("hash_encode")
+        else:
+            kernels.build_all()
         cases = []
     with torch.no_grad():
         for case in cases:
             kind, family = case.split("_")
             if kind == "k5":
                 call = _march_call(torch, tree, family, dev)
+            elif kind in ("k6", "k6b"):
+                call = _hash_call(torch, np, tree, kind, family, dev)
             else:
                 spec, x, v, draw, flat, m, valid = case_inputs(
                     torch, np, case, dev)
@@ -125,8 +184,10 @@ def child(tree: str, cases: list[str], iters: int, warm: bool) -> int:
 
 
 def _run(tree: str, args, warm: bool):
-    cmd = [sys.executable, os.path.abspath(__file__), "--child", tree,
-           "--cases", args.cases, "--iters", str(args.iters)]
+    # the child runs in this checkout: a relative TREE is the caller's
+    cmd = [sys.executable, os.path.abspath(__file__), "--child",
+           os.path.abspath(tree), "--cases", args.cases, "--iters",
+           str(args.iters)]
     return subprocess.Popen(cmd + (["--warm"] if warm else []), cwd=REPO,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -159,6 +220,8 @@ def main(argv=None) -> int:
         return 2
     if not args.trees:
         parser.error("name at least one tree")
+    if any(c.split("_")[0] in ("k6", "k6b") for c in cases):
+        write_point_sets()
     builds = {t: _run(t, args, warm=True) for t in args.trees}
     for t, proc in builds.items():
         _result(proc, t)
@@ -172,7 +235,9 @@ def main(argv=None) -> int:
     for case in cases:
         row = {"case": case, "trees": {
             t: {"total_ms": [sum(r[case].values()) for r in turns[t]],
-                "kernel_ms": turns[t][0][case]} for t in args.trees}}
+                "kernel_ms": turns[t][0][case],
+                "turn_kernel_ms": [r[case] for r in turns[t]]}
+            for t in args.trees}}
         rows.append(row)
         print(json.dumps(row), flush=True)
     print(smi)

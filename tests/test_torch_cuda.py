@@ -37,13 +37,15 @@ partial).
 
 K6/K6b (the hash encoder, ``csrc/hash_encode.cu``) against their plain
 versions over every (D, C) the kernels take, a dense level among them, and
-at lego_hash's full table (16 levels, 5,738,832 x 2) at N = 131,072 points
-(the NGP warm step): K6 within 1e-6 of max|out| (its float operations are
-spelled out as the plain version rounds them: measured bitwise); K6b's
-dtable within 1e-5 in relative Frobenius norm of a float64 reference
-(float32 atomics add in another order each launch) and dx within 1e-5 of
-max|dx|. A few NGP steps on the card (per-ray and packed march) launch
-both."""
+at lego_hash's full table (16 levels, 5,738,832 x 2): uniform points at N =
+131,072; the NGP warm step's 131,072 ray-ordered points
+(``slice_inputs.ngp_points``); the contention set (16,384 points inside one
+level-0 cell, ``cell_points``); ragged N = 1, 31, 33 and 131,077. K6
+equals its plain version bit for bit (its float operations are spelled out
+as the plain version rounds them); K6b's dtable within 1e-5 in relative Frobenius
+norm of a float64 reference (float32 atomics add in another order each
+launch) and dx within 1e-5 of max|dx|. A few NGP steps on the card
+(per-ray and packed march) launch both."""
 
 import os
 import sys
@@ -376,16 +378,27 @@ def test_fused_train_steps_are_finite(dev, tmp_path):
     assert fmlp.LAUNCHES["fused_mlp_bwd"] > 0
 
 
+LEGO_HASH = (3, 16, 2, float(2 ** (np.log2(1024 / 16) / 15)), 16, 19)
 HASH_CASES = [
-    # (D, L, C, per-level scale, base resolution, log2 T, N)
-    (3, 4, 2, 1.5, 4, 8, 3000),
-    (3, 6, 2, 1.39, 16, 11, 3001),
-    (2, 3, 4, 2.0, 4, 9, 777),
-    (4, 2, 2, 1.5, 3, 10, 513),
-    (3, 2, 2, 2.0, 1, 8, 100),  # level 0 dense
-    (3, 3, 1, 1.5, 4, 9, 1000),
-    (2, 2, 8, 2.0, 4, 8, 999),
-    (3, 16, 2, float(2 ** (np.log2(1024 / 16) / 15)), 16, 19, 131072),
+    # (D, L, C, per-level scale, base resolution, log2 T, N, points)
+    (3, 4, 2, 1.5, 4, 8, 3000, "uniform"),
+    (3, 6, 2, 1.39, 16, 11, 3001, "uniform"),
+    (2, 3, 4, 2.0, 4, 9, 777, "uniform"),
+    (4, 2, 2, 1.5, 3, 10, 513, "uniform"),
+    (3, 2, 2, 2.0, 1, 8, 100, "uniform"),  # level 0 dense
+    (3, 3, 1, 1.5, 4, 9, 1000, "uniform"),
+    (2, 2, 8, 2.0, 4, 8, 999, "uniform"),
+    LEGO_HASH + (131072, "uniform"),
+    # the main path's order: the NGP warm step's ray-ordered points
+    LEGO_HASH + (131072, "ray"),
+    # contention: every point in one level-0 cell
+    LEGO_HASH + (16384, "cell"),
+    (3, 4, 2, 1.5, 4, 8, 3000, "cell"),
+    # ragged N
+    LEGO_HASH + (1, "uniform"),
+    LEGO_HASH + (31, "uniform"),
+    LEGO_HASH + (33, "uniform"),
+    LEGO_HASH + (131072 + 5, "uniform"),
 ]
 
 
@@ -394,12 +407,21 @@ def test_k6_k6b_kernel_match_plain(dev):
         level_geometry,
     )
     from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.tools.slice_inputs import (
+        cell_points,
+        ngp_points,
+    )
 
-    for d, lvls, c, scale, base, log2_t, n in HASH_CASES:
+    for d, lvls, c, scale, base, log2_t, n, points in HASH_CASES:
         geo = level_geometry(d, lvls, scale, base, log2_t)
         gen = torch.Generator(device=dev).manual_seed(n)
         table = torch.rand((geo[0][-1], c), generator=gen, device=dev) * 2 - 1
         x = torch.rand((n, d), generator=gen, device=dev)
+        if points == "ray":
+            x = torch.from_numpy(ngp_points(0)).to(dev)
+        elif points == "cell":
+            x = torch.from_numpy(cell_points(n, geo[1][0], d)).to(dev)
+        assert x.shape == (n, d)
         g = torch.randn((n, lvls * c), generator=gen, device=dev)
         before = dict(he.LAUNCHES)
         out = he.hash_encode_fwd(x, table, geo)
@@ -409,9 +431,8 @@ def test_k6_k6b_kernel_match_plain(dev):
         torch.cuda.synchronize()
         assert he.LAUNCHES["hash_encode_fwd"] == before["hash_encode_fwd"] + 1
         assert he.LAUNCHES["hash_encode_bwd"] == before["hash_encode_bwd"] + 1
-        case = (d, lvls, c, n)
-        assert float((out - ref).abs().max()) <= 1e-6 * float(
-            ref.abs().max()), case
+        case = (d, lvls, c, n, points)
+        assert torch.equal(out, ref), case
         ref_dt, _ = he.backward_plain(x, g, table, geo, want_dx=False,
                                       accum=torch.float64)
         assert float((dt.double() - ref_dt).norm()) <= 1e-5 * float(
