@@ -13,7 +13,11 @@ imports nothing of JAX. Phases, each fatal on failure:
    16384 rays of one lego-style view, step 0.005 → S=800, r=8, K_c=25,
    K=192): K4 exact; K5 f32 and bf16 within the stated tolerances, and an
    opaque variant that exercises early ray termination. Times each kernel,
-   its plain version and its bound;
+   its plain version and its bound (K4: its device time from torch.profiler
+   beside the time between CUDA events, and its phase split from the
+   phase-timing build of ``tools/profile_dda.py``, itself held bitwise to
+   the plain version, with phase A's positions equal to the CPU count of
+   ``tools/dda_emulate.py``);
 3. serving: writes camera metadata, a seeded port checkpoint and the grid
    to a temporary directory, boots ``engine_from_cfg`` on lego.yaml with
    ``march_coarse_block 8, march_fused full`` on the card (warming buckets x
@@ -269,6 +273,8 @@ def phase_kernels(torch, np, dev):
     from nerf_replication_tpu_torch.ops import fused_march as fm
     from nerf_replication_tpu_torch.ops.fused_mlp import fused_spec_for
     from nerf_replication_tpu_torch.renderer.accelerated import MarchOptions
+    from nerf_replication_tpu_torch.tools.dda_emulate import emulate_k4
+    from nerf_replication_tpu_torch.tools.profile_dda import phase_split
     from nerf_replication_tpu_torch.tools.slice_inputs import (
         SLICE_OPTS,
         ball_grid,
@@ -306,30 +312,45 @@ def phase_kernels(torch, np, dev):
             require(torch.equal(a, b),
                     f"K4 {name} differs from the plain version "
                     f"({int((a != b).sum())} elements)")
-        k4_ms = time_ms(torch, lambda: fm.dda_block(
+        k4_event_ms = time_ms(torch, lambda: fm.dda_block(
             st, rays, grid_flat, coarse_flat, bbox), 20)
+        k4_ms = kernel_ms(torch, lambda: fm.dda_block(
+            st, rays, grid_flat, coarse_flat, bbox), 20, ("fused_dda",))
         k4_plain_ms = time_ms(torch, lambda: fm.dda_block_plain(
             st, rays, grid_flat, coarse_flat, bbox), 3)
-    n_real = int((ref[5] > 0).sum())
+    # where K4's time goes: its phase-timing build (bitwise the plain
+    # version too), and the work these inputs need, counted on the CPU
+    split = phase_split(torch, (st, rays, grid_flat, coarse_flat, bbox))
+    _, counts = emulate_k4(st, rays.cpu(), grid_flat.cpu(),
+                           coarse_flat.cpu(), bbox.cpu())
+    require(split["positions_blocks"] == counts["positions"],
+            "K4 phase A's positions on the card differ from the CPU count")
     k4_bytes = rays.numel() * 4 + grid_flat.numel() + coarse_flat.numel() \
         + 24 + n * st.k_sel * (4 + 1 + 4) + n * 12
-    # per position of a real ray: the fma and, per axis, mul/add/clip/
-    # sub/div/mul/floor (8 ops); coarse positions S, candidates C
-    k4_ops = n_real * (st.n_steps + st.c_total) * (2 + 3 * 8)
+    # per position evaluated (phase A's, with the shortcut, and the kept
+    # blocks' candidates): the fma and, per axis, mul/add/clip/sub/div/mul/
+    # floor (8 ops)
+    k4_ops = (counts["positions"] + counts["candidates"]) * (2 + 3 * 8)
     k4_bound = max(k4_bytes / PEAK_BYTES, k4_ops / PEAK_F32) * 1e3
-    print(f"K4 fused_dda_gather: exact on {names}; kernel {k4_ms:.4f} ms, "
-          f"plain {k4_plain_ms:.4f} ms, bound {k4_bound:.5f} ms; "
-          f"n_occ total {int(ref[3].sum())}, rays with samples "
-          f"{int((ref[3] > 0).sum())}/{n}")
+    print(f"K4 fused_dda_gather: exact on {names}; kernel {k4_ms:.4f} ms "
+          f"device (torch.profiler), {k4_event_ms:.4f} ms between events; "
+          f"plain {k4_plain_ms:.4f} ms, bound {k4_bound:.5f} ms; n_occ total "
+          f"{int(ref[3].sum())}, rays with samples {int((ref[3] > 0).sum())}"
+          f"/{n}")
+    print("K4 phase split (timing build, shares of lane 0's cycles): "
+          + json.dumps({k: round(v, 4) for k, v in split["share"].items()})
+          + f"; positions A {split['positions_blocks']}, C "
+          f"{split['positions_cands']}; store sectors {counts['sectors']} "
+          f"(outputs {counts['sectors_min']}; CPU count)")
     rows.append({
         "name": "fused_dda_gather (K4)", "route": "cuda",
         "source": "nerf_replication_tpu_torch/csrc/fused_dda.cu",
         "replaces": "nerf_replication_tpu/ops/fused_march.py:241",
-        "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain_ms,
-        "bound_ms": k4_bound,
+        "max_abs_err": 0.0, "ms": k4_ms, "event_ms": k4_event_ms,
+        "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
         "bound_by": "bytes" if k4_bytes / PEAK_BYTES >= k4_ops / PEAK_F32
         else "operations",
-        "library_ms": None,
+        "library_ms": None, "phase_share": split["share"],
     })
 
     # K5: f32 family, bf16 family, opaque (ERT) variant

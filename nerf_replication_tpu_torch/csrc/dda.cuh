@@ -1,14 +1,15 @@
-// The K4 body: per-ray coarse DDA, interval compaction, fine occupancy
-// gather and sample-slot compaction, as one __device__ traversal (dda_cta)
-// shared by the K4 kernel (fused_dda.cu) and the K5 kernel
-// (fused_march_full.cu).
+// The coarse-DDA traversal shared by the fused-march kernels: the exact
+// position -> voxel helpers (ray_setup, march_t, voxel_axis, voxel_at,
+// sq_norm_rn, ray_dist), run by both K4 (fused_dda.cu, a warp a ray) and K5
+// (fused_march_full.cu), and the CTA traversal dda_cta, which only K5 runs.
 //
 // Replaces the TPU block body `_dda_block` (nerf_replication_tpu/ops/
 // fused_march.py:150), which expresses compaction as a one-hot
 // rank-compare (`_rank_compact` :129) because Mosaic has no scatter. On
-// Hopper the CTA tests all (ray, block) and (ray, candidate) pairs in
-// parallel into shared-memory bit masks, and one thread per ray turns the
-// masks into slots in march order (dda_cta); the semantics are the same:
+// Hopper dda_cta tests all (ray, block) and (ray, candidate) pairs of a CTA
+// in parallel into shared-memory bit masks, and one thread per ray turns the
+// masks into slots in march order; the semantics, which K4's warp traversal
+// keeps too:
 //   * a coarse block is occupied when any of its in-range positions
 //     (s < n_steps) has an occupied PARENT pyramid cell (fine voxel / factor),
 //     and only for real rays (|d|^2 > 0; zero rays are bucket padding);
@@ -27,14 +28,16 @@
 // p = o + d * t (multiply, then add; one fma with clip_bbox, whose per-ray t
 // XLA contracts into the product), u = (clip(p, lo, hi) - lo) / (hi - lo),
 // i = clamp(floor(u * R), 0, R - 1); with clip_bbox, step_r = (t1 - t0) *
-// (1 / S), XLA's rewrite of the division.
+// (1 / S), XLA's rewrite of the division. Each of these operations is
+// correctly rounded and monotone in its argument, so every axis's voxel id
+// (and its parent cell) is monotone in the step s along a ray: K4's
+// coarse-block shortcut rests on that (tests/test_torch_dda_kernels.py).
 //
-// Bound on the card: the traversal touches 2 MiB + 32 KiB of int8 grid (L2
-// resident) and does ~(S + K_c*r) * 30 float ops per ray; K4 is bound by
-// writing its [N, K] outputs. The voxel arithmetic is latency-bound per
-// ray (three IEEE divisions per position), so it is spread over all the
-// CTA's threads; only bits (and, for K4, voxel ids) stay in shared memory,
-// no [N, K_c*r] intermediate reaches global memory.
+// dda_cta touches 2 MiB + 32 KiB of int8 grid (L2 resident) and does
+// ~(S + K_c*r) * 30 float ops per ray. The voxel arithmetic is
+// latency-bound per ray (three IEEE divisions per position), so it is
+// spread over all the CTA's threads; only bits stay in shared memory, no
+// [N, K_c*r] intermediate reaches global memory.
 #pragma once
 
 #include "common.cuh"
@@ -131,25 +134,21 @@ struct DdaShared {
   unsigned* blk_bits;  // [nrays][bw]  occupied coarse blocks
   unsigned* cand_bits; // [nrays][cw]  occupied candidates
   int* n_kept;         // [nrays]      kept blocks (<= K_c)
-  int* flat;           // [nrays][C]   candidate voxel ids (with_flat only)
   short* kept;         // [nrays][K_c] kept block indices, march order
   int bw, cw;
 };
 
 __host__ __device__ inline size_t dda_smem_bytes(int nrays,
-                                                 const MarchStatics& st,
-                                                 bool with_flat) {
+                                                 const MarchStatics& st) {
   const int bw = (st.s_c + 31) / 32, c = st.k_c * st.r, cw = (c + 31) / 32;
   size_t b = static_cast<size_t>(nrays) * sizeof(RayGeom);
   b += static_cast<size_t>(nrays) * (bw + cw + 1) * 4;
-  if (with_flat) b += static_cast<size_t>(nrays) * c * 4;
   b += static_cast<size_t>(nrays) * st.k_c * 2;
   return (b + 15) / 16 * 16;
 }
 
 __device__ inline DdaShared dda_carve(unsigned char* base, int nrays,
-                                      const MarchStatics& st,
-                                      bool with_flat) {
+                                      const MarchStatics& st) {
   DdaShared sh;
   const int c = st.k_c * st.r;
   sh.bw = (st.s_c + 31) / 32;
@@ -158,8 +157,7 @@ __device__ inline DdaShared dda_carve(unsigned char* base, int nrays,
   sh.blk_bits = reinterpret_cast<unsigned*>(sh.geo + nrays);
   sh.cand_bits = sh.blk_bits + nrays * sh.bw;
   sh.n_kept = reinterpret_cast<int*>(sh.cand_bits + nrays * sh.cw);
-  sh.flat = sh.n_kept + nrays;
-  sh.kept = reinterpret_cast<short*>(sh.flat + (with_flat ? nrays * c : 0));
+  sh.kept = reinterpret_cast<short*>(sh.n_kept + nrays);
   return sh;
 }
 
@@ -172,17 +170,14 @@ __device__ inline DdaShared dda_carve(unsigned char* base, int nrays,
 //      position's parent cell occupied? -> blk_bits;
 //   B. one thread per ray: the first K_c occupied blocks in march order;
 //   C. all threads: for every (ray, kept slot, fine step) candidate, the
-//      fine voxel and its occupancy -> cand_bits (and voxel ids, with_flat);
-//   D. one thread per ray: n_occ and the slots, in candidate order.
-// With Sink::kWantsInvalid the sink also receives the invalid slots (K4's
-// [N, K] outputs); K5's sink keeps only the valid ones.
+//      fine voxel and its occupancy -> cand_bits;
+//   D. one thread per ray: n_occ and the valid slots, in candidate order.
 template <class Sink>
 __device__ void dda_cta(const float* __restrict__ rays, int nrays,
                         const float bb[6], const int8_t* __restrict__ grid,
                         const int8_t* __restrict__ coarse,
                         const MarchStatics& st, const DdaShared& sh,
-                        bool with_flat, int& n_occ_out, int& n_blk_out,
-                        Sink& sink) {
+                        int& n_occ_out, int& n_blk_out, Sink& sink) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int R = st.resolution, rc = st.rc, fac = st.factor, r = st.r;
   const int c_total = st.k_c * r;
@@ -227,19 +222,17 @@ __device__ void dda_cta(const float* __restrict__ rays, int nrays,
   }
   __syncthreads();
 
-  // C. candidates (an unfilled kept slot marches from block 0, invalid)
+  // C. candidates of the kept blocks
   for (int e = tid; e < nrays * c_total; e += nthr) {
     const int ray = e / c_total, idx = e - ray * c_total;
     const int i = idx / r, j = idx - i * r;
-    const bool kept = i < sh.n_kept[ray];
-    if (!kept && !with_flat) continue;
+    if (i >= sh.n_kept[ray]) continue;
     const RayGeom& g = sh.geo[ray];
-    const int s_f = (kept ? sh.kept[ray * st.k_c + i] : 0) * r + j;
+    const int s_f = sh.kept[ray * st.k_c + i] * r + j;
     int v[3];
     voxel_at(g, march_t(g, s_f), bb, R, st.clip != 0, v);
     const int flat = (v[0] * R + v[1]) * R + v[2];
-    if (with_flat) sh.flat[ray * c_total + idx] = flat;
-    if (kept && s_f < st.n_steps && grid[flat] > 0)
+    if (s_f < st.n_steps && grid[flat] > 0)
       atomicOr(&sh.cand_bits[ray * sh.cw + (idx >> 5)], 1u << (idx & 31));
   }
   __syncthreads();
@@ -248,35 +241,19 @@ __device__ void dda_cta(const float* __restrict__ rays, int nrays,
   if (tid < nrays) {
     const RayGeom& g = sh.geo[tid];
     const unsigned* bits = sh.cand_bits + tid * sh.cw;
-    const int n_kept = sh.n_kept[tid];
-    auto t_of = [&](int idx) {
-      const int i = idx / r;
-      const int blk = i < n_kept ? sh.kept[tid * st.k_c + i] : 0;
-      return march_t(g, blk * r + (idx - i * r));
-    };
-    auto flat_of = [&](int idx) {
-      return with_flat ? sh.flat[tid * c_total + idx] : 0;
-    };
     int n_occ = 0;
     for (int w = 0; w < sh.cw; ++w) n_occ += __popc(bits[w]);
-    if (!st.compact && Sink::kWantsInvalid) {
-      for (int idx = 0; idx < c_total; ++idx)
-        sink.emit(idx, t_of(idx), flat_of(idx),
-                  (bits[idx >> 5] >> (idx & 31)) & 1u);
-    } else {
-      int emitted = 0;
-      for (int w = 0; w < sh.cw; ++w) {
-        unsigned m = bits[w];
-        while (m && (!st.compact || emitted < st.k_sel)) {
-          const int idx = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          sink.emit(st.compact ? emitted : idx, t_of(idx), flat_of(idx), true);
-          ++emitted;
-        }
+    int emitted = 0;
+    for (int w = 0; w < sh.cw; ++w) {
+      unsigned m = bits[w];
+      while (m && (!st.compact || emitted < st.k_sel)) {
+        const int idx = w * 32 + __ffs(m) - 1;
+        const int i = idx / r;
+        m &= m - 1;
+        sink.emit(st.compact ? emitted : idx,
+                  march_t(g, sh.kept[tid * st.k_c + i] * r + (idx - i * r)));
+        ++emitted;
       }
-      if (st.compact && Sink::kWantsInvalid)
-        for (int slot = emitted; slot < st.k_sel; ++slot)
-          sink.emit(slot, 0.0f, 0, false);
     }
     n_occ_out = n_occ;
     n_blk_out = n_blk;

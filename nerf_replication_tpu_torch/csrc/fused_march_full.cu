@@ -6,7 +6,8 @@
 // gathers); production ran the body through lax.map.
 //
 // One CTA of CH_THREADS threads owns FM_RAYS rays end to end:
-//   1. traversal: the whole CTA runs the K4 body (dda.cuh, dda_cta) and
+//   1. traversal: the whole CTA runs K4's function as the CTA traversal
+//      dda_cta (dda.cuh; K4 itself runs a warp a ray, fused_dda.cu) and
 //      keeps only the valid slots (t, slot index) in shared memory, plus
 //      each ray's encoded view direction;
 //   2. rounds of at most CH_M = 64 samples: every ray that is alive and has
@@ -93,16 +94,13 @@ __device__ __forceinline__ __nv_bfloat16 to_at<__nv_bfloat16>(float v) {
 }
 
 struct ListSink {
-  static constexpr bool kWantsInvalid = false;
   float* t;
   int16_t* slot;
   int count;
-  __device__ __forceinline__ void emit(int s, float tt, int, bool v) {
-    if (v) {
-      t[count] = tt;
-      slot[count] = static_cast<int16_t>(s);
-      ++count;
-    }
+  __device__ __forceinline__ void emit(int s, float tt) {
+    t[count] = tt;
+    slot[count] = static_cast<int16_t>(s);
+    ++count;
   }
 };
 
@@ -119,7 +117,7 @@ size_t smem_bytes(const MlpDesc& md, const MarchStatics& st) {
                       floats * sizeof(float) + FM_RAYS * sizeof(RayState) +
                       (2 * CH_M + 4) * sizeof(int) +
                       static_cast<size_t>(FM_RAYS) * K * sizeof(int16_t);
-  return (head + 15) / 16 * 16 + dda_smem_bytes(FM_RAYS, st, false);
+  return (head + 15) / 16 * 16 + dda_smem_bytes(FM_RAYS, st);
 }
 
 // feature c of the frequency encoding [p, sin(p 2^0), cos(p 2^0), ...] with
@@ -188,7 +186,7 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
   const size_t dda_off =
       (reinterpret_cast<unsigned char*>(list_slot + FM_RAYS * K) - smem + 15) /
       16 * 16;
-  const DdaShared sh = dda_carve(smem + dda_off, FM_RAYS, st, false);
+  const DdaShared sh = dda_carve(smem + dda_off, FM_RAYS, st);
 
   const int tid = threadIdx.x;
   const int ray0 = blockIdx.x * FM_RAYS;
@@ -211,7 +209,7 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
                 list_slot + (tid < FM_RAYS ? tid : 0) * K, 0};
   int n_occ_r = 0, n_blk_r = 0;
   dda_cta(rays + 6 * static_cast<size_t>(ray0), nrays, bb, grid, coarse, st,
-          sh, false, n_occ_r, n_blk_r, sink);
+          sh, n_occ_r, n_blk_r, sink);
   if (tid < FM_RAYS) {
     RayState& s = rs[tid];
     s.c_prev = s.cj = s.tdepth = s.tacc = s.depth = s.acc = 0.0f;

@@ -1,8 +1,9 @@
 """Fixed inputs shared by ``chip_smoke.py`` and the tools: the serving
 slice's (lego.yaml with the fused-march serving opts, a 128³ ball grid, one
-lego-style view; ``tools/profile_fused_march.py``) and the hash encoder's
-point sets (``tools/time_trees.py``, the card tests): the NGP warm step's
-ray-ordered points and a set crowded into one coarse cell."""
+lego-style view; ``tools/profile_fused_march.py``), K4's edge rays (the DDA
+tests) and the hash encoder's point sets (``tools/time_trees.py``, the card
+tests): the NGP warm step's ray-ordered points and a set crowded into one
+coarse cell."""
 
 from __future__ import annotations
 
@@ -28,6 +29,56 @@ def view_rays(theta: float, hw: int) -> np.ndarray:
     focal = focal_from_fov(hw, LEGO_CAMERA_ANGLE_X)
     o, d = get_rays_np(hw, hw, focal, pose_spherical(theta, -30.0, 4.0))
     return np.concatenate([o, d], -1).reshape(-1, 6).astype(np.float32)
+
+
+EDGE_KINDS = ("graze", "graze_tiny", "axis", "corner", "zero", "view")
+
+
+def edge_rays(n: int, seed: int = 0, rc: int = 32, half: float = 1.5,
+              radius: float = 4.0) -> np.ndarray:
+    """[n, 6] float32 rays that stress the DDA's exactness, cycling over
+    :data:`EDGE_KINDS`: ``graze``, through a point whose coordinate on one
+    axis lies on a face of the rc³ coarse grid over the bbox [-half, half]³,
+    with that direction component exactly 0 (the ray runs inside the face);
+    ``graze_tiny``, the same with that component ±1e-7 (it crosses the face
+    over thousands of steps); ``axis``, along one axis (two components 0,
+    either sign); ``corner``, diagonal (±1, ±1, ±1) through a coarse-cell
+    corner; ``zero``, a zero direction (bucket padding); ``view``, a
+    random direction through the middle of the grid. Each ray starts
+    ``radius`` back from its point."""
+    rng = np.random.default_rng(seed)
+    cell = 2.0 * half / rc
+    out = np.zeros((n, 6), np.float64)
+    for i in range(n):
+        kind = EDGE_KINDS[i % len(EDGE_KINDS)]
+        p = rng.uniform(-0.6, 0.6, 3)
+        d = rng.normal(0.0, 1.0, 3)
+        ax = int(rng.integers(3))
+        if kind in ("graze", "graze_tiny", "corner"):
+            axes = range(3) if kind == "corner" else (ax,)
+            for a in axes:  # snap onto a coarse face
+                p[a] = -half + np.round((p[a] + half) / cell) * cell
+        if kind in ("graze", "graze_tiny"):
+            d[ax] = 0.0 if kind == "graze" else rng.choice([-1e-7, 1e-7])
+        elif kind == "axis":
+            d = np.zeros(3)
+            d[ax] = rng.choice([-1.0, 1.0])
+        elif kind == "corner":
+            d = rng.choice([-1.0, 1.0], 3)
+        elif kind == "zero":
+            d = np.zeros(3)
+        norm = np.linalg.norm(d)
+        if norm > 0:
+            d = d / norm
+            if kind == "graze_tiny":
+                d[ax] = np.sign(d[ax]) * 1e-7
+        out[i, :3] = p - radius * d
+        if kind in ("graze", "axis"):  # exact zeros stay, the face exact
+            for a in range(3):
+                if d[a] == 0.0:
+                    out[i, a] = p[a]
+        out[i, 3:] = d
+    return out.astype(np.float32)
 
 
 LEGO_HASH_BBOX = ((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5))  # lego_hash.yaml
