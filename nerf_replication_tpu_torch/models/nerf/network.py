@@ -12,7 +12,9 @@ the ``nn.Linear`` weight layout ``[out, in]``. A :class:`SplitDense` holds one
 ``[out, c1 + c2]`` weight and never builds the concatenated input, like the
 Flax module. ``compute_dtype`` rounds the operands and the outputs of the
 trunk, feature and views layers (Flax ``Dense(dtype=...)`` semantics); the
-heads always run in float32 on a float32 copy of their input.
+heads always run in float32 on a float32 copy of their input. A
+proposal-sampling config adds the density-only ``proposal`` branch
+(``models/proposal.py``) as a third model.
 """
 
 from __future__ import annotations
@@ -134,12 +136,17 @@ class Network(nn.Module):
     key ``xyz_encoder.embeddings``, the JAX tree's
     ``params["xyz_encoder"]["embeddings"]``); its output stays float32, as in
     Flax. ``compute_dtype`` is a forward-time attribute, so :meth:`clone`
-    makes a bfloat16-compute view of the SAME parameters, table included."""
+    makes a bfloat16-compute view of the SAME parameters, table included.
+
+    ``proposal_cfg`` (``(D, W, n_freqs)``, None = absent) adds the learned
+    sampler's density branch (``models/proposal.py``) as a third model:
+    ``model="proposal"`` returns raw ``[..., S, 1]`` σ."""
 
     def __init__(self, D: int = 8, W: int = 256, skips: Sequence[int] = (4,),
                  use_viewdirs: bool = True, xyz_encoder=None, dir_encoder=None,
                  input_ch: int = 63, input_ch_views: int = 27,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 proposal_cfg: tuple[int, int, int] | None = None):
         super().__init__()
         self.D, self.W = int(D), int(W)
         self.skips = tuple(int(s) for s in skips)
@@ -154,6 +161,12 @@ class Network(nn.Module):
                       use_viewdirs=self.use_viewdirs)
         self.coarse = NeRFMLP(**kwargs)
         self.fine = NeRFMLP(**kwargs)
+        self.proposal = None
+        if proposal_cfg is not None:
+            from ..proposal import ProposalMLP
+
+            d_p, w_p, f_p = proposal_cfg
+            self.proposal = ProposalMLP(D=d_p, W=w_p, n_freqs=f_p)
 
     def clone(self, compute_dtype: torch.dtype) -> "Network":
         """A view of this network that computes in ``compute_dtype``; the
@@ -164,7 +177,11 @@ class Network(nn.Module):
 
     def forward(self, pts: torch.Tensor, viewdirs: torch.Tensor | None,
                 model: str = "coarse") -> torch.Tensor:
-        """``pts [..., S, 3]``, ``viewdirs [..., 3]`` → raw ``[..., S, 4]``."""
+        """``pts [..., S, 3]``, ``viewdirs [..., 3]`` → raw ``[..., S, 4]``
+        (``[..., S, 1]`` raw σ for ``model="proposal"``)."""
+        if model == "proposal":
+            # density-only branch with its own encoding, no view input
+            return self.proposal(pts, self.compute_dtype)
         embedded = self.xyz_encoder(pts)
         if self.use_viewdirs:
             dirs = viewdirs[..., None, :].expand(
@@ -183,12 +200,8 @@ def _dtype(name) -> torch.dtype:
 
 
 def make_network(cfg) -> Network:
-    """Build the Network from the reference-schema config."""
-    if str(cfg.get("sampling", {}).get("mode", "coarse_fine")) == "proposal":
-        raise NotImplementedError(
-            "sampling.mode: proposal (the learned-sampler branch) is not "
-            "ported to PyTorch yet; it comes with port slice 5"
-        )
+    """Build the Network from the reference-schema config; ``sampling.mode:
+    proposal`` adds the proposal branch sized by ``sampling.net``."""
     if bool(cfg.network.nerf.get("scan_trunk", False)):
         raise NotImplementedError(
             "network.nerf.scan_trunk is a JAX compile-time layout and has no "
@@ -203,6 +216,12 @@ def make_network(cfg) -> Network:
         dir_enc, input_ch_views = None, 0
     if str(prec.get("param_dtype", "float32")) != "float32":
         raise NotImplementedError("the port keeps float32 parameters")
+    samp = cfg.get("sampling", {})
+    proposal_cfg = None
+    if str(samp.get("mode", "coarse_fine")) == "proposal":
+        net = samp.get("net", {})
+        proposal_cfg = (int(net.get("D", 2)), int(net.get("W", 64)),
+                        int(net.get("freq", 5)))
     return Network(
         D=int(cfg.network.nerf.D),
         W=int(cfg.network.nerf.W),
@@ -213,7 +232,25 @@ def make_network(cfg) -> Network:
         input_ch=input_ch,
         input_ch_views=input_ch_views,
         compute_dtype=_dtype(prec.get("compute_dtype", "float32")),
+        proposal_cfg=proposal_cfg,
     )
+
+
+def _lecun_init(mlp: nn.Module, generator: torch.Generator) -> None:
+    for module in mlp.modules():
+        if isinstance(module, (Dense, SplitDense)):
+            fan_in = module.weight.shape[1]
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            w = torch.empty(module.weight.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            module.weight.copy_(w)
+            module.bias.zero_()
+
+
+# the proposal branch's stream: its own generator, seeded from the caller's
+# seed and this constant, so adding the branch leaves the other draws alone
+_PROPOSAL_STREAM = 0x70726F70
 
 
 @torch.no_grad()
@@ -221,19 +258,18 @@ def init_params(network: Network, generator: torch.Generator) -> Network:
     """Initialize both MLPs in place: lecun-normal kernels (flax's
     truncated normal, fan_in = the layer's input width) and zero biases,
     drawn from ``generator`` (coarse first, then fine), then a parametric
-    encoder's table (uniform ±1e-4). The draws differ from ``jax.random``'s;
-    tests carry JAX weights over with ``convert.params_from_jax`` instead."""
+    encoder's table (uniform ±1e-4). A proposal branch draws from its own
+    generator (seed ``generator.initial_seed() ^ _PROPOSAL_STREAM``), so the
+    coarse, fine and table draws are those of a network without it. The
+    draws differ from ``jax.random``'s; tests carry JAX weights over with
+    ``convert.params_from_jax`` instead."""
     for mlp in (network.coarse, network.fine):
-        for module in mlp.modules():
-            if isinstance(module, (Dense, SplitDense)):
-                fan_in = module.weight.shape[1]
-                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-                w = torch.empty(module.weight.shape, dtype=torch.float32)
-                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
-                module.weight.copy_(w)
-                module.bias.zero_()
+        _lecun_init(mlp, generator)
     for enc in (network.xyz_encoder, network.dir_encoder):
         if isinstance(enc, nn.Module):
             enc.reset_parameters(generator)
+    if network.proposal is not None:
+        stream = torch.Generator().manual_seed(
+            generator.initial_seed() ^ _PROPOSAL_STREAM)
+        _lecun_init(network.proposal, stream)
     return network

@@ -52,6 +52,7 @@ from ..renderer.occupancy import (
     coarse_from_grid,
     world_to_voxel,
 )
+from ..utils.numerics import norm3_rn, sq_norm3, sqrt_rn
 from .fused_mlp import FusedSpec, _pad_cols, _rup, forward_tile, pack_for_chain
 from .kernels import MlpDescC, _ptr, _raise_on, _stream
 
@@ -172,12 +173,6 @@ def _march_pts(st, o: torch.Tensor, d: torch.Tensor,
     return o[:, None, :] + d[:, None, :] * t[..., None]
 
 
-def _sq_norm(d: torch.Tensor) -> torch.Tensor:
-    """|d|² summed left to right, each product and sum rounded (the
-    kernels' ``sq_norm_rn``)."""
-    return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-
-
 def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
                     grid_flat: torch.Tensor, coarse_flat: torch.Tensor,
                     bbox: torch.Tensor):
@@ -215,7 +210,7 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
     cvox = vox // st.factor
     cflat = (cvox[..., 0] * st.rc + cvox[..., 1]) * st.rc + cvox[..., 2]
     coarse_occ = coarse_flat[cflat] > 0
-    dd = _sq_norm(d)
+    dd = sq_norm3(d)
     real = dd > 0.0
     in_range = torch.arange(s_pad, device=dev) < st.n_steps
     coarse_occ = coarse_occ & real[:, None] & in_range[None, :]
@@ -245,13 +240,13 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
         valid, t_sel, flat_sel = _rank_compact(occ_c, st.k_sel, t_cand, flat_c)
     else:
         valid, t_sel, flat_sel = occ_c, t_cand, flat_c
-    dist = step_r * torch.sqrt(dd)
+    dist = step_r * sqrt_rn(dd)
     return t_sel, valid, flat_sel.to(torch.int32), n_occ, n_blk, dist
 
 
 def _viewdirs(d: torch.Tensor) -> torch.Tensor:
     """``d / max(‖d‖, 1e-12)``: zero padding rays stay finite."""
-    norm = torch.sqrt(_sq_norm(d))[:, None]
+    norm = norm3_rn(d, keepdim=True)
     return d / torch.clamp_min(norm, 1e-12)
 
 

@@ -25,6 +25,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..utils.numerics import norm3_rn
 from .occupancy import world_to_voxel
 
 
@@ -219,12 +220,12 @@ def march_rays_accelerated(apply_fn, rays: torch.Tensor, near: float,
     t_sel = ts[order]
 
     pts_sel = march_points(rays_o, rays_d, t_sel)
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    viewdirs = rays_d / norm3_rn(rays_d, keepdim=True)
     raw = apply_fn(pts_sel, viewdirs, "fine")  # [N, K, 4]
 
     rgb = torch.sigmoid(raw[..., :3])
     sigma = torch.relu(raw[..., 3])
-    dists = step * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    dists = step * norm3_rn(rays_d, keepdim=True)
     alpha = (1.0 - torch.exp(-sigma * dists)) * valid
 
     # transmittance BEFORE each sample; zero weight once it has fallen

@@ -29,8 +29,9 @@ float64 too (see :func:`_composite_stream`).
 
 Truncation is global: a ray loses samples only when the stream overflows M
 before its segment ends, and it is flagged only while still transparent.
-``march_rays_proposal_packed`` (the learned-sampler admission) comes with
-port slice 5 and raises.
+:func:`march_rays_proposal_packed` admits the stream by the learned
+sampler instead: the deterministic proposal resampler places each ray's
+candidates and the grid culls them.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from .accelerated import (
     occupancy_sweep,
     real_rays,
 )
+from ..utils.numerics import norm3_rn
 from .occupancy import PYRAMID_FACTORS, coarse_from_grid, world_to_voxel
 
 
@@ -168,7 +170,7 @@ def _composite_stream(apply_fn, rays_o, rays_d, occupied, t_cand, dist_cand,
     t_m = t_cand.reshape(-1)[order]
     dists = dist_cand.reshape(-1)[order]
     pts_m = march_points(rays_o[ray_id], rays_d[ray_id], t_m[:, None])[:, 0]
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    viewdirs = rays_d / norm3_rn(rays_d, keepdim=True)
 
     # the stream is "M rays of one sample each"; a masked apply takes the
     # occupancy bit into the kernel (K3a)
@@ -290,7 +292,7 @@ def march_rays_packed(apply_fn, rays: torch.Tensor, near: float, far: float,
             rays, near, far, grid, bbox, step, spans=spans)
         t_cand = ts.expand(occupied.shape)
         block_frac = torch.tensor(1.0, dtype=f32, device=rays.device)
-    d_norm = torch.linalg.norm(rays_d, dim=-1)
+    d_norm = norm3_rn(rays_d)
     dist_ray = (step_r if options.clip_bbox else step) * d_norm  # [N]
     dist_cand = dist_ray[:, None].expand(occupied.shape)
     m_cap = min(int(n_rays * cap_avg), n_rays * occupied.shape[-1])
@@ -306,12 +308,59 @@ def march_rays_packed(apply_fn, rays: torch.Tensor, near: float, far: float,
     return out
 
 
-def march_rays_proposal_packed(*args, **kwargs):
-    """The proposal-resampler admission feeding the packed stream."""
-    raise NotImplementedError(
-        "march_rays_proposal_packed (sampling.mode: proposal on a grid "
-        "engine) comes with port slice 5"
-    )
+def march_rays_proposal_packed(apply_fn, rays: torch.Tensor, near: float,
+                               far: float, grid: torch.Tensor,
+                               bbox: torch.Tensor, options: MarchOptions,
+                               sampling, cap_avg: int = 32,
+                               lindisp: bool = False) -> dict:
+    """The proposal resampler as the packed stream's admission (eval only).
+
+    The deterministic quadrature of ``proposal_render_rays`` (stratified
+    proposal depths → proposal σ → weight histogram → det inverse-CDF
+    resample, sorted) gives each ray ``n_fine`` candidate depths; the
+    occupancy grid culls the ones in carved-empty space; the shared
+    compaction, the fine MLP over the stream (K3a under ``fused_trunk``)
+    and the log-space composite run on the survivors. The candidates'
+    widths are ``raw2outputs``' (the 1e10 tail interval, ‖d‖-scaled), τ is
+    clamped at 80, so on an all-admitting grid the maps are the chunked
+    proposal render's to float tolerance. Output contract of
+    :func:`march_rays_packed`; ``march_coarse_occ`` is the share of
+    resampled points the grid admitted."""
+    from .sampling import resample_pdf, weights_from_sigma
+    from .volume import stratified_z_vals
+
+    _check_static(rays)
+    f32 = torch.float32
+    rays = rays.to(f32)
+    rays_o, rays_d = rays[..., 0:3], rays[..., 3:6]
+    n_rays = rays.shape[0]
+
+    z_p = stratified_z_vals(None, near, far, n_rays, sampling.n_proposal,
+                            0.0, lindisp, rays.device)
+    pts_p = march_points(rays_o, rays_d, z_p)
+    viewdirs = rays_d / norm3_rn(rays_d, keepdim=True)
+    raw_p = apply_fn(pts_p, viewdirs, "proposal")
+    w_p = weights_from_sigma(raw_p[..., 0], z_p, rays_d)
+    z_mid = 0.5 * (z_p[..., 1:] + z_p[..., :-1])
+    z_f = resample_pdf(None, z_mid, w_p[..., 1:-1], sampling.n_fine,
+                       det=True)
+    z_f = torch.sort(z_f, -1)[0].detach()  # [N, S_f]
+
+    # admission: the grid culls resampled points in carved space
+    resolution = grid.shape[0]
+    vox = world_to_voxel(march_points(rays_o, rays_d, z_f), bbox, resolution)
+    flat = flat_voxel_ids(vox, resolution)
+    occupied = grid.reshape(-1)[flat] & real_rays(rays_d)[:, None]
+
+    dz = torch.cat([z_f[..., 1:] - z_f[..., :-1],
+                    torch.full_like(z_f[..., :1], 1e10)], -1)
+    dist_cand = dz * norm3_rn(rays_d)[:, None]
+
+    m_cap = min(int(n_rays * cap_avg), n_rays * sampling.n_fine)
+    out, _ = _composite_stream(apply_fn, rays_o, rays_d, occupied, z_f,
+                               dist_cand, options, m_cap, tau_clip=80.0)
+    out["march_coarse_occ"] = torch.mean(occupied.to(f32))
+    return out
 
 
 def occ_to_flat(flat_vox: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

@@ -19,14 +19,20 @@ through the fused kernels K1/K2 when ``network.nerf.fused_trunk`` is on
 otherwise; ``render`` renders a training batch and ``render_chunked`` a whole
 image in ``chunk_size``-ray chunks. ``task_arg.remat`` is accepted and has
 no effect: the fused MLP's backward already recomputes its activations, and
-the plain path keeps autograd's. ``sampling.mode: proposal`` raises.
+the plain path keeps autograd's. ``sampling.mode: proposal`` routes
+``render_rays`` to the proposal resampler (``renderer/sampling.py``); its
+density branch always runs the plain ``Network`` (it is not the NeRF trunk
+that K1/K2/K3a compute), its fine pass the fused kernels under
+``fused_trunk``.
 
 The occupancy-accelerated eval (``render_accelerated``, after
 ``load_occupancy_grid``) renders a whole image in ``march_chunk_size``-ray
 chunks through the route ``_build_march_fn`` picks, as the JAX renderer
-does: ``march_fused full`` (K5) or ``gather`` (K4); else the packed march
-when ``march_coarse_block > 0`` or ``march_clip_bbox`` (its MLP through K3a
-under ``fused_trunk``); else the per-ray march (through K1 under
+does: ``march_fused full`` (K5) or ``gather`` (K4); else, for a proposal
+checkpoint, the packed proposal march (the resampler as the stream's
+admission, its fine MLP through K3a under ``fused_trunk``); else the packed
+march when ``march_coarse_block > 0`` or ``march_clip_bbox`` (its MLP
+through K3a under ``fused_trunk``); else the per-ray march (through K1 under
 ``fused_trunk``). Without a grid it is the chunked render, with the JAX
 package's message. Deliberate difference: the JAX renderer caches one jitted
 executable per (chunks, bounds, options); PyTorch runs eagerly, so the port
@@ -35,9 +41,12 @@ builds the route per render and caches nothing.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
+
+from ..utils.numerics import norm3_rn
+from .sampling import SamplingOptions, proposal_render_rays
 
 
 @dataclass(frozen=True)
@@ -53,16 +62,12 @@ class RenderOptions:
     use_viewdirs: bool = True
     chunk_size: int = 8192
     remat: bool = False  # accepted; no effect in the port (see above)
+    # cfg.sampling: mode "proposal" replaces the coarse pass
+    sampling: SamplingOptions = field(default_factory=SamplingOptions)
 
     @classmethod
     def from_cfg(cls, cfg, train: bool = True) -> "RenderOptions":
         ta = cfg.task_arg
-        mode = str(cfg.get("sampling", {}).get("mode", "coarse_fine"))
-        if mode == "proposal":
-            raise NotImplementedError(
-                "sampling.mode: proposal (the learned sampler) comes with "
-                "port slice 5"
-            )
         perturb = float(ta.get("perturb", 1.0))
         if not train:
             # eval is deterministic unless test_perturb says otherwise
@@ -77,7 +82,19 @@ class RenderOptions:
             use_viewdirs=bool(ta.get("use_viewdirs", True)),
             chunk_size=int(ta.get("chunk_size", 8192)),
             remat=bool(ta.get("remat", False)) and train,
+            sampling=SamplingOptions.from_cfg(cfg, train=train),
         )
+
+    @property
+    def fine_evals_per_ray(self) -> int:
+        """Fine-MLP evaluations a ray costs: the merged S_c + S_f set in
+        coarse+fine mode, the S_f resampled points in proposal mode, 0 when
+        coarse-only."""
+        if self.sampling.mode == "proposal":
+            return self.sampling.n_fine
+        if self.n_importance > 0:
+            return self.n_samples + self.n_importance
+        return 0
 
 
 def stratified_z_vals(gen: torch.Generator | None, near, far, n_rays: int,
@@ -113,7 +130,7 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor,
     → (rgb_map [..., 3], depth_map [...], acc_map [...], weights [..., S])."""
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
-    dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+    dists = dists * norm3_rn(rays_d)[..., None]
 
     rgb = torch.sigmoid(raw[..., :3])
     sigma_raw = raw[..., 3]
@@ -176,11 +193,15 @@ def sample_pdf(gen: torch.Generator | None, bins: torch.Tensor,
 
 def render_rays(apply_fn, rays: torch.Tensor, near, far,
                 gen: torch.Generator | None,
-                options: RenderOptions) -> dict:
+                options: RenderOptions, step=None) -> dict:
     """Render a [N, 6] (or [N, 7] time-conditioned) ray batch through the
     coarse (+ fine) network. ``apply_fn(pts, viewdirs, model)`` returns raw
     ``[..., S, 4]``. Keys: ``rgb_map_c/f``, ``depth_map_c/f``,
-    ``acc_map_c/f``."""
+    ``acc_map_c/f``. ``sampling.mode: proposal`` routes the proposal
+    resampler instead, whose anneal ``step`` drives (None: fully sharp)."""
+    if options.sampling.mode == "proposal":
+        return proposal_render_rays(apply_fn, rays, near, far, gen, options,
+                                    step=step)
     rays_o, rays_d = rays[..., 0:3], rays[..., 3:6]
     t_col = rays[..., 6:7] if rays.shape[-1] > 6 else None
     n_rays = rays.shape[0]
@@ -194,7 +215,7 @@ def render_rays(apply_fn, rays: torch.Tensor, near, far,
     z_vals = stratified_z_vals(gen, near, far, n_rays, options.n_samples,
                                options.perturb, options.lindisp, rays.device)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    viewdirs = rays_d / norm3_rn(rays_d, keepdim=True)
 
     raw_c = apply_fn(_with_t(pts), viewdirs, "coarse")
     rgb_c, depth_c, acc_c, weights_c = raw2outputs(
@@ -250,16 +271,30 @@ class Renderer:
 
     def _apply_fn(self):
         if self._fused_apply is not None:
-            return self._fused_apply
+            return plain_proposal_branch(self._fused_apply, self.network)
         network = self.network
         return lambda pts, viewdirs, model: network(pts, viewdirs, model=model)
 
     def render(self, batch: dict, gen: torch.Generator | None = None,
                train: bool = True) -> dict:
-        """Render a batch ``{rays [N, 6], near, far}``."""
+        """Render a batch ``{rays [N, 6], near, far}``; an optional
+        ``batch["step"]`` (the train step) drives the proposal anneal."""
         options = self.train_options if train else self.eval_options
         return render_rays(self._apply_fn(), batch["rays"], batch["near"],
-                           batch["far"], gen, options)
+                           batch["far"], gen, options,
+                           step=batch.get("step"))
+
+    def sampling_stats(self) -> dict:
+        """The sampling mode and the fine-MLP evaluations a ray costs in
+        training and in eval."""
+        s = self.eval_options.sampling
+        return {
+            "mode": s.mode,
+            "fine_evals_per_ray_train": self.train_options.fine_evals_per_ray,
+            "fine_evals_per_ray_eval": self.eval_options.fine_evals_per_ray,
+            "n_proposal": s.n_proposal if s.mode == "proposal" else 0,
+            "n_fine": s.n_fine if s.mode == "proposal" else 0,
+        }
 
     def render_chunked(self, batch: dict) -> dict:
         """Whole-image eval in chunks of ``chunk_size`` rays (the last chunk
@@ -309,8 +344,9 @@ class Renderer:
     def _build_march_fn(self, near: float, far: float):
         """``fn(rays_chunk [chunk, 6]) -> out`` for one route, chosen as the
         JAX renderer (and the serving engine) choose it: ``march_fused``
-        wins; otherwise ``coarse_block > 0`` or ``clip_bbox`` take the
-        packed march; the per-ray march runs last."""
+        wins; then a proposal checkpoint's packed proposal march; otherwise
+        ``coarse_block > 0`` or ``clip_bbox`` take the packed march; the
+        per-ray march runs last."""
         options = self.march_options
         grid, bbox = self.occupancy_grid, self.grid_bbox
 
@@ -325,7 +361,8 @@ class Renderer:
                 far, grid, bbox, options)
 
         return staged_march_fn(self._apply_fn(), near, far, grid, bbox,
-                               options, self.packed_cap)
+                               options, self.packed_cap,
+                               eval_options=self.eval_options)
 
     def render_accelerated(self, batch: dict) -> dict:
         """Whole-image ESS + ERT render in ``march_chunk_size``-ray chunks
@@ -372,17 +409,51 @@ def eval_packed_cap(cfg, options) -> int:
     return int(cfg.task_arg.get("packed_cap_avg_eval", options.max_samples))
 
 
+def plain_proposal_branch(fused_apply, network):
+    """The fused apply for the NeRF trunk, the plain ``Network`` for
+    ``model="proposal"``: the density-only sampler branch is not the trunk
+    that the fused kernels compute, so K1/K2/K3a never see it."""
+
+    def apply_fn(pts, viewdirs, model, valid=None):
+        if model == "proposal":
+            return network(pts, viewdirs, model=model)
+        return fused_apply(pts, viewdirs, model, valid=valid)
+
+    apply_fn.supports_valid_mask = getattr(fused_apply, "supports_valid_mask",
+                                           False)
+    return apply_fn
+
+
+def proposal_march_fn(apply_fn, near: float, far: float, grid: torch.Tensor,
+                      bbox: torch.Tensor, options, eval_options,
+                      packed_cap: int):
+    """``fn(rays_chunk) -> out`` of the packed proposal march: the
+    deterministic resampler of ``eval_options.sampling`` admits the stream,
+    the grid culls it, ``packed_cap`` rows a ray."""
+    from .packed_march import march_rays_proposal_packed
+
+    sampling, lindisp = eval_options.sampling, bool(eval_options.lindisp)
+    return lambda rc: march_rays_proposal_packed(
+        apply_fn, rc, near, far, grid, bbox, options, sampling,
+        cap_avg=packed_cap, lindisp=lindisp)
+
+
 def staged_march_fn(apply_fn, near: float, far: float, grid: torch.Tensor,
-                    bbox: torch.Tensor, options, packed_cap: int):
+                    bbox: torch.Tensor, options, packed_cap: int,
+                    eval_options: RenderOptions | None = None):
     """``fn(rays_chunk) -> out`` of the march routes that call ``apply_fn``
     (the renderer's and the serving engine's): ``march_fused gather`` (K4);
-    else the packed march when ``coarse_block > 0`` or ``clip_bbox``, with a
-    stream of ``packed_cap`` rows per ray; else the per-ray march."""
+    else, when ``eval_options`` is in proposal mode, the packed proposal
+    march; else the packed march when ``coarse_block > 0`` or ``clip_bbox``,
+    with a stream of ``packed_cap`` rows per ray; else the per-ray march."""
     if options.march_fused == "gather":
         from ..ops.fused_march import march_rays_fused
 
         return lambda rc: march_rays_fused(apply_fn, rc, near, far, grid,
                                            bbox, options)
+    if eval_options is not None and eval_options.sampling.mode == "proposal":
+        return proposal_march_fn(apply_fn, near, far, grid, bbox, options,
+                                 eval_options, packed_cap)
     if options.coarse_block > 0 or options.clip_bbox:
         from .packed_march import march_rays_packed
 

@@ -21,6 +21,16 @@ Routes (``task_arg.march_fused``, with a grid):
   ``march_clip_bbox``, else the per-ray march
   (``renderer/accelerated.py``).
 
+A checkpoint trained with ``sampling.mode: proposal`` carries the proposal
+branch (``has_proposal``) and adds the ``proposal`` family: on a grid, the
+packed proposal march (``march_rays_proposal_packed``: the resampler admits
+the stream, the grid culls it; the fine MLP through the masked kernel K3a
+under ``network.nerf.fused_trunk``, the density branch plain) at half the
+fine budget; without a grid, the chunked proposal render. Its degraded
+grid-less families shrink ``n_proposal`` / ``n_fine`` instead of swapping
+to the (untrained) coarse network. A coarse+fine checkpoint serves the
+``proposal`` tier from the ``reduced_k`` family.
+
 Without a grid (``accelerated_renderer: false``, or a grid file that is
 missing or unusable) every family renders through the chunked volume
 renderer (``renderer/volume.render_rays``) in ``chunk_size``-ray chunks.
@@ -90,7 +100,12 @@ class RenderEngine:
 
         self.device = resolve_device(device)
         self.network = network.to(self.device).eval()
-        self.has_proposal = False  # the port has no learned-sampler branch
+        self.has_proposal = _has_proposal_branch(self.network)
+        # the proposal family's fine MLP runs the masked kernel K3a under
+        # fused_trunk (make_fused_apply reads the tile from this config)
+        self._fused_cfg = (cfg if bool(cfg.network.nerf.get("fused_trunk",
+                                                             False))
+                           else None)
         self.near = float(near)
         self.far = float(far)
         self.options = ServeOptions.from_cfg(cfg)
@@ -140,6 +155,22 @@ class RenderEngine:
 
     def _family_eval_options(self, family: str):
         base = self.eval_options
+        s = base.sampling
+        if s.mode == "proposal":
+            # the coarse branch of a proposal checkpoint is untrained: the
+            # degraded families stay on the proposal render and shed by
+            # shrinking the histogram and fine budgets
+            if family in ("full", "bf16"):
+                return base
+            if family == "proposal":
+                s2 = replace(s, n_fine=max(1, s.n_fine // 2))
+            elif family == "reduced_k":
+                s2 = replace(s, n_proposal=max(2, s.n_proposal // 2),
+                             n_fine=max(1, s.n_fine // 2))
+            else:  # coarse: the deepest shed still renders fine
+                s2 = replace(s, n_proposal=max(2, s.n_proposal // 2),
+                             n_fine=max(1, s.n_fine // 4))
+            return replace(base, sampling=s2)
         if family in ("full", "bf16"):
             return base
         if family == "reduced_k":
@@ -160,11 +191,34 @@ class RenderEngine:
             march_rays_fused_full,
         )
         from ..ops.fused_mlp import fused_spec_for
-        from ..renderer.volume import map_chunks, render_rays, staged_march_fn
+        from ..renderer.volume import (
+            map_chunks,
+            plain_proposal_branch,
+            proposal_march_fn,
+            render_rays,
+            staged_march_fn,
+        )
 
         network = self._family_network(family)
         near, far, chunk = self.near, self.far, self.chunk
         model = "coarse" if family == "coarse" else "fine"
+
+        if self.use_grid and family == "proposal":
+            # the learned sampler admits the packed stream and the grid
+            # culls it, whatever march_fused says
+            if self._fused_cfg is not None:
+                from ..ops.fused_mlp import make_fused_apply
+
+                apply_p = plain_proposal_branch(
+                    make_fused_apply(network, self._fused_cfg), network)
+            else:
+                def apply_p(pts, viewdirs, m):
+                    return network(pts, viewdirs, model=m)
+            march = proposal_march_fn(
+                apply_p, near, far, self.grid, self.bbox,
+                self._family_march_options(family),
+                self._family_eval_options(family), self.packed_cap)
+            return lambda rays: map_chunks(march, rays, chunk)
 
         if not self.use_grid:
             options = self._family_eval_options(family)
@@ -360,6 +414,15 @@ class RenderEngine:
             }
         return {
             "march": march,
+            # fine-MLP evaluations a ray costs at each family's budget
+            "sampling": {
+                "mode": self.eval_options.sampling.mode,
+                "has_proposal": self.has_proposal,
+                "fine_evals_per_ray": {
+                    f: self._family_eval_options(f).fine_evals_per_ray
+                    for f in self._families_for_params()
+                },
+            },
             "route": self.march_options.march_fused,
             "device": str(self.device),
             "kernel_launches": dict(LAUNCHES),
@@ -376,6 +439,11 @@ class RenderEngine:
             "warmup_wall_s": round(self.warmup_wall_s, 3),
             "cache": self.cache.stats(),
         }
+
+
+def _has_proposal_branch(network) -> bool:
+    """Whether a network carries the learned sampler's proposal branch."""
+    return getattr(network, "proposal", None) is not None
 
 
 def engine_from_cfg(cfg, cfg_file: str | None = None,

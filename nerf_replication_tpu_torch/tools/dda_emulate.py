@@ -21,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.fused_march import FusedStatics, _march_pts, _march_t, _sq_norm
+from ..ops.fused_march import FusedStatics, _march_pts, _march_t
 from ..renderer.occupancy import world_to_voxel
+from ..utils.numerics import sq_norm3, sqrt_rn
 
 LANES = 32
 SECTOR = 32
@@ -63,7 +64,7 @@ def _setup(st: FusedStatics, rays: torch.Tensor, bbox: torch.Tensor):
     b = rays.shape[0]
     near = torch.tensor(st.near, dtype=f32)
     far = torch.tensor(st.far, dtype=f32)
-    dd = _sq_norm(d)
+    dd = sq_norm3(d)
     if st.clip:
         tiny = torch.tensor(1e-12, dtype=f32)
         inv = 1.0 / torch.where(d.abs() < tiny, tiny, d)
@@ -178,7 +179,7 @@ def emulate_k4(st: FusedStatics, rays: torch.Tensor,
     else:
         t_sel, flat_sel, valid = t, flat, occ_c
         candidates = b * st.c_total
-    dist = step_r * torch.sqrt(dd)
+    dist = step_r * sqrt_rn(dd)
     outs = (t_sel, valid, flat_sel.to(torch.int32), n_occ.to(torch.int32),
             n_blk.to(torch.int32), dist)
     counts = {

@@ -7,11 +7,13 @@ chip_smoke.py's training phase (20 train views) in a temporary directory
 and, for three configurations of lego.yaml — ``fused_trunk true
 fused_tile 512`` in float32 at 1024 rays per step, the same in bfloat16 at
 4096 rays (BENCH_DEFAULTS.json), and ``fused_trunk false`` in float32 at
-1024 rays — runs warm-up steps and then ``--steps`` measured steps that
+1024 rays — and for lego_proposal.yaml's proposal-sampling path with the
+fused trunk (``proposal_f32_fused`` at 1024 rays, ``proposal_bf16_fused``
+at 4096) — runs warm-up steps and then ``--steps`` measured steps that
 repeat the trainer's step (``Trainer.step``) phase by phase:
 
-* CUDA events split each step into the batch draw + coarse/fine render +
-  loss (``forward``), ``backward`` and the optimizer (clip + Adam);
+* CUDA events split each step into the batch draw + coarse/fine (or
+  proposal + fine) render + loss (``forward``), ``backward`` and the optimizer (clip + Adam);
 * ``torch.profiler`` over the same steps sums device time by kernel: K1
   (``fused_mlp_fwd_kernel``), K2's two kernels K2a
   (``fused_mlp_bwd_rows_kernel``) and K2b (``fused_mlp_bwd_dw_kernel``),
@@ -57,6 +59,12 @@ CONFIGS = {
                    "4096", "network.nerf.fused_trunk", "true"],
     "f32_plain": ["precision.compute_dtype", "float32", "task_arg.N_rays",
                   "1024", "network.nerf.fused_trunk", "false"],
+    "proposal_f32_fused": ["precision.compute_dtype", "float32",
+                           "task_arg.N_rays", "1024",
+                           "network.nerf.fused_trunk", "true"],
+    "proposal_bf16_fused": ["precision.compute_dtype", "bfloat16",
+                            "task_arg.N_rays", "4096",
+                            "network.nerf.fused_trunk", "true"],
 }
 
 HASH_NGP = ["network.nerf.fused_trunk", "false", "task_arg.ngp_training",
@@ -212,8 +220,11 @@ def profile(torch, label, cfg, steps, warmup):
         for p in params:
             p.grad = None
         rays, rgbs = sample_rays(gen, bank[0], bank[1], n_rays)
+        # the step rides the batch, as in Trainer.step (the proposal
+        # sampler's anneal reads it)
         _, value, _ = loss({"rays": rays, "rgbs": rgbs, "near": near,
-                            "far": far}, gen=gen, train=True)
+                            "far": far, "step": state.step}, gen=gen,
+                           train=True)
         if events:
             events[1].record()
         value.backward()
@@ -256,7 +267,6 @@ def main(argv=None) -> int:
 
     resolve_device("cuda")
     kernels.build_all()
-    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
     rows = []
     with tempfile.TemporaryDirectory(prefix="profile_train_") as tmp:
         data = os.path.join(tmp, "data")
@@ -277,9 +287,11 @@ def main(argv=None) -> int:
                 row = profile_ngp(torch, label, cfg, phase, args.steps,
                                   args.warmup)
             else:
-                row = profile(torch, label, make_cfg(lego, opts
-                                                     + CONFIGS[label]),
-                              args.steps, args.warmup)
+                name = "lego_proposal.yaml" if label.startswith(
+                    "proposal_") else "lego.yaml"
+                row = profile(torch, label, make_cfg(
+                    os.path.join(REPO, "configs", "nerf", name),
+                    opts + CONFIGS[label]), args.steps, args.warmup)
             rows.append(row)
             print(json.dumps(row), flush=True)
     smi = subprocess.run(

@@ -4,7 +4,9 @@
 Renders the batch through the renderer it owns, MSE on the coarse map + MSE
 on the fine map, ``total = loss_c + loss_f``, and a train PSNR stat from the
 fine loss. Callable as ``(batch, gen, train) -> (output, loss, stats)``.
-The proposal sampler's interlevel loss comes with port slice 5.
+In proposal sampling mode there is no coarse map: the photometric loss is
+the fine one, and ``loss_mult × interlevel_loss`` over the two histograms the
+renderer returns trains the proposal branch (``stats["loss_prop"]``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 import torch
 
 from ..renderer import make_renderer
+from ..renderer.sampling import interlevel_loss
 
 
 def mse(pred, target):
@@ -35,9 +38,6 @@ class NeRFLoss:
         target = batch["rgbs"]
         stats = {}
         loss = 0.0
-        if "prop_w" in output:
-            raise NotImplementedError(
-                "the proposal interlevel loss comes with port slice 5")
         if "rgb_map_c" in output:
             loss_c = mse(output["rgb_map_c"], target)
             stats["loss_c"] = loss_c
@@ -49,6 +49,12 @@ class NeRFLoss:
             stats["psnr"] = mse_to_psnr(loss_f)
         else:
             stats["psnr"] = mse_to_psnr(stats["loss_c"])
+        if "prop_w" in output:
+            loss_p = interlevel_loss(output["fine_t"], output["fine_w"],
+                                     output["prop_t"], output["prop_w"])
+            mult = self.renderer.train_options.sampling.loss_mult
+            stats["loss_prop"] = loss_p
+            loss = loss + mult * loss_p
         stats["loss"] = loss
         return output, loss, stats
 

@@ -49,6 +49,7 @@ from ..renderer.accelerated import (
 )
 from ..renderer.occupancy import world_to_voxel
 from ..renderer.volume import map_chunks, raw2outputs, stratified_z_vals
+from ..utils.numerics import norm3_rn
 from .loss import mse, mse_to_psnr
 from .optim import apply_update, make_optimizer
 from .trainer import _check_single_card, _device_mem_mb, _later_slice
@@ -239,7 +240,7 @@ class NGPTrainer:
         # o + d·z as one fused multiply-add, as XLA evaluates it in the
         # jitted JAX step
         pts = march_points(rays_o, rays_d, z)
-        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        viewdirs = rays_d / norm3_rn(rays_d, keepdim=True)
         raw = self.network(pts, viewdirs, model="fine")
         rgb_map, _, _, _ = raw2outputs(raw, z, rays_d,
                                        white_bkgd=self.march.white_bkgd)

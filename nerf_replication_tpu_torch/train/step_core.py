@@ -13,9 +13,12 @@ from ..datasets.sampling import sample_rays
 
 def sampled_grad_step(loss, params, bank_rays, bank_rgbs, n_rays: int,
                       near: float, far: float, gen: torch.Generator,
-                      index_pool=None, grad_accum: int = 1) -> dict:
+                      index_pool=None, grad_accum: int = 1,
+                      step: int | None = None) -> dict:
     """Draw ``n_rays`` from the bank, backpropagate the loss into
     ``params``' ``.grad`` (zeroed first) and return the stats (tensors).
+    ``step`` (the optimizer steps taken so far) rides the batch as
+    ``batch["step"]``, which drives the proposal sampler's PDF anneal.
 
     ``grad_accum > 1`` splits the draw into A microbatches, run one after
     the other, and averages their gradients — the mean-loss gradient of the
@@ -27,7 +30,7 @@ def sampled_grad_step(loss, params, bank_rays, bank_rgbs, n_rays: int,
         p.grad = None
     if grad_accum <= 1:
         return _one_grad(loss, bank_rays, bank_rgbs, n_rays, near, far, gen,
-                         index_pool)
+                         index_pool, step)
     if n_rays % grad_accum != 0:
         raise ValueError(
             f"n_rays={n_rays} must be divisible by "
@@ -37,7 +40,7 @@ def sampled_grad_step(loss, params, bank_rays, bank_rgbs, n_rays: int,
     sums: dict = {}
     for _ in range(grad_accum):
         stats = _one_grad(loss, bank_rays, bank_rgbs, n_micro, near, far, gen,
-                          index_pool)
+                          index_pool, step)
         for k, v in stats.items():
             sums[k] = sums[k] + v if k in sums else v
     with torch.no_grad():
@@ -64,10 +67,12 @@ def fix_accum_psnr(stats: dict) -> dict:
 
 
 def _one_grad(loss, bank_rays, bank_rgbs, n_rays, near, far, gen,
-              index_pool):
+              index_pool, step=None):
     rays, rgbs = sample_rays(gen, bank_rays, bank_rgbs, n_rays,
                              index_pool=index_pool)
     batch = {"rays": rays, "rgbs": rgbs, "near": near, "far": far}
+    if step is not None:
+        batch["step"] = step
     _, value, stats = loss(batch, gen=gen, train=True)
     value.backward()
     return {k: v.detach() for k, v in stats.items()}

@@ -2,8 +2,10 @@
 
 Port of ``nerf_replication_tpu/train/trainer.py`` for one card. Each step
 draws a batch from the device-resident ray bank, renders it coarse + fine
-(through the fused MLP kernels K1/K2 under ``network.nerf.fused_trunk``),
-backpropagates the MSE loss, clips gradients by value at 40 and takes an
+(through the fused MLP kernels K1/K2 under ``network.nerf.fused_trunk``) —
+or, under ``sampling.mode: proposal``, through the proposal resampler and
+the fine network, with the step count as the anneal's ``batch["step"]`` —
+backpropagates the loss, clips gradients by value at 40 and takes an
 optimizer step whose lr is the schedule at the step count (optax's order).
 
 * RNG: one generator per step, seeded from ``(seed, step)``
@@ -108,7 +110,7 @@ class Trainer:
         stats = sampled_grad_step(
             self.loss, state.network.parameters(), bank_rays, bank_rgbs,
             self.n_rays, self.near, self.far, gen, index_pool=index_pool,
-            grad_accum=self.grad_accum,
+            grad_accum=self.grad_accum, step=state.step,
         )
         apply_update(state.optimizer, state.schedule, state.step)
         state.step += 1

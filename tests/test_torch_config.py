@@ -53,8 +53,10 @@ def test_registry_maps_config_modules_to_the_port():
     assert mod.__name__ == "nerf_replication_tpu_torch.datasets.blender"
     # a role the port does not have yet names the missing module
     with pytest.raises(ImportError,
-                       match="nerf_replication_tpu_torch.models.proposal"):
-        resolve_module("nerf_replication_tpu.models.proposal")
+                       match="nerf_replication_tpu_torch.models.img_fit"):
+        resolve_module("nerf_replication_tpu.models.img_fit.network")
+    assert resolve_module("nerf_replication_tpu.models.proposal").__name__ \
+        == "nerf_replication_tpu_torch.models.proposal"
 
 
 def test_device_seat_refuses_silent_cpu(monkeypatch):

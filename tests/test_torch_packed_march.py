@@ -375,9 +375,12 @@ def test_composite_transmittance_is_exact_deep_in_a_long_stream():
 
 
 def test_proposal_packed_raises():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pm.march_rays_proposal_packed(None, None, NEAR, FAR, None, None, None,
-                                      None)
+    """The packed proposal march refuses time-conditioned rays, as the JAX
+    one does (a static grid cannot gate them); its parity is in
+    test_torch_proposal.py."""
+    with pytest.raises(ValueError, match="static"):
+        pm.march_rays_proposal_packed(None, torch.zeros(4, 7), NEAR, FAR,
+                                      None, None, None, None)
 
 
 # -- the packed march through the masked fused apply ------------------------

@@ -272,10 +272,11 @@ def test_checkpoint_roundtrip_and_epochs(weights, tmp_path):
 
 def test_guards_refuse_silent_fallbacks(weights, tmp_path, monkeypatch,
                                        capsys):
-    """No CUDA → a cuda engine raises; an unported route (the learned
-    sampler) raises, naming its slice; a missing grid file serves through
-    the chunked volume route only after saying so, as the JAX engine does
-    — never silently."""
+    """No CUDA → a cuda engine raises; a route the network cannot take (the
+    ``full`` kernel route with a learnable hash encoder) raises at warm-up,
+    as in the JAX package; a missing grid file serves through the chunked
+    volume route only after saying so, as the JAX engine does — never
+    silently."""
     from nerf_replication_tpu_torch.config import make_cfg
 
     _, _, pnet = weights
@@ -287,10 +288,15 @@ def test_guards_refuse_silent_fallbacks(weights, tmp_path, monkeypatch,
         engine_from_cfg(cfg, cfg_file=LEGO, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_from_cfg(cfg, cfg_file=LEGO)  # the default device is cuda
-    _, pcfg = both_cfgs(SERVE_OPTS + ["sampling.mode", "proposal"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        RenderEngine(pcfg, pnet, NEAR, FAR, grid=box_grid(16), bbox=BBOX,
-                     device="cpu")
+    hcfg = make_cfg(os.path.join(ROOT, "configs", "nerf",
+                                 "lego_hash.yaml"), SERVE_OPTS + [
+        "network.xyz_encoder.log2_hashmap_size", "12",
+        "task_arg.march_fused", "full"])
+    from nerf_replication_tpu_torch.models import make_network
+
+    with pytest.raises(ValueError, match="learnable encoder"):
+        RenderEngine(hcfg, make_network(hcfg), NEAR, FAR,
+                     grid=box_grid(16), bbox=BBOX, device="cpu")
     eng = engine_from_cfg(make_cfg(LEGO, opts), cfg_file="other.yaml",
                           device="cpu")
     assert "occupancy grid not found" in capsys.readouterr().out

@@ -295,8 +295,8 @@ def test_train_entry_point_runs_one_epoch(scene, tmp_path):
 def test_fit_refuses_later_slices(scene, tmp_path):
     from nerf_replication_tpu_torch.train.trainer import fit
 
-    for extra, match in ((["sampling.mode", "proposal"], "slice 5"),
-                         (["parallel.model_axis", "2"], "slice 7")):
+    for extra, match in ((["parallel.model_axis", "2"], "slice 7"),
+                         (["parallel.data_axis", "2"], "slice 7")):
         cfg = make_cfg(LEGO, _tiny_opts(scene, str(tmp_path), "x", extra))
         with pytest.raises(NotImplementedError, match=match):
             fit(cfg, device="cpu")

@@ -120,7 +120,12 @@ def test_render_chunked_and_gate_match_one_pass():
 
 
 def test_render_options_refuse_proposal():
-    _, pcfg = both_cfgs(["sampling.mode", "proposal"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pv.RenderOptions.from_cfg(pcfg)
+    """``sampling.mode: proposal`` is no longer refused: the options carry
+    the JAX package's sampling fields (parity in test_torch_sampling.py)."""
+    jcfg, pcfg = both_cfgs(["sampling.mode", "proposal"])
+    for train in (True, False):
+        po = pv.RenderOptions.from_cfg(pcfg, train=train)
+        jo = jv.RenderOptions.from_cfg(jcfg, train=train)
+        assert po.sampling.mode == "proposal"
+        assert vars(po.sampling) == vars(jo.sampling)
     assert jax is not None
