@@ -92,7 +92,25 @@ imports nothing of JAX. Phases, each fatal on failure:
    ``march_rays_proposal_packed`` with K3a and with the plain Network,
    maps within 1e-4; (e) ``engine_from_cfg`` on the checkpoint answering
    one 200x200 request at tiers ``full`` (K5) and ``proposal`` (K3a); one
-   line with the phase's launches, step ms, rays/s, view ms and the card.
+   line with the phase's launches, step ms, rays/s, view ms and the card;
+13. CUDA graphs (``compile.aot``, ``compile/registry.py``; phases 5, 11
+   and 12 already trained graphed, each fit's registry line checked: every
+   entry captured, none in errors, launch counts read as before since a
+   replay adds its captured launches): (a) lego f32 and bf16 and the
+   proposal f32 step, 8 steps each from one seeded state eager, eager
+   again and graphed: parameters, Adam's moments and stats bitwise, no
+   capture after warm-up; (b) NGP f32 per-ray and bf16 packed, warm and
+   march, the same within 1e-5 relative Frobenius (K6b's float32
+   atomics), and the step's draws replayed bitwise eager ones; (c) the
+   engine's ``full`` (K5), ``march_fused off``, grid-less and ``proposal``
+   (K3a) routes on one 200x200 request, eager and replayed: maps bitwise,
+   captures constant over 5 more requests, request ms and peak memory of
+   each; (d) a second process boots an engine with no nvcc run
+   (``builds == 0``, ``warm_source == "disk"``); (e) eager against graphed
+   step ms, rays/s, idle share and kernels a step
+   (``tools/profile_train_step.py``) for NGP f32 warm / march, NGP bf16
+   packed march, proposal f32, lego f32 and lego bf16; one line with all
+   of it and the card.
 
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
@@ -167,12 +185,13 @@ CHUNK_REL = 1e-5
 # max|raw|: the absolute raw gate above was set at an untrained network's
 # magnitudes (max|raw| ~0.7). Trained, raw reaches ~30, and no float32
 # summation order meets 1e-5 absolute (the plain version itself is 1.2e-5
-# from float64 there); K1's 3xTF32 chain, whose tensor-core sums truncate,
-# measured 1.40e-5 of max|raw| from float64 (plain float32: 4.4e-7) on the
-# proposal fine pass and 1.43e-5 on a lego-trained net (phase 12 prints
-# both, tools/chain_accuracy.py). The gap to float32 is an open fault of
-# the chain.
-TOL_TRAINED_RAW_REL = 2e-5
+# from float64 there). K1's chain, its split rounded to nearest and its
+# tensor-core partial sums added into IEEE float32 sums, lands within
+# TOL_K1_F64_REL of max|raw| from float64 there and on a lego-trained net
+# (the truncating split and the tensor cores' own sums put it at 1.4-1.8e-5;
+# phase 12 prints both distances, tools/chain_accuracy.py).
+TOL_TRAINED_RAW_REL = 3e-6
+TOL_K1_F64_REL = 3e-6
 K2_CHUNK = 8192  # the forced small chunk of K2's chunking check
 MLP_M = (333, 65536 + 37)
 # the packed stream of one 4096-ray chunk at packed_cap 192, and the valid
@@ -996,6 +1015,18 @@ def _train_opts(data, out, exp):
     ]
 
 
+def _compile_status(logs, label):
+    """The registry line a fit logs under ``compile.aot`` (the CUDA graphs
+    of its steps): every entry captured, none in errors."""
+    lines = [line for line in logs if line.startswith("compile: ")]
+    require(lines, f"{label}: no compile line (compile.aot installs the "
+            "CUDA-graph registry on the card)")
+    st = json.loads(lines[-1][len("compile: "):])
+    require(not st["errors"] and st["captures"] == st["entries"] > 0,
+            f"{label}: captures failed: {st}")
+    return st
+
+
 def _fit_run(torch, np, lego, opts, label):
     from nerf_replication_tpu_torch.config import make_cfg
     from nerf_replication_tpu_torch.train.trainer import fit
@@ -1014,14 +1045,15 @@ def _fit_run(torch, np, lego, opts, label):
     times = [r["step_time_s"] for r in rows[3:]]
     med = float(np.median(times)) * 1e3
     n_rays = int(cfg.task_arg.N_rays)
+    st = _compile_status(logs, label)
     res = {"steps": state.step, "median_step_ms": med,
            "rays_per_s": n_rays / med * 1e3, "losses": losses,
            "wall_s": wall, "logs": logs, "state": state, "cfg": cfg,
-           "rows": rows}
+           "rows": rows, "compile": st}
     print(f"train [{label}]: {state.step} steps in {wall:.1f} s; median "
           f"step {med:.2f} ms = {res['rays_per_s']:.0f} rays/s (N_rays "
           f"{n_rays}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; psnr "
-          f"{rows[-1]['stats']['psnr']:.2f}")
+          f"{rows[-1]['stats']['psnr']:.2f}; graphs {json.dumps(st)}")
     return res
 
 
@@ -1521,11 +1553,12 @@ def _ngp_run(torch, np, cfg_name, opts, label):
             by_phase[phase] = {"steps": len(times), "median_step_ms": med,
                                "rays_per_s": n_rays / med * 1e3}
     last = rows[-1]["stats"]
+    st = _compile_status(logs, label)
     print(f"ngp [{label}]: {state.step} steps in {wall:.1f} s; "
           f"{json.dumps(by_phase)}; loss {losses[0]:.4f} -> {losses[-1]:.4f};"
           f" last stats " + json.dumps({k: round(v, 4) for k, v in
                                        last.items()})
-          + f"; launches {json.dumps(counts)}")
+          + f"; launches {json.dumps(counts)}; graphs {json.dumps(st)}")
     return dict(state=state, rows=rows, logs=logs, counts=counts,
                 losses=losses, by_phase=by_phase, cfg=cfg)
 
@@ -1664,7 +1697,10 @@ def phase_proposal(torch, np, tmp, data, lego_net):
     )
     from nerf_replication_tpu_torch.renderer.volume import make_renderer
     from nerf_replication_tpu_torch.serve import engine_from_cfg
-    from nerf_replication_tpu_torch.tools.chain_accuracy import forward_errors
+    from nerf_replication_tpu_torch.tools.chain_accuracy import (
+        backward_errors,
+        forward_errors,
+    )
     from nerf_replication_tpu_torch.tools.slice_inputs import SLICE_OPTS
 
     prop = os.path.join(REPO, "configs", "nerf", "lego_proposal.yaml")
@@ -1722,15 +1758,27 @@ def phase_proposal(torch, np, tmp, data, lego_net):
             # K1 and the plain version against float64, here and on the
             # lego-trained network's uniform rows (phase 4's inputs)
             acc = {"proposal fine pass": forward_errors(spec, x, v, flat, m)}
+            bwd = {"proposal fine pass": backward_errors(spec, x, v, draw,
+                                                         flat, m)}
             lspec = fmlp.fused_spec_for(lego_net)
-            lx, lv, _ = _mlp_inputs(torch, np, lspec, lego_net, m, SEED,
-                                    DEVICE)
+            lx, lv, ldraw = _mlp_inputs(torch, np, lspec, lego_net, m, SEED,
+                                        DEVICE)
+            lflat = [t.detach() for t in lspec.flatten_params(lego_net.fine)]
             acc["lego-trained, uniform rows"] = forward_errors(
-                lspec, lx, lv, [t.detach() for t in
-                                lspec.flatten_params(lego_net.fine)], m)
+                lspec, lx, lv, lflat, m)
+            bwd["lego-trained, uniform rows"] = backward_errors(
+                lspec, lx, lv, ldraw, lflat, m)
             print("K1 f32 vs float64 (max|err| / max|raw|): " + json.dumps(
                 {k: {kk: float(f"{vv:.4g}") for kk, vv in a.items()}
                  for k, a in acc.items()}))
+            for k, a in acc.items():
+                require(a["k1_rel_f64"] <= TOL_K1_F64_REL,
+                        f"K1 f32 [{k}] {a['k1_rel_f64']} of max|raw| from "
+                        f"float64 > {TOL_K1_F64_REL}")
+            print("K2 f32 vs float64 (dx: max|err| / max|dx|; dW: the worst "
+                  "tensor's relative Frobenius error): " + json.dumps(
+                      {k: {kk: float(f"{vv:.4g}") for kk, vv in a.items()}
+                       for k, a in bwd.items()}))
 
     # (d) a grid baked from the trained FINE branch (a proposal checkpoint
     # never trains its coarse branch, which the bake reads), view 0 through
@@ -1824,6 +1872,351 @@ def phase_proposal(torch, np, tmp, data, lego_net):
     return counts
 
 
+GRAPH_STEPS = 8
+# NGP under graphs: K6b sums the table gradient with float32 atomics (and
+# the proposal step's interlevel loss backpropagates through torch.gather,
+# whose backward adds with atomics), so two runs of one step, eager or
+# replayed, differ in the last bits; the parameters (and the NGP grid EMA)
+# are held in relative Frobenius norm
+TOL_NGP_GRAPH_FRO = 1e-5
+
+
+def _fro_rel(a, b) -> float:
+    num = sum(float((x.double() - y.double()).pow(2).sum())
+              for x, y in zip(a, b))
+    den = sum(float(x.double().pow(2).sum()) for x in a)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _state_tensors(state):
+    """The parameters, then every optimizer state tensor (Adam's moments
+    and step counts), in order."""
+    params = list(state.network.parameters())
+    moments = [v for p in params
+               for _, v in sorted(state.optimizer.state[p].items())
+               if hasattr(v, "shape")]
+    return params, moments
+
+
+def _max_abs(a, b) -> float:
+    return max((float((x.double() - y.double()).abs().max()) for x, y in
+                zip(a, b) if x.numel()), default=0.0)
+
+
+def _copy_state(torch, src, dst):
+    """``dst``'s parameters, optimizer state and grid EMA set to
+    ``src``'s, in place (where its captured step reads them)."""
+    with torch.no_grad():
+        for p, q in zip(dst.network.parameters(), src.network.parameters()):
+            p.copy_(q)
+            for k, v in dst.optimizer.state[p].items():
+                v.copy_(src.optimizer.state[q][k])
+        if hasattr(src, "grid_ema"):
+            dst.grid_ema.copy_(src.grid_ema)
+
+
+def _step_pairs(torch, make, step, n_steps, label, bitwise):
+    """Three trainers from ``make()`` (identical seeded init): eager, eager
+    again, graphed. ``step(trainer, state)`` runs one step and returns its
+    stats. After each step the second eager run and the graphed run are
+    compared with the first: bitwise (``bitwise``), else in relative
+    Frobenius norm with every step taken from the first run's state (so
+    that one step's atomics are compared, not eight steps' compounded
+    through Adam); the graphed registry's captures must not grow."""
+    from nerf_replication_tpu_torch.compile import AOTRegistry
+
+    (e1, s1, bank), (e2, s2, _), (g, sg, _) = make(), make(), make()
+    g.aot = AOTRegistry(device=torch.device(DEVICE))
+    g.aot_register_steps(sg, bank)
+    st = g.aot.status()
+    require(not st["errors"] and st["captures"] == st["entries"] > 0,
+            f"{label}: captures failed: {st}")
+    captures = g.aot.captures
+    worst = {"eager_eager": 0.0, "eager_graphed": 0.0}
+    for i in range(n_steps):
+        if not bitwise and i:
+            _copy_state(torch, s1, s2)
+            _copy_state(torch, s1, sg)
+        stats = [step(e1, s1), step(e2, s2), step(g, sg)]
+        torch.cuda.synchronize()
+        ref = _state_tensors(s1)
+        for key, other, ost in (("eager_eager", s2, stats[1]),
+                                ("eager_graphed", sg, stats[2])):
+            got = _state_tensors(other)
+            keys = sorted(stats[0])
+            require(sorted(ost) == keys, f"{label}: stats keys differ")
+            sa = [stats[0][k].float() for k in keys]
+            sb = [ost[k].float() for k in keys]
+            if bitwise:
+                d = max(_max_abs(ref[0], got[0]), _max_abs(ref[1], got[1]),
+                        _max_abs(sa, sb))
+            else:
+                grids = ([s1.grid_ema], [other.grid_ema]) if hasattr(
+                    s1, "grid_ema") else ([], [])
+                d = max(_fro_rel(ref[0], got[0]), _fro_rel(*grids))
+            worst[key] = max(worst[key], d)
+    require(g.aot.captures == captures, f"{label}: captures grew "
+            f"{captures} -> {g.aot.captures} after warm-up")
+    if bitwise:
+        require(worst["eager_graphed"] == 0.0, f"{label}: graphed steps "
+                f"differ from eager ones by {worst['eager_graphed']} "
+                f"(eager vs eager {worst['eager_eager']})")
+    else:
+        require(worst["eager_graphed"] <= TOL_NGP_GRAPH_FRO,
+                f"{label}: graphed steps {worst['eager_graphed']} "
+                f"(relative Frobenius) from eager ones > {TOL_NGP_GRAPH_FRO}"
+                f" (eager vs eager {worst['eager_eager']})")
+    print(f"graphs [{label}]: {n_steps} steps eager, eager again and "
+          f"graphed from one seeded state: worst "
+          + ("max |diff| of parameters, Adam state and stats " if bitwise
+             else "relative Frobenius of parameters (and grid EMA), each "
+             "step from the first run's state ")
+          + json.dumps(worst) + f"; {json.dumps(st)}")
+    return worst
+
+
+def _ngp_draws_bitwise(torch, trainer, bank):
+    """The NGP step's draws (ray batch, warm depths, refresh cells,
+    jitter) replayed from a generator registered with a graph and reseeded
+    per step, against a fresh generator of the same (seed, step)."""
+    from nerf_replication_tpu_torch.compile import AOTRegistry
+    from nerf_replication_tpu_torch.datasets.sampling import (
+        reseed,
+        sample_rays,
+        step_generator,
+    )
+    from nerf_replication_tpu_torch.renderer.volume import stratified_z_vals
+
+    t = trainer
+
+    def draws(gen):
+        rays, rgbs = sample_rays(gen, bank[0], bank[1], t.n_rays)
+        z = stratified_z_vals(gen, t.near, t.far, t.n_rays, t.warm_samples,
+                              1.0, device=bank[0].device)
+        idx = torch.randint(0, t.grid_res**3, (t.cells_per_step,),
+                            generator=gen, device=bank[0].device)
+        u = torch.rand((t.cells_per_step, 3), generator=gen,
+                       device=bank[0].device)
+        return rays, rgbs, z, idx, u
+
+    gen = torch.Generator(device=DEVICE)
+    reg = AOTRegistry(device=torch.device(DEVICE))
+    reg.register("draws", lambda: draws(gen), generators=(gen,))
+    reg.compile_all()
+    fn = reg.take("draws")
+    require(fn is not None, f"draw capture failed: {reg.status()}")
+    for step in (0, 1, 17, 1):
+        reseed(gen, t.seed, step)
+        got = [x.clone() for x in fn()]
+        want = draws(step_generator(t.seed, step, DEVICE))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"replayed draws of step {step} differ from eager ones")
+
+
+def _engine_pair(torch, np, cfg_path, opts, tier, rays, near, far, label):
+    """One request through an engine without graphs and one replaying its
+    captured route: bitwise maps, request ms of each, captures constant
+    over 5 more requests; the pool's peak memory."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.serve import engine_from_cfg
+
+    res = {}
+    for aot in ("false", "true"):
+        cfg = make_cfg(cfg_path, opts + ["compile.aot", aot, "serve.buckets",
+                                         "[16384]", "serve.warmup", aot],
+                       default_task="run")
+        torch.cuda.reset_peak_memory_stats()
+        engine = engine_from_cfg(cfg, cfg_file=cfg_path, device=DEVICE)
+        engine.render_request(rays, near, far, tier=tier)  # first use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.render_request(rays, near, far, tier=tier)
+        ms = (time.perf_counter() - t0) * 1e3
+        st = engine.stats()
+        res[aot] = {"out": out, "ms": ms, "stats": st,
+                    "peak_mb": torch.cuda.max_memory_allocated() / 2**20}
+        if aot == "true":
+            require(st["captures"] > 0 and not st["compile"]["errors"],
+                    f"engine {label}: captures {st['captures']}, "
+                    f"{st['compile']}")
+            family = {"full": "full", "proposal": "proposal"}[tier]
+            require(f"serve/{family}/b16384" in st["captured_routes"],
+                    f"engine {label}: the {tier} route was not captured")
+            for _ in range(5):
+                engine.render_request(rays, near, far, tier=tier)
+            require(engine.stats()["captures"] == st["captures"],
+                    f"engine {label}: captures grew after warm-up")
+    a, b = res["false"]["out"], res["true"]["out"]
+    keys = [k for k in a if k != "tier"]
+    require(keys and all(np.array_equal(a[k], b[k]) for k in keys),
+            f"engine {label}: replayed maps differ from eager ones: " +
+            json.dumps({k: float(np.abs(np.asarray(a[k], np.float64)
+                                        - np.asarray(b[k])).max())
+                        for k in keys}))
+    row = {"eager_ms": round(res["false"]["ms"], 2),
+           "graphed_ms": round(res["true"]["ms"], 2),
+           "peak_mb_eager": round(res["false"]["peak_mb"], 1),
+           "peak_mb_graphed": round(res["true"]["peak_mb"], 1),
+           "captures": res["true"]["stats"]["captures"]}
+    print(f"graphs engine [{label}]: one {rays.shape[0]}-ray request, maps "
+          f"bitwise eager; " + json.dumps(row))
+    return row
+
+
+def _warm_restart(torch, tmp, cfg_path, opts):
+    """A second process boots an engine on the same checkout: it must run
+    no nvcc (every kernel library on disk) and report warm_source disk."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from nerf_replication_tpu_torch.config import make_cfg\n"
+        "from nerf_replication_tpu_torch.ops import kernels\n"
+        "from nerf_replication_tpu_torch.serve import engine_from_cfg\n"
+        "cfg = make_cfg(sys.argv[1], json.loads(sys.argv[2]), "
+        "default_task='run')\n"
+        "e = engine_from_cfg(cfg, cfg_file=sys.argv[1], device='cuda')\n"
+        "s = e.stats()\n"
+        "print(json.dumps({'builds': kernels.builds, 'warm_source': "
+        "s['warm_source'], 'captures': s['captures'], 'compile': "
+        "s['compile']}))\n")
+    res = subprocess.run([sys.executable, "-c", code, cfg_path,
+                          json.dumps(opts)], capture_output=True, text=True,
+                         timeout=300, cwd=tmp)
+    require(res.returncode == 0, f"warm restart failed: {res.stderr[-2000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    require(rec["builds"] == 0 and rec["warm_source"] == "disk"
+            and rec["captures"] > 0 and not rec["compile"]["errors"],
+            f"warm restart: {rec}")
+    print(f"graphs warm restart: a second process's engine {json.dumps(rec)}")
+    return rec
+
+
+GRAPH_PROFILES = ("ngp_f32_warm", "ngp_f32_march", "ngp_bf16_packed_march",
+                  "proposal_f32_fused", "f32_fused", "bf16_fused")
+
+
+def phase_graphs(torch, np, tmp, data):
+    """Phase 13: the compile registry as CUDA graphs (cwd: tmp, where
+    phases 6 and 12 saved their grids)."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.registry import load_attr
+    from nerf_replication_tpu_torch.tools.profile_train_step import (
+        profile_config,
+    )
+    from nerf_replication_tpu_torch.tools.slice_inputs import SLICE_OPTS
+    from nerf_replication_tpu_torch.train.ngp import NGPTrainer
+    from nerf_replication_tpu_torch.train.trainer import (
+        Trainer,
+        make_train_state,
+    )
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    prop = os.path.join(REPO, "configs", "nerf", "lego_proposal.yaml")
+    hashy = os.path.join(REPO, "configs", "nerf", "lego_hash.yaml")
+    out = os.path.join(tmp, "out_graphs")
+    banks = {}
+
+    def bank_of(cfg):
+        key = cfg.train_dataset.data_root
+        if key not in banks:
+            banks[key] = tuple(torch.from_numpy(a).to(DEVICE) for a in
+                               make_dataset(cfg, "train").ray_bank())
+        return banks[key]
+
+    # (a) lego f32 / bf16 and the proposal f32 step: bitwise
+    for label, path, extra in (
+            ("lego f32", lego, []),
+            ("lego bf16", lego, ["precision.compute_dtype", "bfloat16",
+                                 "task_arg.N_rays", "4096"]),
+            ("proposal f32", prop, [])):
+        cfg = make_cfg(path, _train_opts(data, out, "g") + [
+            "task_arg.precrop_iters", "0", *extra])
+
+        def make(cfg=cfg):
+            net = make_network(cfg)
+            tr = Trainer(cfg, net, load_attr(cfg.loss_module, "make_loss")(
+                cfg, net))
+            return tr, make_train_state(cfg, net, DEVICE), bank_of(cfg)
+
+        def step(tr, st):
+            bank = bank_of(tr.cfg)
+            return tr.step(st, bank[0], bank[1])[1]
+
+        # the proposal step's interlevel loss gathers the proposal's
+        # cumulative weights: torch.gather's backward adds with atomics, so
+        # its steps agree only in norm, eager against eager too
+        _step_pairs(torch, make, step, GRAPH_STEPS, label,
+                    bitwise=not label.startswith("proposal"))
+
+    # (b) NGP: f32 per-ray warm + march, bf16 packed march
+    for label, extra in (
+            ("ngp f32 per-ray", []),
+            ("ngp bf16 packed", ["precision.compute_dtype", "bfloat16",
+                                 "task_arg.N_rays", "4096",
+                                 "task_arg.ngp_packed_march", "true"])):
+        cfg = make_cfg(hashy, _hash_opts(data, out, "g_ngp", [
+            "task_arg.ngp_training", "true", *extra]))
+
+        def make(cfg=cfg):
+            tr = NGPTrainer(cfg, make_network(cfg))
+            return tr, tr.make_state(DEVICE), bank_of(cfg)
+
+        for warm in (True, False):
+            def step(tr, st, warm=warm):
+                bank = bank_of(tr.cfg)
+                return tr._one_step(st, bank[0], bank[1], warm)
+
+            _step_pairs(torch, make, step, GRAPH_STEPS,
+                        f"{label} {'warm' if warm else 'march'}",
+                        bitwise=False)
+        if not extra:
+            tr = NGPTrainer(cfg, make_network(cfg))
+            _ngp_draws_bitwise(torch, tr, bank_of(cfg))
+            print("graphs: the NGP step's draws replayed bitwise eager ones "
+                  "(steps 0, 1, 17, 1)")
+
+    # (c) the engine's captured routes against their eager runs
+    batch = make_dataset(make_cfg(lego, _eval_opts(data, tmp)),
+                         "test").image_batch(0)
+    rays, near, far = batch["rays"].reshape(-1, 6), float(batch["near"]), \
+        float(batch["far"])
+    serving = {}
+    for label, path, opts, tier in (
+            ("full (K5)", lego, _eval_opts(data, tmp, SLICE_OPTS), "full"),
+            ("march_fused off", lego, _eval_opts(data, tmp, [
+                "task_arg.march_coarse_block", "8"]), "full"),
+            ("grid-less", lego, _eval_opts(data, tmp, [
+                "task_arg.accelerated_renderer", "false"]), "full"),
+            ("proposal (K3a)", prop, _prop_opts(
+                data, os.path.join(tmp, "out_prop"), "prop_f32",
+                SLICE_OPTS), "proposal")):
+        serving[label] = _engine_pair(torch, np, path, opts, tier, rays,
+                                      near, far, label)
+
+    # (d) a second process: no nvcc, warm_source disk
+    restart = _warm_restart(torch, tmp, lego, _eval_opts(data, tmp,
+                                                         SLICE_OPTS))
+
+    # (e) eager against graphed steps: ms, rays/s, idle, kernels a step
+    profiles = {}
+    for label in GRAPH_PROFILES:
+        for graphed in (False, True):
+            row = profile_config(torch, label, data, tmp, graphed, 8, 3)
+            profiles.setdefault(label, {})[row["mode"]] = {
+                "step_ms": round(row["step_ms_unprofiled"], 3),
+                "rays_per_s": round(row["n_rays"] / row["step_ms_unprofiled"]
+                                    * 1e3, 1),
+                "idle": round(row["idle_share_unprofiled"], 4),
+                "kernels_per_step": round(row["kernels_per_step"], 1),
+                "peak_mb": round(row["max_memory_allocated_mb"], 1)}
+    print("graphs phase: " + json.dumps({
+        "steps": profiles, "engine": serving, "warm_restart": restart,
+        "card": smi_line()}))
+    return profiles, serving
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -1888,6 +2281,7 @@ def main() -> int:
             os.chdir(tmp)
             prop_counts = phase_proposal(torch, np, tmp, data,
                                          f32["state"].network)
+            phase_graphs(torch, np, tmp, data)
         finally:
             os.chdir(cwd)
     run_bench()

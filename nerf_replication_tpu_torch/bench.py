@@ -13,8 +13,11 @@ port's config and trains on a synthetic ray bank of 2^20 rays drawn on the
 device from a seeded generator (throughput does not depend on the
 content).
 
-It runs 1 + 3 bursts of ``scan_steps`` steps as warm-up (the kernels build
-on the first), then times three windows of ``BENCH_STEPS`` steps rounded up
+Under ``compile.aot`` (the default) it captures the step as a CUDA graph
+before the warm-up, as ``train.trainer.fit`` does (``compile/registry.py``),
+so it times what training runs; ``"graphs"`` in the line says whether it
+replayed one. It runs 1 + 3 bursts of ``scan_steps`` steps as warm-up (the
+kernels build on the first), then times three windows of ``BENCH_STEPS`` steps rounded up
 to whole bursts, each ending in a device synchronisation, and reports the
 median window. It prints ONE JSON line: ``{"metric": "train_rays_per_sec",
 "value", "unit": "rays/s", "vs_baseline", ...}`` against the reference's
@@ -101,6 +104,7 @@ def run(device: str = "cuda") -> dict:
     import numpy as np
     import torch
 
+    from .compile import registry_from_cfg
     from .models import make_network
     from .train.loss import make_loss
     from .train.trainer import Trainer, make_train_state
@@ -116,6 +120,12 @@ def run(device: str = "cuda") -> dict:
     trainer = Trainer(cfg, network, make_loss(cfg, network))
     state = make_train_state(cfg, network, dev)
     bank_rays, bank_rgbs = synthetic_bank(torch, dev)
+    trainer.aot = registry_from_cfg(cfg, dev)
+    trainer.aot_register_steps(state, (bank_rays, bank_rgbs))
+    graphs = (trainer.aot is not None
+              and trainer.aot.take("train_step") is not None)
+    if trainer.aot is not None and trainer.aot.summary()["errors"]:
+        raise RuntimeError(f"step capture failed: {trainer.aot.status()}")
 
     def sync():
         if dev.type == "cuda":
@@ -152,6 +162,7 @@ def run(device: str = "cuda") -> dict:
         "grad_accum": int(cfg.task_arg.get("grad_accum", 1)),
         "steps_per_window": n_bursts * scan_k,
         "windows": [round(r, 1) for r in rates],
+        "graphs": graphs,
         "config": config,
         "device": str(dev),
         "ts": round(time.time(), 1),

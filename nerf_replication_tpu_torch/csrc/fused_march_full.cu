@@ -313,8 +313,8 @@ fused_march_full_kernel(const float* __restrict__ rays, int n,
       if (tid == CH_CONSUMERS) produce_pass<CT>(md, wmat, ring, pos);
     } else {
       consumers_sync();  // the encoded rows
-      const HeadOut ho = chain_forward<CT, W, true>(md, bias, wh, xs, ldx, vs,
-                                                    ldv, H, ldh, ring, pos);
+      const HeadOut ho = chain_forward<CT, W, true, false>(
+          md, bias, wh, xs, ldx, vs, ldv, H, ldh, ring, pos);
       const int lane = tid & 31;
       if ((lane & 3) == 0) {
         float* part = hp + (tid >> 7) * CH_M * 4;

@@ -8,27 +8,30 @@
 // Rows: x [M, c_in_pad] and v [M, c_views_pad] float32 from global memory;
 // the first `m` rows are real (the host pads M to the TPU tile multiple as
 // the JAX package does; the kernels skip the padded rows, whose outputs the
-// caller slices off). A CTA takes 2 x CH_M = 128 rows: each of two
+// caller slices off). bf16: a CTA takes 2 x CH_M = 128 rows: each of two
 // consumer warpgroups reads its 64 rows into shared memory (rounded to the
 // compute type as they are stored) and runs the Hopper chain of
-// mlp_chain_sm90.cuh on them, every column its own (wgmma products: bf16,
-// or 3xTF32 for the float32 family), while one thread of a third
-// (producer) warpgroup streams one pass of the weights through the TMA ring
-// that both read. The producer warpgroup gives its registers to the
-// consumers (setmaxnreg), whose m64n256 float32 accumulator alone is 128
-// registers a thread. A ragged last tile reads
-// zeros and writes only its real rows.
+// mlp_chain_sm90.cuh on them, every column its own (wgmma products), while
+// one thread of a third (producer) warpgroup streams one pass of the
+// weights through the TMA ring that both read. The producer warpgroup gives
+// its registers to the consumers (setmaxnreg), whose m64n256 accumulator
+// alone is 128 registers a thread. float32 (3xTF32): a CTA takes CH_M = 64
+// rows and each consumer warpgroup half of every layer's columns (the
+// chain's kCols, as K5), since the chain adds its tensor-core partial sums
+// into IEEE float32 sums, and both fit in registers only at 128 columns;
+// the heads' halves meet in shared memory. A ragged last tile reads zeros
+// and writes only its real rows.
 //
 // Bound on the card: operations. Forward 1.19 MFLOP per row at lego width:
 // bf16 at the tensor cores' 989 TFLOP/s; float32 as three TF32 products at
 // 495 TFLOP/s (the CUDA cores' 67 TFLOP/s for one float32 product was the
 // bound of the earlier chain). The weights (4.8 MB split float32, 1.2 MB
-// bf16) come from L2 once per 128 rows.
+// bf16) come from L2 once per CTA: 64 rows (float32), 128 (bf16).
 //
 // K3a is the same body with the compile-time flag MASKED (K1 is the
 // MASKED = false instantiation). K3a replaces `_fwd_kernel_masked`
 // (fused_mlp.py:370, launched :528): the packed march's per-row occupancy
-// bit `valid` [M] (float32 0/1) streams in, a 128-row tile with no valid
+// bit `valid` [M] (float32 0/1) streams in, a tile with no valid
 // row writes exact zeros and skips its chain (one block-uniform
 // __syncthreads_or over the tile's bits), and every other tile stores
 // raw8 * valid. A row's arithmetic does not depend on the other rows of its
@@ -36,19 +39,28 @@
 // valid-first, so at ~5% occupancy ~95% of its tiles skip: K3a's bound is
 // then the bytes of x, v and the bit of all M rows plus raw8, or the
 // operations of the valid rows — whichever is larger.
+#include <type_traits>
+
 #include "mlp_chain_sm90.cuh"
 
 namespace {
 
 using namespace chain;
 
-constexpr int TILE = 2 * CH_M;  // rows per CTA
+// the float32 family splits columns (kCols), bf16 rows
+template <typename CT>
+constexpr bool kColsOf = std::is_same<CT, float>::value;
+// rows per CTA
+template <typename CT>
+constexpr int kTile = kColsOf<CT> ? CH_M : 2 * CH_M;
 
-// shared memory: the activation buffers of TILE rows, then the ring, then
-// its barriers
+// shared memory: the activation buffers of a tile's rows (and, kCols, the
+// heads' two halves: [2][CH_M][4] float32), then the ring, then its
+// barriers
 template <typename CT>
 __host__ __device__ inline size_t fwd_fixed_bytes(const MlpDesc& md) {
-  return (act_bytes<CT>(md, TILE) + 127) / 128 * 128;
+  const size_t heads = kColsOf<CT> ? 2 * CH_M * 4 * sizeof(float) : 0;
+  return (act_bytes<CT>(md, kTile<CT>) + heads + 127) / 128 * 128;
 }
 template <typename CT>
 int fwd_stages(const MlpDesc& md) {
@@ -88,11 +100,15 @@ __global__ void __launch_bounds__(CH_THREADS_WS, 1)
                          float* __restrict__ raw8) {
   using AT = typename Fam<CT>::AT;
   constexpr int pad = Fam<CT>::kPad;
+  constexpr bool kCols = kColsOf<CT>;
+  constexpr int TILE = kTile<CT>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldh = W + pad, ldx = md.c_in_pad + pad, ldv = md.c_views_pad + pad;
   AT* H = reinterpret_cast<AT*>(smem);
   AT* xs = H + TILE * ldh;
   AT* vs = xs + TILE * ldx;
+  // kCols: the heads' column halves [2][CH_M][4]
+  float* hp = reinterpret_cast<float*>(smem + act_bytes<CT>(md, TILE));
   unsigned char* ring_mem = smem + fwd_fixed_bytes<CT>(md);
   Ring ring{reinterpret_cast<uint64_t*>(ring_mem + n_stages * CH_STAGE_BYTES),
             nullptr, smem_u32(ring_mem), n_stages};
@@ -116,36 +132,71 @@ __global__ void __launch_bounds__(CH_THREADS_WS, 1)
     if (tid == CH_CONSUMERS) produce_pass<CT>(md, wmat, ring, pos);
     return;
   }
-  consumer_regs();  // an m64n256 float32 accumulator is 128 registers
+  consumer_regs();  // an m64n256 bf16-family accumulator is 128 registers
   const int wg = tid >> 7;
-  const int r0 = row0 + wg * CH_M;
-  AT* Hw = H + wg * CH_M * ldh;
-  AT* xw = xs + wg * CH_M * ldx;
-  AT* vw = vs + wg * CH_M * ldv;
-  load_rows(xw, ldx, x, md.c_in_pad, r0, m);
-  load_rows(vw, ldv, v, md.c_views_pad, r0, m);
-  warpgroup_sync(wg);
-  const HeadOut ho =
-      chain_forward<CT, W, false>(md, bias, wh, xw, ldx, vw, ldv, Hw, ldh,
-                                  ring, pos);
   const int lane = tid & 31;
-  if ((lane & 3) == 0) {
-    const float ba = __ldg(wh + W * 8 + 3);
-    const float* br = wh + W * 8 + 8 + (W / 2) * 8;
+  const float ba = __ldg(wh + W * 8 + 3);
+  const float* br = wh + W * 8 + 8 + (W / 2) * 8;
+  if constexpr (kCols) {
+    // both warpgroups on the tile's 64 rows, each half of the columns:
+    // one loads x, the other v
+    if (wg == 0)
+      load_rows(xs, ldx, x, md.c_in_pad, row0, m);
+    else
+      load_rows(vs, ldv, v, md.c_views_pad, row0, m);
+    consumers_sync();
+    const HeadOut ho = chain_forward<CT, W, true, true>(
+        md, bias, wh, xs, ldx, vs, ldv, H, ldh, ring, pos);
+    if ((lane & 3) == 0) {
+      float* half = hp + wg * CH_M * 4;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 16 * ((tid >> 5) & 3) + (lane >> 2) + 8 * h;
-      if (row >= m) continue;
-      float o[4] = {ho.rgb[h][0] + __ldg(br), ho.rgb[h][1] + __ldg(br + 1),
-                    ho.rgb[h][2] + __ldg(br + 2), ho.alpha[h] + ba};
-      if (MASKED) {
-        const float bit = valid[row];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) o[c] = o[c] * bit;  // raw8 * valid
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * ((tid >> 5) & 3) + (lane >> 2) + 8 * h;
+        *reinterpret_cast<float4*>(half + row * 4) = make_float4(
+            ho.rgb[h][0], ho.rgb[h][1], ho.rgb[h][2], ho.alpha[h]);
       }
-      float4* dst = reinterpret_cast<float4*>(raw8 + static_cast<size_t>(row) * 8);
-      dst[0] = make_float4(o[0], o[1], o[2], o[3]);
-      dst[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    consumers_sync();
+    // raw8 by (row, column): the halves' sum + the head bias
+    for (int e = tid; e < CH_M * 8; e += CH_CONSUMERS) {
+      const int r = e / 8, c = e & 7;
+      if (row0 + r >= m) break;
+      float o = 0.0f;
+      if (c < 4) {
+        const float hb = c < 3 ? __ldg(br + c) : ba;
+        o = (hp[r * 4 + c] + hp[CH_M * 4 + r * 4 + c]) + hb;
+        if (MASKED) o = o * valid[row0 + r];  // raw8 * valid
+      }
+      raw8[static_cast<size_t>(row0 + r) * 8 + c] = o;
+    }
+  } else {
+    const int r0 = row0 + wg * CH_M;
+    AT* Hw = H + wg * CH_M * ldh;
+    AT* xw = xs + wg * CH_M * ldx;
+    AT* vw = vs + wg * CH_M * ldv;
+    load_rows(xw, ldx, x, md.c_in_pad, r0, m);
+    load_rows(vw, ldv, v, md.c_views_pad, r0, m);
+    warpgroup_sync(wg);
+    const HeadOut ho =
+        chain_forward<CT, W, false, false>(md, bias, wh, xw, ldx, vw, ldv,
+                                           Hw, ldh, ring, pos);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 16 * ((tid >> 5) & 3) + (lane >> 2) + 8 * h;
+        if (row >= m) continue;
+        float o[4] = {ho.rgb[h][0] + __ldg(br), ho.rgb[h][1] + __ldg(br + 1),
+                      ho.rgb[h][2] + __ldg(br + 2), ho.alpha[h] + ba};
+        if (MASKED) {
+          const float bit = valid[row];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[c] = o[c] * bit;  // raw8 * valid
+        }
+        float4* dst =
+            reinterpret_cast<float4*>(raw8 + static_cast<size_t>(row) * 8);
+        dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+        dst[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
   }
 }
@@ -163,7 +214,7 @@ int launch_fwd(const float* x, const float* v, const float* valid, int m,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (m + TILE - 1) / TILE;
+  const int blocks = (m + kTile<CT> - 1) / kTile<CT>;
   kernel<<<blocks, CH_THREADS_WS, smem, stream>>>(
       x, v, valid, m, md, static_cast<const unsigned char*>(wmat), bias, wh,
       ns, raw8);

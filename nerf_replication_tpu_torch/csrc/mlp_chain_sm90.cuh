@@ -14,14 +14,19 @@
 //    (activations) from registers, B (weights) from shared memory, the sum
 //    in registers. Each of two consumer warpgroups issues them for 64 rows.
 //    bf16: m64nNk16. float32: 3xTF32 with m64nNk8, a_lo b_hi + a_hi b_lo +
-//    a_hi b_hi (small terms first) into one accumulator, as K2 does
-//    (fused_mlp_bwd.cu): x = hi + lo with hi = x's low 13 mantissa bits
-//    cleared and lo = x - hi exactly (the tensor core reads lo's TF32
-//    part), ~21 bits a product. Weights are split once, on the host, at
-//    pack time (ops/fused_mlp.pack_for_chain; splitting each staged slice
-//    in shared memory by producer warps halves the L2 stream but measured
-//    slower on the H100); an activation once per element as its A
-//    fragment goes into registers.
+//    a_hi b_hi (small terms first) into one accumulator (K5), or (K1/K3a,
+//    kSums) into a partial sum over kPromote k-steps, then added into an
+//    IEEE float32 sum (the tensor cores' own sums round toward zero;
+//    chain_gemm), which takes a column split (kCols) for the registers of
+//    both: x ~ hi + lo
+//    with hi = x rounded to TF32 to nearest, lo = x - hi (split_tf32
+//    below; the weights' lo rounded too), ~22 unbiased bits an operand.
+//    K2 (fused_mlp_bwd.cu) keeps its truncating split: measured against
+//    float64 it is as close as the plain version. Weights are split once,
+//    on the host, at pack time (ops/fused_mlp.pack_for_chain; splitting
+//    each staged slice in shared memory by producer warps halves the L2
+//    stream but measured slower on the H100); an activation once per
+//    element as its A fragment goes into registers.
 //  * Weights through the TMA engine. Host-packed in exactly the
 //    shared-memory image the products read (below), they stream through a
 //    ring of CH_STAGE_BYTES stages: one producer warp issues one
@@ -35,12 +40,13 @@
 //    last trunk layer and of the view layer) runs from them. One activation
 //    buffer: a warp reads (as A fragments) and writes (from its
 //    accumulator rows) the same 16 rows.
-//  * Two split modes. kCols = false (K1/K3a): each consumer warpgroup owns
-//    64 rows and every column, so a CTA takes 128 rows per weight pass and
-//    the warpgroups never wait for each other. kCols = true (K5, whose
-//    rounds are 64 rows): both warpgroups take the same 64 rows, each half
-//    of every layer's columns; two 256-thread barriers a layer order the
-//    in-place rewrite, and the heads' halves are summed by the caller.
+//  * Two split modes. kCols = false (K1/K3a bf16): each consumer warpgroup
+//    owns 64 rows and every column, so a CTA takes 128 rows per weight pass
+//    and the warpgroups never wait for each other. kCols = true (K5, whose
+//    rounds are 64 rows, and the float32 family of K1/K3a, whose promoted
+//    sums need the registers): both warpgroups take the same 64 rows, each
+//    half of every layer's columns; two 256-thread barriers a layer order
+//    the in-place rewrite, and the heads' halves are summed by the caller.
 //
 // Weight stream (pack_for_chain): for each product of the chain in order —
 // layer 0 (x: K = c_in_pad, N = W); trunk layer i (the skip layer first x,
@@ -72,6 +78,15 @@ constexpr int CH_STAGE_BYTES = 8192;
 constexpr int CH_MIN_STAGES = 4;
 constexpr int CH_MAX_STAGES = 16;
 constexpr int CH_PAD_BYTES = 16;  // per activation row: conflict-free A loads
+// float32: k-steps whose products the tensor cores sum before an IEEE add
+// (4: each 256-long product's 96 tensor-core adds fall to 8 float32 adds
+// plus 12-add partial sums, 1/64 of the truncation bias)
+constexpr int kPromote = 4;
+// float32 IEEE sums: k-steps issued between two waits for the products
+// (every K of the chain is a multiple of 16, two float32 k-steps; 2
+// measured 1.46 ms for K1 at 65,573 rows against 1.82 with 1, and 4, with
+// a guard for a short last group, spilled and ran 1.93)
+constexpr int kGroup = 2;
 
 // per family: the type activations are stored in, k per step, parts per
 // step, padding elements per row
@@ -146,9 +161,22 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr, int N) {
          (static_cast<uint64_t>(128 >> 4) << 32);
 }
 
+// float32 x as TF32, rounded to nearest (ties away from zero, cvt.rna's
+// rule): half a TF32 ulp added to the magnitude bits, the low 13 cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = x rounded to TF32 (to nearest) and lo = x - hi
+// exactly; the tensor core reads lo's TF32 part, truncating it, which is
+// unbiased here since a rounded hi leaves lo of either sign: ~22 bits of x
+// with no sign bias. (A truncated hi made every operand smaller, a bias no
+// dot product cancels and that compounds over the chain's products.)
+// Rounding lo as well (as pack_for_chain does for the weights, for free)
+// measured no closer on a CPU emulation of the chain.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
+  hi = tf32_rna(x);
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
@@ -238,7 +266,9 @@ __device__ __forceinline__ void release_upto(const Ring& r, RingPos& pos,
 // the next product of the stream (K x N). A is in shared memory (type AT,
 // row pitch lda, row 0 = the warpgroup's first row). `accumulate` adds to
 // acc (the skip layer's and the views' second product), else overwrites.
-template <typename CT, int NC>
+// kSums (float32): acc is an IEEE float32 sum of tensor-core partial sums
+// over kPromote k-steps, not the tensor cores' own accumulator.
+template <typename CT, int NC, bool kSums>
 __device__ __forceinline__ void chain_gemm(float (&acc)[NC / 2],
                                            const typename Fam<CT>::AT* A,
                                            int lda, int K, int N, int col0,
@@ -265,42 +295,89 @@ __device__ __forceinline__ void chain_gemm(float (&acc)[NC / 2],
       a[0][3] = *reinterpret_cast<const uint32_t*>(row1 + k0 + 8 + 2 * t);
     }
   };
-  int part = 0;
+  int part_i = 0;
   uint32_t stage = 0;
-  uint32_t cur[kParts][4];
-  for (int k0 = 0; k0 < K; k0 += kStep) {
-    load_a(k0, cur);
-    uint32_t bpart[kParts];
+  // the next part of the stream (its shared address at this warpgroup's
+  // columns), waiting for its stage to arrive
+  auto next_part = [&]() {
+    if (part_i % per == 0) {
+      const int slot = pos.q % r.ns;
+      mbar_wait(&r.full[slot], (pos.q / r.ns) & 1);
+      stage = r.base + slot * CH_STAGE_BYTES;
+      ++pos.q;
+    }
+    const uint32_t addr = stage + (part_i % per) * 32 * N + 16 * col0;
+    ++part_i;
+    return addr;
+  };
+  if constexpr (kSums) {
+    // float32 into IEEE sums: the products of kPromote k-steps into
+    // `part`, which is then added into acc with IEEE float32 adds (the
+    // tensor cores round their own sums toward zero, and 96 such adds into
+    // one accumulator a 256-long product drifted each layer by ~1e-6: K1
+    // sat 1.1-1.4e-5 of max|raw| from float64 on trained weights). A
+    // column split keeps `part` in registers beside acc (NC <= 128), and
+    // kGroup k-steps go out between waits: their A fragments are all
+    // loaded before the first product, so none is rewritten in flight
+    static_assert(kParts == 2 && NC <= 128 && kPromote % kGroup == 0,
+                  "IEEE sums: the float32 family with a column split");
+    float part[NC / 2];
+    bool fresh = !accumulate;
+    for (int k0 = 0; k0 < K; k0 += kGroup * kStep) {
+      uint32_t a[kGroup][kParts][4];
+      uint64_t dh[kGroup], dl[kGroup];
 #pragma unroll
-    for (int p = 0; p < kParts; ++p) {
-      if (part % per == 0) {
-        const int slot = pos.q % r.ns;
-        mbar_wait(&r.full[slot], (pos.q / r.ns) & 1);
-        stage = r.base + slot * CH_STAGE_BYTES;
-        ++pos.q;
+      for (int gi = 0; gi < kGroup; ++gi) {
+        load_a(k0 + gi * kStep, a[gi]);
+        dh[gi] = b_desc(next_part(), N);
+        dl[gi] = b_desc(next_part(), N);
       }
-      bpart[p] = stage + (part % per) * 32 * N + 16 * col0;
-      ++part;
+      const int ps = (k0 / kStep) % kPromote;
+      wgmma_fence();
+#pragma unroll
+      for (int gi = 0; gi < kGroup; ++gi) {  // small terms first
+        wgmma_tf32<NC>(part, a[gi][1], dh[gi], ps + gi == 0 ? 0 : 1);
+        wgmma_tf32<NC>(part, a[gi][0], dl[gi], 1);
+        wgmma_tf32<NC>(part, a[gi][0], dh[gi], 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (ps + kGroup == kPromote || k0 + kGroup * kStep >= K) {
+        fence_regs<NC / 2>(part);
+#pragma unroll
+        for (int i = 0; i < NC / 2; ++i)
+          acc[i] = fresh ? part[i] : __fadd_rn(acc[i], part[i]);
+        fresh = false;
+      }
+      release_upto(r, pos, part_i % per == 0 ? pos.q : pos.q - 1);
     }
-    const int scale = (accumulate || k0 > 0) ? 1 : 0;
-    wgmma_fence();
-    if constexpr (kParts == 2) {  // float32: 3xTF32, small terms first
-      const uint64_t dh = b_desc(bpart[0], N), dl = b_desc(bpart[1], N);
-      wgmma_tf32<NC>(acc, cur[1], dh, scale);
-      wgmma_tf32<NC>(acc, cur[0], dl, 1);
-      wgmma_tf32<NC>(acc, cur[0], dh, 1);
-    } else {  // bf16
-      wgmma_bf16<NC>(acc, cur[0], b_desc(bpart[0], N), scale);
+  } else {
+    uint32_t cur[kParts][4];
+    for (int k0 = 0; k0 < K; k0 += kStep) {
+      load_a(k0, cur);
+      uint32_t bpart[kParts];
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) bpart[p] = next_part();
+      const int scale = (accumulate || k0 > 0) ? 1 : 0;
+      wgmma_fence();
+      if constexpr (kParts == 2) {  // float32: 3xTF32, small terms first
+        const uint64_t dh = b_desc(bpart[0], N), dl = b_desc(bpart[1], N);
+        wgmma_tf32<NC>(acc, cur[1], dh, scale);
+        wgmma_tf32<NC>(acc, cur[0], dl, 1);
+        wgmma_tf32<NC>(acc, cur[0], dh, 1);
+      } else {  // bf16
+        wgmma_bf16<NC>(acc, cur[0], b_desc(bpart[0], N), scale);
+      }
+      wgmma_commit();
+      // retire the products before the next step writes A registers: they
+      // read theirs asynchronously, and the compiler may give the next
+      // fragment the same registers (loading it during the products
+      // measured wrong results)
+      wgmma_wait<0>();
+      // free every stage this warpgroup has read to its end, at once: the
+      // producer refills it while the next steps run
+      release_upto(r, pos, part_i % per == 0 ? pos.q : pos.q - 1);
     }
-    wgmma_commit();
-    // retire the products before the next step writes A registers: they
-    // read theirs asynchronously, and the compiler may give the next
-    // fragment the same registers (loading it during the products measured
-    // wrong results)
-    wgmma_wait<0>();
-    // free every stage this warpgroup has read to its end, at once: the
-    // producer refills it while the next steps run
-    release_upto(r, pos, part % per == 0 ? pos.q : pos.q - 1);
   }
   fence_regs<NC / 2>(acc);
   release_upto(r, pos, pos.q);
@@ -370,14 +447,14 @@ struct HeadOut {
 };
 
 // The whole MLP on 64 rows per consumer warpgroup (kCols: the same 64 rows
-// for both, each half the columns). xs [.., c_in_pad] / vs [.., c_views_pad]
+// for both, each half the columns); kSums as chain_gemm's. xs [.., c_in_pad] / vs [.., c_views_pad]
 // / H [.., W] in shared memory as AT (pitches ldx / ldv / ldh, row 0 = the
 // warpgroup's first row), written before the call and visible to the
 // warpgroup (kCols: to both); `bias` every bias of the stream order as
 // float32 (rounded to CT), `wh` the float32 heads [Wa (W x 8), ba (8), Wr
 // (W/2 x 8), br (8)]. Consumer threads (< CH_CONSUMERS) call it while the
 // producer warp runs produce_pass.
-template <typename CT, int W, bool kCols>
+template <typename CT, int W, bool kCols, bool kSums>
 __device__ HeadOut chain_forward(const MlpDesc& md,
                                  const float* __restrict__ bias,
                                  const float* __restrict__ wh,
@@ -399,7 +476,7 @@ __device__ HeadOut chain_forward(const MlpDesc& md,
   HeadOut out;
   float hs[2][3];
   float acc[NC / 2];
-  chain_gemm<CT, NC>(acc, xs, ldx, cin, W, col0, false, r, pos);
+  chain_gemm<CT, NC, kSums>(acc, xs, ldx, cin, W, col0, false, r, pos);
   using AT = typename Fam<CT>::AT;
   reads_done();
   if (md.D == 1) {  // layer 0 is the last trunk layer
@@ -413,10 +490,10 @@ __device__ HeadOut chain_forward(const MlpDesc& md,
   const float* b = bias + W;
   for (int i = 1; i < md.D; ++i) {
     if (i == md.skip + 1) {
-      chain_gemm<CT, NC>(acc, xs, ldx, cin, W, col0, false, r, pos);
-      chain_gemm<CT, NC>(acc, H, ldh, W, W, col0, true, r, pos);
+      chain_gemm<CT, NC, kSums>(acc, xs, ldx, cin, W, col0, false, r, pos);
+      chain_gemm<CT, NC, kSums>(acc, H, ldh, W, W, col0, true, r, pos);
     } else {
-      chain_gemm<CT, NC>(acc, H, ldh, W, W, col0, false, r, pos);
+      chain_gemm<CT, NC, kSums>(acc, H, ldh, W, W, col0, false, r, pos);
     }
     reads_done();
     if (i == md.D - 1) {  // the last trunk output feeds the alpha head
@@ -430,15 +507,16 @@ __device__ HeadOut chain_forward(const MlpDesc& md,
     reads_done();
   }
   // the feature (no activation), in place
-  chain_gemm<CT, NC>(acc, H, ldh, W, W, col0, false, r, pos);
+  chain_gemm<CT, NC, kSums>(acc, H, ldh, W, W, col0, false, r, pos);
   reads_done();
   epilogue<AT, NC, 0>(acc, b, col0, false, true, H, ldh, nullptr, 0, hs);
   b += W;
   reads_done();
   // the views: relu(f @ Wvf + v @ Wvv + bv), into the rgb head only
   float accv[NV / 2];
-  chain_gemm<CT, NV>(accv, H, ldh, W, W2, colv0, false, r, pos);
-  chain_gemm<CT, NV>(accv, vs, ldv, md.c_views_pad, W2, colv0, true, r, pos);
+  chain_gemm<CT, NV, kSums>(accv, H, ldh, W, W2, colv0, false, r, pos);
+  chain_gemm<CT, NV, kSums>(accv, vs, ldv, md.c_views_pad, W2, colv0, true,
+                            r, pos);
   epilogue<AT, NV, 3>(accv, b, colv0, true, false, H, ldh, wh + W * 8 + 8,
                       0, out.rgb);
   return out;

@@ -3,10 +3,13 @@
 
 The JAX package folds its base key with the step (and process index) and
 draws each batch inside the jitted step. The port's counterpart of the key
-fold is :func:`step_generator`: a ``torch.Generator`` on the device whose
-seed is a hash of ``(seed, step, process_index)``, made fresh for every
-step. A run resumed at step ``s`` therefore draws the same batches (and the
-same stratified and importance-sampling noise, which come from the same
+fold is a ``torch.Generator`` on the device seeded with a hash of ``(seed,
+step, process_index)`` before every step: :func:`step_generator` makes one,
+:func:`reseed` reseeds the one a trainer keeps (a captured step draws from
+the generator registered with its CUDA graph, which cannot make or seed
+one; reseeded before each replay it draws what a fresh generator draws). A
+run resumed at step ``s`` therefore draws the same batches (and the same
+stratified and importance-sampling noise, which come from the same
 generator in a fixed order) as an uninterrupted run does at step ``s``.
 torch's Philox numbers are not JAX's threefry numbers: the two packages draw
 different batches from the same seed.
@@ -29,7 +32,13 @@ def step_seed(seed: int, step: int, process_index: int = 0) -> int:
 def step_generator(seed: int, step: int, device,
                    process_index: int = 0) -> torch.Generator:
     """The per-step random stream (the ``sample_step_key`` counterpart)."""
-    gen = torch.Generator(device=device)
+    return reseed(torch.Generator(device=device), seed, step, process_index)
+
+
+def reseed(gen: torch.Generator, seed: int, step: int,
+           process_index: int = 0) -> torch.Generator:
+    """``gen`` reset to step ``step``'s stream (what
+    :func:`step_generator` would make); returns it."""
     gen.manual_seed(step_seed(seed, step, process_index))
     return gen
 

@@ -28,6 +28,7 @@ class FrequencyEncoder:
         else:
             bands = np.linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs)
         self.freq_bands = np.asarray(bands, np.float32)
+        self._bands: dict = {}  # device -> the bands there
         if self.n_freqs <= 0:
             self.out_dim = self.input_dim
         else:
@@ -35,10 +36,18 @@ class FrequencyEncoder:
                 2 * self.n_freqs + (1 if include_input else 0)
             )
 
+    def _bands_on(self, device) -> torch.Tensor:
+        """The bands as a tensor on ``device``, copied there once (a
+        captured step reads the copy; it cannot make one)."""
+        if device not in self._bands:
+            self._bands[device] = torch.as_tensor(self.freq_bands,
+                                                  device=device)
+        return self._bands[device]
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.n_freqs <= 0:
             return x
-        bands = torch.as_tensor(self.freq_bands, device=x.device)
+        bands = self._bands_on(x.device)
         xb = x[..., None, :] * bands[:, None]  # [..., L, d]
         enc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)
         enc = enc.reshape(*x.shape[:-1], 2 * self.n_freqs * x.shape[-1])

@@ -182,11 +182,11 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
     dev = rays.device
     o, d = rays[:, 0:3], rays[:, 3:6]
     b = rays.shape[0]
-    near = torch.tensor(st.near, dtype=f32, device=dev)
-    far = torch.tensor(st.far, dtype=f32, device=dev)
+    near = torch.full((), st.near, dtype=f32, device=dev)
+    far = torch.full((), st.far, dtype=f32, device=dev)
 
     if st.clip:
-        tiny = torch.tensor(1e-12, dtype=f32, device=dev)
+        tiny = torch.full((), 1e-12, dtype=f32, device=dev)
         inv = 1.0 / torch.where(d.abs() < tiny, tiny, d)
         t_lo = (bbox[0] - o) * inv
         t_hi = (bbox[1] - o) * inv
@@ -196,11 +196,12 @@ def dda_block_plain(st: FusedStatics, rays: torch.Tensor,
         t1 = torch.maximum(torch.minimum(torch.maximum(tmax, near), far), t0)
         # XLA evaluates (t1 - t0) / S as a product with the float32
         # reciprocal of S; so do the port and its kernels
-        inv_s = 1.0 / torch.tensor(float(st.n_steps), dtype=f32, device=dev)
+        inv_s = 1.0 / torch.full((), float(st.n_steps), dtype=f32,
+                                 device=dev)
         step_r = (t1 - t0) * inv_s
     else:
         t0 = near.expand(b)
-        step_r = torch.tensor(st.step, dtype=f32, device=dev).expand(b)
+        step_r = torch.full((), st.step, dtype=f32, device=dev).expand(b)
 
     s_pad = st.s_c * st.r
     s_idx = torch.arange(s_pad, dtype=f32, device=dev)

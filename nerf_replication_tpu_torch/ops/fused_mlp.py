@@ -11,10 +11,11 @@ Two TPU kernels become hand-written CUDA kernels, each beside a plain
 PyTorch version of the same function:
 
 * **K1**, :func:`mlp_forward` (replaces ``_fwd_kernel``, fused_mlp.py:339;
-  ``csrc/fused_mlp.cu``): the whole MLP per 128-row tile on the Hopper chain
-  of ``csrc/mlp_chain_sm90.cuh`` (wgmma products, bf16 or 3xTF32; weights
-  through a TMA ring in :func:`pack_for_chain`'s image), writing only
-  ``raw8 [M, 8]``; plain version :func:`forward_tile`.
+  ``csrc/fused_mlp.cu``): the whole MLP per tile of rows (128 bf16, 64
+  float32) on the Hopper chain of ``csrc/mlp_chain_sm90.cuh`` (wgmma
+  products, bf16 or 3xTF32 into IEEE float32 sums; weights through a TMA
+  ring in :func:`pack_for_chain`'s image), writing only ``raw8 [M, 8]``;
+  plain version :func:`forward_tile`.
 * **K2**, :func:`mlp_backward` (replaces ``_bwd_kernel``, fused_mlp.py:348;
   ``csrc/fused_mlp_bwd.cu``): two kernels and an ordered reduce. **K2a**
   recomputes the forward per 64-row tile, runs the dX chain and writes
@@ -205,11 +206,21 @@ def pack_for_kernel(spec: FusedSpec, flat: list[torch.Tensor]):
     return stream, heads
 
 
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32, to nearest with ties away from zero
+    (``cvt.rna``; the chain's ``tf32_rna``): half a TF32 ulp added to the
+    magnitude bits, the low 13 mantissa bits cleared."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 4096) & -8192).view(torch.float32)
+
+
 def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 ``t = hi + lo`` exactly: ``hi`` is ``t`` with its low 13
-    mantissa bits cleared (a TF32 value), ``lo = t - hi``."""
-    hi = (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
-    return hi, t - hi
+    """float32 ``t ~ hi + lo`` with ``hi`` and ``lo`` TF32 values, each
+    rounded to nearest (CUTLASS's 3xTF32 split; the chain's device
+    ``split_tf32`` bit for bit): ``|t - hi - lo| <= 2^-22 |t|`` without a
+    sign bias. The tensor core reads a TF32 operand as it is."""
+    hi = tf32_rna(t)
+    return hi, tf32_rna(t - hi)
 
 
 # (geometry, compute dtype, device) -> (gather index, low-part flag) of the

@@ -2,10 +2,14 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), loaded
-through ``ctypes``. Libraries land in ``<repo>/build/torch_kernels/`` under a
-name that carries a hash of the sources and flags, so an edited source never
-loads a stale build. :func:`build_all` starts one ``nvcc`` per source at
-once; :func:`load` builds on first use. Nothing here runs at import time.
+through ``ctypes``. Libraries land in ``compile.artifacts.
+default_artifact_dir()`` (``<repo>/build/torch_kernels/``) under the key of
+``compile.artifacts.artifact_key`` (sources, flags, torch and CUDA versions,
+the card's compute capability), so an edited source or another toolchain
+never loads a stale build. :func:`build_all` starts one ``nvcc`` per source
+at once; :func:`load` builds on first use; ``builds`` counts the ``nvcc``
+runs this process started (0 in a process that found every library on
+disk). Nothing here runs at import time.
 
 No ``--use_fast_math``: the kernels use IEEE ``sinf``/``cosf``/``expf`` and
 division. The voxel-id arithmetic further spells out every rounding with
@@ -15,15 +19,16 @@ division. The voxel-id arithmetic further spells out every rounding with
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
 import threading
 
+from ..compile.artifacts import artifact_key, artifact_path, default_artifact_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+BUILD_DIR = default_artifact_dir()
 
 SOURCES = {
     "fused_dda": "fused_dda.cu",
@@ -111,6 +116,7 @@ def _raise_on(lib, err: int, what: str) -> None:
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
+builds = 0  # nvcc runs started by this process
 
 
 def nvcc_path() -> str:
@@ -128,18 +134,18 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (SOURCES[name],) + HEADERS:
-        with open(os.path.join(CSRC, fname), "rb") as fh:
-            h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    key = artifact_key(name, [os.path.join(CSRC, f)
+                              for f in (SOURCES[name],) + HEADERS])
+    return artifact_path(BUILD_DIR, key)
 
 
 def _start(name: str):
+    global builds
     out = _lib_path(name)
     if os.path.exists(out):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
+    builds += 1
     tmp = f"{out}.tmp.{os.getpid()}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC, SOURCES[name])]

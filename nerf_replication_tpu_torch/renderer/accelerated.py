@@ -25,7 +25,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from ..utils.numerics import norm3_rn
+from ..utils.numerics import cumprod, norm3_rn
 from .occupancy import world_to_voxel
 
 
@@ -230,9 +230,9 @@ def march_rays_accelerated(apply_fn, rays: torch.Tensor, near: float,
 
     # transmittance BEFORE each sample; zero weight once it has fallen
     # below the threshold (early ray termination)
-    trans = torch.cumprod(
+    trans = cumprod(
         torch.cat([torch.ones((n_rays, 1), dtype=f32, device=rays.device),
-                   1.0 - alpha], -1), -1)[..., :-1]
+                   1.0 - alpha], -1))[..., :-1]
     weights = trans * alpha * (trans >= options.transmittance_threshold)
 
     rgb_map = torch.sum(weights[..., None] * rgb, -2)

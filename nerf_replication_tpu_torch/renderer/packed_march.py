@@ -55,7 +55,7 @@ from .occupancy import PYRAMID_FACTORS, coarse_from_grid, world_to_voxel
 def _ray_bbox_spans(rays_o, rays_d, bbox, near, far):
     """Per-ray ``(t0, t1)`` of the bbox intersection clipped to [near, far]
     (slab method); rays missing the bbox come back with t1 == t0."""
-    tiny = torch.tensor(1e-12, dtype=torch.float32, device=rays_d.device)
+    tiny = torch.full((), 1e-12, dtype=torch.float32, device=rays_d.device)
     inv = 1.0 / torch.where(rays_d.abs() < tiny, tiny, rays_d)
     t_lo = (bbox[0] - rays_o) * inv
     t_hi = (bbox[1] - rays_o) * inv
@@ -245,8 +245,8 @@ def _composite_stream(apply_fn, rays_o, rays_d, occupied, t_cand, dist_cand,
         ),
         # traversal telemetry: rows entering the compaction and occupied
         # rows surviving admission
-        "march_candidates": torch.tensor(float(total), dtype=f32,
-                                         device=occupied.device),
+        "march_candidates": torch.full((), float(total), dtype=f32,
+                                       device=occupied.device),
         "march_samples_out": n_total_occ.to(f32),
     }
     aux = {"order": order, "valid": valid, "sigma": sigma}
@@ -274,7 +274,8 @@ def march_rays_packed(apply_fn, rays: torch.Tensor, near: float, far: float,
         t0, t1 = _ray_bbox_spans(rays_o, rays_d, bbox, near, far)
         # XLA evaluates (t1 - t0) / S as a product with the float32
         # reciprocal of S; so does the port
-        inv_s = 1.0 / torch.tensor(float(n_est), dtype=f32, device=rays.device)
+        inv_s = 1.0 / torch.full((), float(n_est), dtype=f32,
+                                 device=rays.device)
         step_r = (t1 - t0) * inv_s
         spans = (t0, step_r)
     else:
@@ -291,7 +292,7 @@ def march_rays_packed(apply_fn, rays: torch.Tensor, near: float, far: float,
         ts, flat_vox, occupied, _ = occupancy_sweep(
             rays, near, far, grid, bbox, step, spans=spans)
         t_cand = ts.expand(occupied.shape)
-        block_frac = torch.tensor(1.0, dtype=f32, device=rays.device)
+        block_frac = torch.full((), 1.0, dtype=f32, device=rays.device)
     d_norm = norm3_rn(rays_d)
     dist_ray = (step_r if options.clip_bbox else step) * d_norm  # [N]
     dist_cand = dist_ray[:, None].expand(occupied.shape)

@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..utils.numerics import norm3_rn
+from ..utils.numerics import cumprod, norm3_rn
 
 
 @dataclass(frozen=True)
@@ -120,9 +120,8 @@ def weights_from_sigma(sigma: torch.Tensor, z_vals: torch.Tensor,
     dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
     dists = dists * norm3_rn(rays_d)[..., None]
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    trans = torch.cumprod(
+    trans = cumprod(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1),
-        -1,
     )[..., :-1]
     return alpha * trans
 

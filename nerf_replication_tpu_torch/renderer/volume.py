@@ -45,7 +45,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..utils.numerics import norm3_rn
+from ..utils.numerics import cumprod, norm3_rn
+from ..utils.platform import device_scalar
 from .sampling import SamplingOptions, proposal_render_rays
 
 
@@ -104,8 +105,8 @@ def stratified_z_vals(gen: torch.Generator | None, near, far, n_rays: int,
     per-bin uniform jitter when perturb > 0 and a generator is given."""
     f32 = torch.float32
     t = torch.linspace(0.0, 1.0, n_samples, dtype=f32, device=device)
-    near = torch.as_tensor(near, dtype=f32, device=device)
-    far = torch.as_tensor(far, dtype=f32, device=device)
+    near = device_scalar(near, f32, device)
+    far = device_scalar(far, f32, device)
     if lindisp:
         z = 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
     else:
@@ -141,9 +142,8 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor,
     sigma = torch.relu(sigma_raw)
 
     alpha = 1.0 - torch.exp(-sigma * dists)
-    trans = torch.cumprod(
+    trans = cumprod(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1),
-        -1,
     )[..., :-1]
     weights = alpha * trans
 

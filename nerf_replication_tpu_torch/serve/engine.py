@@ -35,12 +35,21 @@ Without a grid (``accelerated_renderer: false``, or a grid file that is
 missing or unusable) every family renders through the chunked volume
 renderer (``renderer/volume.render_rays``) in ``chunk_size``-ray chunks.
 The staged and grid-less routes run the plain Network, as the JAX engine's
-do (its fused MLP is the one-shot surfaces' option, not the engine's). Mesh,
-fleet, AOT and tracing are not ported.
+do (its fused MLP is the one-shot surfaces' option, not the engine's).
+
+CUDA graphs (``compile.aot``, the JAX engine's AOT registry): on the card
+:meth:`RenderEngine.warm_up` captures one graph per (bucket, family) route
+(``compile/registry.py``) and a request replays it: the padded rays are
+copied into the entry's static input, and the static outputs are copied to
+the host under the engine's lock before another dispatch may replay. The
+``gather`` route stays eager: it compacts the valid slots with
+``torch.nonzero``, a data-dependent shape. Mesh, fleet and tracing are not
+ported.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, replace
 
@@ -89,8 +98,9 @@ def _normalize_buckets(buckets, chunk: int) -> tuple[int, ...]:
 
 
 class RenderEngine:
-    """Checkpoint-resident render server core (single caller; the
-    MicroBatcher's worker thread owns concurrent dispatch)."""
+    """Checkpoint-resident render server core (the MicroBatcher's worker
+    thread and direct ``render_*`` calls may share it: a lock orders the
+    dispatches)."""
 
     def __init__(self, cfg, network, near, far, grid=None, bbox=None,
                  device="cuda", warmup_families: tuple[str, ...] | None = None):
@@ -127,6 +137,15 @@ class RenderEngine:
             decimals=self.options.pose_decimals,
         )
         self._fns: dict[tuple[int, str], object] = {}
+        # CUDA graphs of the routes (None: compile.aot off; disabled on the
+        # CPU); a replay's outputs are static buffers, so one dispatch at a
+        # time replays and copies them out
+        from ..compile import registry_from_cfg
+
+        self.aot = registry_from_cfg(cfg, self.device)
+        self._captured: dict[tuple[int, str], object] = {}
+        self._lock = threading.Lock()
+        self.warm_source = "compiled"
         self.n_requests = 0
         self.n_rays_rendered = 0
         self.n_pad_rays = 0
@@ -262,10 +281,21 @@ class RenderEngine:
             self._fns[key] = fn
         return fn
 
+    def _fn_name(self, bucket: int, family: str) -> str:
+        """The registry's name of one route (the JAX engine's)."""
+        return f"serve/{family}/b{bucket}"
+
+    def _capturable(self, family: str) -> bool:
+        """Every route but ``gather`` (its ``nonzero`` compaction)."""
+        return not (self.use_grid and family != "proposal"
+                    and self.march_options.march_fused == "gather")
+
     def warm_up(self, families: tuple[str, ...] | None = None) -> int:
         """Build every (bucket, family) route and run it once on an
         all-zero bucket (zero rays are inert padding). Builds the kernels on
-        first use and packs each family's weights; returns the dispatches."""
+        first use and packs each family's weights; with a registry on the
+        card, then captures every route but ``gather`` (JAX
+        ``engine.py:462``). Returns the dispatches."""
         if families is None:
             families = self._families_for_params()
         t0 = time.perf_counter()
@@ -274,28 +304,59 @@ class RenderEngine:
             for family in families:
                 self._render_bucket(zeros, bucket, family, warm=True)
                 self.warmup_dispatches += 1
+        if self.aot is not None and self.aot.enabled:
+            names = {}
+            for bucket in self.buckets:
+                for family in families:
+                    if not self._capturable(family):
+                        continue
+                    names[(bucket, family)] = name = self._fn_name(bucket,
+                                                                   family)
+                    static = torch.zeros((bucket, 6), dtype=torch.float32,
+                                         device=self.device)
+                    self.aot.register(name, self._inference(bucket, family),
+                                      (static,))
+            self.aot.compile_all()
+            for key, name in names.items():
+                fn = self.aot.take(name)
+                if fn is not None:  # a failed capture stays eager
+                    self._captured[key] = fn
+            self.warm_source = self.aot.warm_source()
         self.warmup_wall_s += time.perf_counter() - t0
         return self.warmup_dispatches
+
+    def _inference(self, bucket: int, family: str):
+        fn = self._get_fn(bucket, family)
+
+        def route(rays):
+            with torch.inference_mode():
+                return fn(rays)
+
+        return route
 
     # -- rendering -----------------------------------------------------------
 
     def _dispatch(self, rays_b: np.ndarray, bucket: int, family: str) -> dict:
-        """One route call on exactly ``bucket`` rays (already padded)."""
-        rays_t = torch.from_numpy(np.ascontiguousarray(rays_b)).to(
-            self.device)
+        """One route call on exactly ``bucket`` rays (already padded): the
+        captured route's replay (its static outputs), else the route."""
+        rays_h = torch.from_numpy(np.ascontiguousarray(rays_b))
+        captured = self._captured.get((bucket, family))
+        if captured is not None:
+            return captured(rays_h)
         with torch.inference_mode():
-            return self._get_fn(bucket, family)(rays_t)
+            return self._get_fn(bucket, family)(rays_h.to(self.device))
 
     def _render_bucket(self, rays: np.ndarray, bucket: int, family: str,
                        warm: bool = False) -> dict:
         n = rays.shape[0]
         rays_b = np.pad(rays, ((0, bucket - n), (0, 0)))
-        out = dict(self._dispatch(rays_b, bucket, family))
-        # per-chunk traversal stats (the packed and fused routes only)
-        stats = {k: out.pop(k).cpu().numpy() for k in (
-            "march_candidates", "march_samples_out", "march_coarse_occ",
-            "overflow_frac") if k in out}
-        out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
+        with self._lock:  # a replay's outputs live until the next replay
+            out = dict(self._dispatch(rays_b, bucket, family))
+            # per-chunk traversal stats (the packed and fused routes only)
+            stats = {k: out.pop(k).cpu().numpy() for k in (
+                "march_candidates", "march_samples_out", "march_coarse_occ",
+                "overflow_frac") if k in out}
+            out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
         trunc = out.pop("truncated", None)
         if not warm:
             if stats:
@@ -437,6 +498,14 @@ class RenderEngine:
             "n_truncated": self.n_truncated,
             "warmup_dispatches": self.warmup_dispatches,
             "warmup_wall_s": round(self.warmup_wall_s, 3),
+            # where the kernels came from ("disk": this process ran no
+            # nvcc), the graphs captured (constant after warm-up) and the
+            # registry's summary (None: compile.aot off)
+            "warm_source": self.warm_source,
+            "captures": 0 if self.aot is None else self.aot.captures,
+            "compile": None if self.aot is None else self.aot.summary(),
+            "captured_routes": sorted(
+                self._fn_name(b, f) for b, f in self._captured),
             "cache": self.cache.stats(),
         }
 

@@ -1,5 +1,5 @@
 """How far the fused MLP forward (K1, and its plain version) lands from the
-same function in float64.
+same function in float64, and the backward (K2) from its float64 gradients.
 
 ``raw_f64`` evaluates the fused MLP's flat weight list in float64 (the
 order of ``ops.fused_mlp._forward_acts``, every operand widened), so the
@@ -57,3 +57,38 @@ def forward_errors(spec, x: torch.Tensor, v: torch.Tensor,
         "plain_rel_f64": float((plain - exact).abs().max())
         / max(scale, 1e-30),
     }
+
+
+def backward_errors(spec, x: torch.Tensor, v: torch.Tensor,
+                    draw: torch.Tensor, flat: list[torch.Tensor],
+                    m: int) -> dict:
+    """K2 (``mlp_backward``) and the plain version (``backward_tile``)
+    against the float64 gradients of :func:`raw_f64` under the cotangent
+    ``draw [M, 8]`` on the first ``m`` rows: dx as max |error| over
+    max |dx|, the weight gradients as the largest relative Frobenius error
+    of any tensor."""
+    from ..ops import fused_mlp as fmlp
+
+    d = torch.float64
+    xs = x[:m].to(d).requires_grad_(True)
+    ws = [w.detach().to(d).requires_grad_(True) for w in flat]
+    with torch.enable_grad():
+        raw = raw_f64(spec, xs, v[:m], ws)
+        exact = torch.autograd.grad((raw * draw[:m].to(d)).sum(),
+                                    [xs, *ws])
+    with torch.no_grad():
+        dx_k2, _, g_k2 = fmlp.mlp_backward(spec, x, v, draw, flat, m)
+        dx_pl, _, g_pl = fmlp.backward_tile(spec, x[:m], v[:m], draw[:m],
+                                            flat)
+
+    def dx_rel(got):
+        return float((got[:m].double() - exact[0]).abs().max()) / max(
+            float(exact[0].abs().max()), 1e-30)
+
+    def dw_fro(got):
+        return max(float(torch.linalg.vector_norm(g.double() - e))
+                   / max(float(torch.linalg.vector_norm(e)), 1e-30)
+                   for g, e in zip(got, exact[1:]))
+
+    return {"k2_dx_rel_f64": dx_rel(dx_k2), "plain_dx_rel_f64": dx_rel(dx_pl),
+            "k2_dw_fro_f64": dw_fro(g_k2), "plain_dw_fro_f64": dw_fro(g_pl)}

@@ -36,8 +36,17 @@ march phase runs over a 64³ ball grid that fills ~5% of the volume, the
 occupancy of a carved lego grid (random weights). Kernel time adds K6
 (``hash_fwd_kernel``) and K6b (``hash_bwd_table_kernel``) categories.
 
-Prints one JSON line per configuration and the nvidia-smi name/power line;
-``--out PATH`` also writes the lines (each with that line) to a JSONL file.
+Each configuration runs twice (``"mode"``): ``eager``, split by parts as
+above, and ``graphed``, the step captured as a CUDA graph
+(``compile/registry.py``; ``Trainer.step`` / ``NGPTrainer._one_step``
+replaying it after their host part), timed as one part, since a replay
+cannot be split. Both rows carry the step ms, the idle share, the kernels a
+step and the peak memory (``torch.cuda.max_memory_allocated`` from a reset
+before the configuration's state is made).
+
+Prints one JSON line per configuration and mode and the nvidia-smi
+name/power line; ``--out PATH`` also writes the lines (each with that line)
+to a JSONL file.
 """
 
 from __future__ import annotations
@@ -157,15 +166,30 @@ def _device_profile(torch, step, steps, n_parts):
     }
 
 
-def profile_ngp(torch, label, cfg, phase, steps, warmup):
-    """One NGP configuration in one phase (``warm`` or ``march``);
-    ``occupancy`` is the grid's after the measured steps."""
+def _graphs(torch, trainer, state, bank):
+    """Install a registry on ``trainer`` and capture its steps; raises on
+    a capture error."""
+    from ..compile import AOTRegistry
+
+    trainer.aot = AOTRegistry(device=bank[0].device)
+    trainer.aot_register_steps(state, bank)
+    status = trainer.aot.status()
+    if status["errors"] or not status["captures"]:
+        raise RuntimeError(f"step capture failed: {status}")
+    return status
+
+
+def profile_ngp(torch, label, cfg, phase, steps, warmup, graphed=False):
+    """One NGP configuration in one phase (``warm`` or ``march``), eager
+    (split by parts) or ``graphed``; ``occupancy`` is the grid's after the
+    measured steps."""
     from ..datasets import make_dataset
     from ..models import make_network
     from ..train.ngp import NGPTrainer
     from .slice_inputs import ball_grid
 
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
     trainer = NGPTrainer(cfg, make_network(cfg))
     state = trainer.make_state(dev)
     bank = [torch.from_numpy(a).to(dev)
@@ -173,26 +197,76 @@ def profile_ngp(torch, label, cfg, phase, steps, warmup):
     warm = phase == "warm"
     if not warm:
         ball = torch.from_numpy(ball_grid(trainer.grid_res)).to(dev)
-        state.grid_ema = ball.to(torch.float32) * (
-            trainer.warm_factor * trainer.threshold)
+        state.grid_ema.copy_(ball.to(torch.float32) * (
+            trainer.warm_factor * trainer.threshold))
+    if graphed:
+        _graphs(torch, trainer, state, bank)
 
     def step(events):
+        if graphed:
+            if events:
+                events[0].record()
+            trainer._one_step(state, bank[0], bank[1], warm)
+            if events:
+                events[1].record()
+            return
         mark = (lambda i: events[i].record()) if events else None
         trainer._one_step(state, bank[0], bank[1], warm, mark=mark)
 
     for _ in range(warmup):
         step(None)
-    row = _device_profile(torch, step, steps, 4)
-    parts = dict(zip(("forward", "backward", "optimizer", "grid_update"),
-                     row.pop("parts_ms")))
+    row = _device_profile(torch, step, steps, 1 if graphed else 4)
+    names = ("step",) if graphed else ("forward", "backward", "optimizer",
+                                       "grid_update")
+    parts = dict(zip(names, row.pop("parts_ms")))
     n_rays = int(cfg.task_arg.N_rays)
-    return {"config": label, "phase": phase, "n_rays": n_rays,
+    return {"config": label, "mode": "graphed" if graphed else "eager",
+            "phase": phase, "n_rays": n_rays,
             "dtype": str(cfg.precision.compute_dtype),
             "occupancy": float((state.grid_ema > trainer.threshold).float()
                                .mean()),
             "grid_res": trainer.grid_res,
             "rays_per_s": n_rays / row["step_ms_events"] * 1e3,
+            "max_memory_allocated_mb":
+                torch.cuda.max_memory_allocated(dev) / 2**20,
             "phase_ms": parts, **row}
+
+
+def profile_graphed(torch, label, cfg, steps, warmup):
+    """``Trainer.step`` replaying its captured step, timed as one part."""
+    from ..datasets import make_dataset
+    from ..models import make_network
+    from ..registry import load_attr
+    from ..train.trainer import Trainer, make_train_state
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    network = make_network(cfg)
+    trainer = Trainer(cfg, network,
+                      load_attr(cfg.loss_module, "make_loss")(cfg, network))
+    state = make_train_state(cfg, network, dev)
+    bank = [torch.from_numpy(a).to(dev)
+            for a in make_dataset(cfg, "train").ray_bank()]
+    _graphs(torch, trainer, state, bank)
+
+    def step(events=None):
+        if events:
+            events[0].record()
+        trainer.step(state, bank[0], bank[1])
+        if events:
+            events[1].record()
+
+    for _ in range(warmup):
+        step()
+    row = _device_profile(torch, step, steps, 1)
+    n_rays = int(cfg.task_arg.N_rays)
+    return {"config": label, "mode": "graphed", "n_rays": n_rays,
+            "dtype": str(cfg.precision.compute_dtype),
+            "fused_trunk": bool(cfg.network.nerf.get("fused_trunk", False)),
+            "rays_per_s": n_rays / row["step_ms_events"] * 1e3,
+            "max_memory_allocated_mb":
+                torch.cuda.max_memory_allocated(dev) / 2**20,
+            "phase_ms": {"step": row.pop("parts_ms")[0]}, **row}
 
 
 def profile(torch, label, cfg, steps, warmup):
@@ -204,6 +278,7 @@ def profile(torch, label, cfg, steps, warmup):
     from ..train.trainer import make_train_state
 
     dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
     network = make_network(cfg)
     loss = load_attr(cfg.loss_module, "make_loss")(cfg, network)
     state = make_train_state(cfg, network, dev)
@@ -240,11 +315,38 @@ def profile(torch, label, cfg, steps, warmup):
     row = _device_profile(torch, step, steps, 3)
     phases = dict(zip(("forward", "backward", "optimizer"),
                       row.pop("parts_ms")))
-    return {"config": label, "n_rays": n_rays,
+    return {"config": label, "mode": "eager", "n_rays": n_rays,
             "dtype": str(cfg.precision.compute_dtype),
             "fused_trunk": bool(cfg.network.nerf.get("fused_trunk", False)),
             "rays_per_s": n_rays / row["step_ms_events"] * 1e3,
+            "max_memory_allocated_mb":
+                torch.cuda.max_memory_allocated(dev) / 2**20,
             "phase_ms": phases, **row}
+
+
+def profile_config(torch, label, data, tmp, graphed, steps, warmup):
+    """The row of configuration ``label`` (``CONFIGS``, ``NGP_CONFIGS``)
+    on the 200x200 procedural scene in ``data``, eager or ``graphed``."""
+    from ..config import make_cfg
+
+    opts = ["scene", "procedural", "train_dataset.data_root", data,
+            "test_dataset.data_root", data, "train_dataset.H", "200",
+            "train_dataset.W", "200", "test_dataset.H", "200",
+            "test_dataset.W", "200", "network.nerf.fused_tile", "512",
+            "task_arg.precrop_iters", "0",
+            "trained_model_dir", os.path.join(tmp, "m"),
+            "record_dir", os.path.join(tmp, "r")]
+    if label in NGP_CONFIGS:
+        name, phase, extra = NGP_CONFIGS[label]
+        cfg = make_cfg(os.path.join(REPO, "configs", "nerf", name),
+                       opts + extra)
+        return profile_ngp(torch, label, cfg, phase, steps, warmup, graphed)
+    name = ("lego_proposal.yaml" if label.startswith("proposal_")
+            else "lego.yaml")
+    cfg = make_cfg(os.path.join(REPO, "configs", "nerf", name),
+                   opts + CONFIGS[label])
+    return (profile_graphed if graphed else profile)(torch, label, cfg,
+                                                     steps, warmup)
 
 
 def main(argv=None) -> int:
@@ -260,7 +362,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 2
-    from ..config import make_cfg
     from ..datasets.procedural import generate_scene
     from ..ops import kernels
     from ..utils.platform import resolve_device
@@ -273,27 +374,11 @@ def main(argv=None) -> int:
         generate_scene(data, "procedural", H=200, W=200, n_train=20,
                        n_test=2)
         for label in args.configs.split(","):
-            opts = ["scene", "procedural", "train_dataset.data_root", data,
-                    "test_dataset.data_root", data, "train_dataset.H", "200",
-                    "train_dataset.W", "200", "test_dataset.H", "200",
-                    "test_dataset.W", "200", "network.nerf.fused_tile",
-                    "512", "task_arg.precrop_iters", "0",
-                    "trained_model_dir", os.path.join(tmp, "m"),
-                    "record_dir", os.path.join(tmp, "r")]
-            if label in NGP_CONFIGS:
-                name, phase, extra = NGP_CONFIGS[label]
-                cfg = make_cfg(os.path.join(REPO, "configs", "nerf", name),
-                               opts + extra)
-                row = profile_ngp(torch, label, cfg, phase, args.steps,
-                                  args.warmup)
-            else:
-                name = "lego_proposal.yaml" if label.startswith(
-                    "proposal_") else "lego.yaml"
-                row = profile(torch, label, make_cfg(
-                    os.path.join(REPO, "configs", "nerf", name),
-                    opts + CONFIGS[label]), args.steps, args.warmup)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
+            for graphed in (False, True):
+                row = profile_config(torch, label, data, tmp, graphed,
+                                     args.steps, args.warmup)
+                rows.append(row)
+                print(json.dumps(row), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -24,6 +24,8 @@ import sys
 
 import torch
 
+from .optim import make_capturable
+
 KEEP_EPOCHS = 5
 
 
@@ -127,12 +129,15 @@ def load_model(model_dir: str, state, epoch: int = -1):
                          "bundle to resume from")
     state.network.load_state_dict(blob["network"], strict=True)
     state.optimizer.load_state_dict(blob["optimizer"])
+    # the saved groups bring their own flags and a CPU-loaded lr
+    make_capturable(state.optimizer)
     state.step = int(blob["step"])
     if getattr(state, "grid_ema", None) is not None:
         if "grid_ema" not in blob:
             raise ValueError(f"{target} holds no grid_ema to resume an NGP "
                              "run from")
-        state.grid_ema = blob["grid_ema"].to(state.grid_ema.device)
+        # in place: a captured NGP step reads the grid where it lies
+        state.grid_ema.copy_(blob["grid_ema"])
     return state, int(blob["epoch"]) + 1, dict(blob.get("recorder") or {})
 
 

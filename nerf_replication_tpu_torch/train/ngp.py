@@ -24,24 +24,28 @@ within a cumulative ``ngp_warmup_max``; the density threshold follows
 
 The hash encoder runs through kernels K6 (forward) and K6b (backward) on
 the card; the MLP is the plain ``Network`` (the fused trunk refuses a
-learnable encoder). Randomness: one generator per step seeded from (seed,
-step), drawn in the order ray batch, warm depths, refresh cells, jitter.
+learnable encoder). Randomness: one generator, reseeded from (seed, step)
+before every step, drawn in the order ray batch, warm depths, refresh
+cells, jitter.
 
 Not in the port yet: a mesh of cards (slice 7) and the profiler window /
-telemetry rows (slice 10) raise where a config asks for them; the JAX
-package's AOT registration has no counterpart in eager PyTorch (slice 8
-brings CUDA graphs), so ``compile.aot`` is read by nothing here.
+telemetry rows (slice 10) raise where a config asks for them. Under
+``compile.aot`` (the JAX package's AOT registry) :func:`fit_ngp` captures
+both phase variants of the step as CUDA graphs before the loop
+(:meth:`NGPTrainer.aot_register_steps`); each step then reseeds the
+generator, fills the lr and replays. The eval render is not captured.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..datasets.sampling import sample_rays, step_generator
+from ..datasets.sampling import reseed, sample_rays
 from ..renderer.accelerated import (
     MarchOptions,
     march_points,
@@ -51,8 +55,13 @@ from ..renderer.occupancy import world_to_voxel
 from ..renderer.volume import map_chunks, raw2outputs, stratified_z_vals
 from ..utils.numerics import norm3_rn
 from .loss import mse, mse_to_psnr
-from .optim import apply_update, make_optimizer
-from .trainer import _check_single_card, _device_mem_mb, _later_slice
+from .optim import make_optimizer, optimizer_step, set_lr
+from .trainer import (
+    _check_single_card,
+    _device_mem_mb,
+    _later_slice,
+    capture_steps,
+)
 
 
 @dataclass
@@ -117,10 +126,20 @@ class NGPTrainer:
         self._trunc_warned: bool = False
         self.last_burst_steps = 0
         self.last_burst_warm = False
+        self._bbox_on: dict = {}
+        # the step stream's generator, reseeded before every step; the
+        # captured steps draw from it (registry.py)
+        self._gen: torch.Generator | None = None
+        self.aot = None  # compile.AOTRegistry, or None: eager steps
 
     # -- state ---------------------------------------------------------------
     def _bbox(self, device) -> torch.Tensor:
-        return torch.from_numpy(self.bbox_np).to(device)
+        """The scene bbox on ``device``, copied there once (a captured
+        step reads the copy; it cannot make one)."""
+        device = torch.device(device)
+        if device not in self._bbox_on:
+            self._bbox_on[device] = torch.from_numpy(self.bbox_np).to(device)
+        return self._bbox_on[device]
 
     def init_grid(self, device) -> torch.Tensor:
         """Grid EMA warm-started at ``warm_factor × threshold`` (fully
@@ -284,18 +303,27 @@ class NGPTrainer:
         ema.scatter_reduce_(0, idx.to(torch.int64), sigma, "amax")
         return ema.reshape(res, res, res)
 
-    def _one_step(self, state: NGPState, bank_rays, bank_rgbs, warm: bool,
-                  mark=None) -> dict:
-        """One optimizer step and grid update. ``mark(i)``, when given, is
-        called at the boundaries of its four parts (render + loss,
-        backward, optimizer, grid update): the profiler's hook."""
+    def _generator(self, device) -> torch.Generator:
+        device = torch.device(device)
+        if self._gen is None or self._gen.device != device:
+            self._gen = torch.Generator(device=device)
+        return self._gen
+
+    def _step_body(self, state: NGPState, bank_rays, bank_rgbs, warm: bool,
+                   mark=None) -> dict:
+        """One step's device work (capturable: no host read, no host copy,
+        static shapes): draw, render + loss, backward, clip + Adam, grid
+        update in place. ``mark(i)``, when given, is called at the
+        boundaries of its four parts (render + loss, backward, optimizer,
+        grid update): the profiler's hook."""
         mark = mark or (lambda i: None)
         dev = bank_rays.device
-        gen = step_generator(self.seed, state.step, dev)
+        gen = self._gen
         mark(0)
         rays, rgbs = sample_rays(gen, bank_rays, bank_rgbs, self.n_rays)
         grid = state.grid_ema > self.threshold
-        state.optimizer.zero_grad(set_to_none=True)
+        for p in state.network.parameters():
+            p.grad = None
         if warm:
             z = stratified_z_vals(gen, self.near, self.far, self.n_rays,
                                   self.warm_samples, 1.0, device=dev)
@@ -305,16 +333,53 @@ class NGPTrainer:
         mark(1)
         loss.backward()
         mark(2)
-        apply_update(state.optimizer, state.schedule, state.step)
+        optimizer_step(state.optimizer)
         mark(3)
         idx = torch.randint(0, self.grid_res**3, (self.cells_per_step,),
                             generator=gen, device=dev)
         u = torch.rand((self.cells_per_step, 3), generator=gen,
                        dtype=torch.float32, device=dev)
-        state.grid_ema = self.grid_update(state.grid_ema, out, idx, u)
+        # in place: a captured step reads and writes the grid where it lies
+        state.grid_ema.copy_(self.grid_update(state.grid_ema, out, idx, u))
         mark(4)
+        return stats
+
+    def _one_step(self, state: NGPState, bank_rays, bank_rgbs, warm: bool,
+                  mark=None) -> dict:
+        """One optimizer step and grid update: the host's part (the step's
+        generator seed, the lr), then the captured step's replay when the
+        registry has it, else :meth:`_step_body` eagerly."""
+        reseed(self._generator(bank_rays.device), self.seed, state.step)
+        set_lr(state.optimizer, state.schedule, state.step)
+        fn = None
+        if self.aot is not None and mark is None:
+            fn = self.aot.take(self._entry_name(warm))
+        if fn is not None:
+            stats = {k: v.clone() for k, v in fn().items()}
+        else:
+            stats = self._step_body(state, bank_rays, bank_rgbs, warm, mark)
         state.step += 1
         return stats
+
+    @staticmethod
+    def _entry_name(warm: bool) -> str:
+        return f"ngp_step_{'warm' if warm else 'march'}"
+
+    def aot_register_steps(self, state: NGPState, bank) -> None:
+        """Capture both phase variants of the step (JAX ``ngp.py:256``):
+        warm and march (per-ray or packed, as ``ngp_packed_march`` asks).
+        Each entry's warm-up runs a real step on the side stream; the
+        parameters, Adam's moments and the grid are restored after, so the
+        run goes on from the state it had."""
+        if self.aot is None or not self.aot.enabled:
+            return
+        reseed(self._generator(bank[0].device), self.seed, state.step)
+        set_lr(state.optimizer, state.schedule, state.step)
+        entries = {self._entry_name(w): (
+            lambda w=w: self._step_body(state, bank[0], bank[1], w))
+            for w in (True, False)}
+        if not capture_steps(self, state, entries):
+            self._gen = None
 
     def multi_step(self, state: NGPState, bank_rays, bank_rgbs,
                    k_steps: int | None = None):
@@ -502,6 +567,7 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
     ``trainer.fit`` routes to): resume (weights, optimizer, grid EMA and the
     phase sidecar), the epoch loop with its save/eval cadence on one card.
     Returns the final :class:`NGPState`."""
+    from ..compile import registry_from_cfg
     from ..datasets import make_dataset
     from ..evaluators import make_evaluator
     from ..resil import DivergenceError
@@ -545,6 +611,12 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
 
     train_ds = make_dataset(cfg, "train")
     bank = tuple(torch.from_numpy(a).to(dev) for a in train_ds.ray_bank())
+    # CUDA graphs: both phase variants captured before the loop
+    # (compile.aot; a disabled registry on the CPU)
+    trainer.aot = registry_from_cfg(cfg, dev)
+    trainer.aot_register_steps(state, bank)
+    if trainer.aot is not None and trainer.aot.names():
+        log("compile: " + json.dumps(trainer.aot.status()))
     test_ds = make_dataset(cfg, "test")
 
     epochs = int(cfg.train.epoch)

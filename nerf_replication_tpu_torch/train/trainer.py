@@ -8,15 +8,22 @@ the fine network, with the step count as the anneal's ``batch["step"]`` —
 backpropagates the loss, clips gradients by value at 40 and takes an
 optimizer step whose lr is the schedule at the step count (optax's order).
 
-* RNG: one generator per step, seeded from ``(seed, step)``
-  (``datasets/sampling.step_generator``), so a resumed run draws what an
+* RNG: one generator per trainer, reseeded from ``(seed, step)`` before
+  every step (``datasets/sampling.reseed``), so a resumed run draws what an
   uninterrupted one would.
+* CUDA graphs (``compile.aot``, the JAX package's AOT registry;
+  ``compile/registry.py``): :func:`fit` installs ``registry_from_cfg`` and
+  :meth:`Trainer.aot_register_steps` captures the step (and the precrop
+  pool's) before the loop; each step then does its host part (the
+  generator's seed, the lr, the step count the proposal anneal reads) and
+  replays the graph.
 * Precrop warm-up: the first ``precrop_iters`` steps draw from the center
   crop's index pool.
 * ``task_arg.scan_steps = K`` groups steps into bursts of K
   (:meth:`Trainer.multi_step`) with the JAX package's logging at burst
-  boundaries; the port runs the K steps one after another (PyTorch runs
-  eagerly; there is no scan to fuse them), with the same numerics.
+  boundaries; the port runs the K steps one after another (each step
+  reseeds, so a burst replays one captured step K times), with the same
+  numerics.
 * Validation renders whole test images through the render gate
   (``renderer/gate.py``) and feeds the evaluator.
 
@@ -31,16 +38,18 @@ SIGTERM checkpoint flush (slice 10) is not installed.
 
 from __future__ import annotations
 
+import json
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..datasets.sampling import step_generator
+from ..datasets.sampling import reseed
 from ..resil import DivergenceError, check_finite
 from .checkpoint import load_model, save_model, save_trained_config
-from .optim import apply_update, make_optimizer
+from .optim import capturable, make_optimizer, optimizer_step, set_lr
 from .recorder import Recorder
 from .step_core import sampled_grad_step
 
@@ -66,6 +75,61 @@ def make_train_state(cfg, network, device) -> TrainState:
     network.to(device)
     optimizer, schedule = make_optimizer(cfg, network.parameters())
     return TrainState(network, optimizer, schedule, 0)
+
+
+@contextmanager
+def restored(state):
+    """Leaves the parameters, the optimizer's state and an NGP state's grid
+    as they were on entry (a captured step's warm-up runs a real step).
+    State the optimizer makes inside (Adam's moments on a first step) is
+    zeroed, which is how a first step finds it."""
+    opt = state.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    saved = [p.detach().clone() for p in params]
+    saved_opt = {p: {k: v.clone() for k, v in opt.state[p].items()
+                     if torch.is_tensor(v)}
+                 for p in params if p in opt.state}
+    grid = getattr(state, "grid_ema", None)
+    saved_grid = None if grid is None else grid.clone()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+            for p in params:
+                old = saved_opt.get(p, {})
+                for k, v in opt.state.get(p, {}).items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if k in old:
+                        v.copy_(old[k])
+                    else:
+                        v.zero_()
+            if grid is not None:
+                state.grid_ema.copy_(saved_grid)
+
+
+def capture_steps(trainer, state, entries: dict) -> bool:
+    """Capture ``entries`` (name -> step function, all drawing from
+    ``trainer._gen``) in ``trainer.aot`` with the state restored after their
+    warm-ups. False when a step cannot be captured: a float lr, or a
+    capture that failed, which can leave the shared generator in its
+    capture state, so the registry is switched off and the caller takes a
+    fresh generator for its eager steps."""
+    if not capturable(state.optimizer):
+        print("the optimizer is not capturable (a float lr): the steps run "
+              "eagerly")
+        trainer.aot.enabled = False
+        return True
+    for name, fn in entries.items():
+        trainer.aot.register(name, fn, generators=(trainer._gen,))
+    with restored(state):
+        trainer.aot.compile_all()
+    if trainer.aot.summary()["errors"]:
+        trainer.aot.enabled = False
+        return False
+    return True
 
 
 def _later_slice(what: str, slice_no: int) -> NotImplementedError:
@@ -96,6 +160,11 @@ class Trainer:
         self.grad_accum = max(1, int(cfg.task_arg.get("grad_accum", 1)))
         self.finite_guard = bool(cfg.get("resil", {}).get("finite_guard", True))
         self._val_render = None
+        self.aot = None  # compile.AOTRegistry, or None: eager steps
+        # the step stream's generator and, on the card, the step count the
+        # proposal anneal reads (batch["step"]), both filled before a step
+        self._gen: torch.Generator | None = None
+        self._step_t: torch.Tensor | None = None
 
     def epoch_iters(self, bank_size: int) -> int:
         """Steps per epoch; ep_iter=-1 means one pass over the bank."""
@@ -103,18 +172,68 @@ class Trainer:
             return self.ep_iter
         return max(1, bank_size // self.n_rays)
 
-    def step(self, state: TrainState, bank_rays, bank_rgbs, index_pool=None):
-        """One optimization step: ``(state, stats)`` (stats stay tensors on
-        the device; reading them is the caller's synchronisation)."""
-        gen = step_generator(self.seed, state.step, bank_rays.device)
+    def _prepare(self, state: TrainState, device) -> None:
+        """A step's host part: reseed the generator, fill the lr and the
+        step count."""
+        device = torch.device(device)
+        if self._gen is None or self._gen.device != device:
+            self._gen = torch.Generator(device=device)
+            self._step_t = (torch.zeros((), dtype=torch.int64, device=device)
+                            if device.type == "cuda" else None)
+        reseed(self._gen, self.seed, state.step)
+        set_lr(state.optimizer, state.schedule, state.step)
+        if self._step_t is not None:
+            self._step_t.fill_(state.step)
+
+    def _step_body(self, state: TrainState, bank_rays, bank_rgbs,
+                   index_pool=None) -> dict:
+        """A step's device work (capturable): draw, render, backward, clip
+        and update. ``batch["step"]`` is the step count on the card (a
+        Python int on the CPU)."""
         stats = sampled_grad_step(
             self.loss, state.network.parameters(), bank_rays, bank_rgbs,
-            self.n_rays, self.near, self.far, gen, index_pool=index_pool,
-            grad_accum=self.grad_accum, step=state.step,
+            self.n_rays, self.near, self.far, self._gen,
+            index_pool=index_pool, grad_accum=self.grad_accum,
+            step=state.step if self._step_t is None else self._step_t,
         )
-        apply_update(state.optimizer, state.schedule, state.step)
+        optimizer_step(state.optimizer)
+        return stats
+
+    @staticmethod
+    def _entry_name(pool: bool) -> str:
+        return "train_step_pool" if pool else "train_step"
+
+    def step(self, state: TrainState, bank_rays, bank_rgbs, index_pool=None):
+        """One optimization step: ``(state, stats)`` (stats stay tensors on
+        the device; reading them is the caller's synchronisation). Replays
+        the captured step when the registry has it."""
+        self._prepare(state, bank_rays.device)
+        fn = (None if self.aot is None
+              else self.aot.take(self._entry_name(index_pool is not None)))
+        if fn is not None:
+            stats = {k: v.clone() for k, v in fn().items()}
+        else:
+            stats = self._step_body(state, bank_rays, bank_rgbs, index_pool)
         state.step += 1
         return state, stats
+
+    def aot_register_steps(self, state: TrainState, bank,
+                           pool=None) -> None:
+        """Capture every step this run takes (JAX ``trainer.py:250``): the
+        precrop pool's step while precrop steps remain, and the step. A
+        burst replays the step K times (each step reseeds). Each entry's
+        warm-up runs a real step on the side stream; the state is restored
+        after it, so the run goes on from the state it had."""
+        if self.aot is None or not self.aot.enabled:
+            return
+        self._prepare(state, bank[0].device)
+        entries = {self._entry_name(False):
+                   lambda: self._step_body(state, bank[0], bank[1])}
+        if pool is not None and state.step < self.precrop_iters:
+            entries[self._entry_name(True)] = lambda: self._step_body(
+                state, bank[0], bank[1], pool)
+        if not capture_steps(self, state, entries):
+            self._gen = None
 
     def multi_step(self, state: TrainState, bank_rays, bank_rgbs,
                    k_steps: int | None = None):
@@ -237,6 +356,7 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
     checkpoint is there, run the epoch loop with the save/eval cadence on
     one card (``device``). ``emit`` receives the per-step rows of
     :meth:`Trainer.train_epoch`. Returns the final :class:`TrainState`."""
+    from ..compile import registry_from_cfg
     from ..datasets import make_dataset
     from ..evaluators import make_evaluator
     from ..registry import load_attr
@@ -285,6 +405,12 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
         frac = float(cfg.task_arg.get("precrop_frac", 0.5))
         pool = torch.from_numpy(
             np.asarray(train_ds.precrop_index_pool(frac))).to(dev)
+    # CUDA graphs: every step of this run captured before the loop
+    # (compile.aot; a disabled registry on the CPU)
+    trainer.aot = registry_from_cfg(cfg, dev)
+    trainer.aot_register_steps(state, bank, pool=pool)
+    if trainer.aot is not None and trainer.aot.names():
+        log("compile: " + json.dumps(trainer.aot.status()))
     test_ds = make_dataset(cfg, "test")
 
     epochs = int(cfg.train.epoch)

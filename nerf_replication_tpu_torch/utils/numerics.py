@@ -1,4 +1,5 @@
-"""Correctly rounded float32 square roots and 3-vector norms.
+"""Correctly rounded float32 square roots and 3-vector norms; a capturable
+cumulative product.
 
 ``torch.sqrt`` on float32 CPU tensors is not correctly rounded in every
 PyTorch build: its vectorised CPU kernels can land one ulp off IEEE
@@ -10,6 +11,10 @@ distances, the view directions) go through these helpers instead.
 ``sqrt_rn`` takes the root in float64 and rounds it to float32: a float64
 root of a float32 value rounded to float32 is the correctly rounded float32
 root (53 ≥ 2·24 + 2 bits, so the double rounding is harmless).
+
+``cumprod`` is ``torch.cumprod`` along the last axis with a backward that
+the card runs without asking the host anything, so that a train step can
+be captured in a CUDA graph (the compositing transmittances).
 """
 
 from __future__ import annotations
@@ -33,3 +38,41 @@ def norm3_rn(d: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     :func:`sqrt_rn`."""
     n = sqrt_rn(sq_norm3(d))
     return n[..., None] if keepdim else n
+
+
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod(x, -1)`` with a backward that never reads a device
+    value on the host. ``torch.cumprod``'s own backward asks the host
+    whether ``x`` holds a zero (a synchronisation, which a step captured in
+    a CUDA graph cannot make); this one computes both cases on the card and
+    picks per element: before a row's first zero ``rev_cumsum(g·y) / x``,
+    at it ``rev_cumsum(g·y')`` with ``y'`` the product over the row with
+    that zero taken as 1, after it 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+
+        def rev_cumsum(t):
+            return torch.flip(torch.cumsum(torch.flip(t, [-1]), -1), [-1])
+
+        zero = x == 0
+        n_zero = torch.cumsum(zero.to(torch.int32), -1)
+        first = zero & (n_zero == 1)
+        one = torch.ones_like(x)
+        plain = rev_cumsum(g * y) / torch.where(zero, one, x)
+        at_zero = rev_cumsum(g * torch.cumprod(torch.where(first, one, x), -1))
+        return torch.where(n_zero == 0, plain,
+                           torch.where(first, at_zero, torch.zeros_like(x)))
+
+
+def cumprod(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumprod(x, -1)`` (the same forward) whose gradient needs no
+    host synchronisation (:class:`_Cumprod`)."""
+    return _Cumprod.apply(x)

@@ -35,3 +35,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} (cuda or cpu)")
     pin_float32_math()
     return dev
+
+
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a 0-dim ``dtype`` tensor on ``device``: a Python number by a
+    fill on the device, never a host-to-device copy (which waits for the
+    card, and which a step captured in a CUDA graph cannot make)."""
+    if torch.is_tensor(x):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), float(x), dtype=dtype, device=device)
