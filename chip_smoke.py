@@ -38,7 +38,10 @@ imports nothing of JAX. Phases, each fatal on failure:
    512``: f32 across the precrop boundary with one validation image and one
    checkpoint (K1/K2 launch counts reset right before and read right after),
    the promoted bf16 configuration (N_rays 4096) and ``fused_trunk false``;
-   median step ms and rays/s of each, a finite and falling f32 loss;
+   median step ms and rays/s of each, a finite and falling f32 loss; the
+   f32 fit's last validation (the view captured before its epoch loop,
+   replayed after the weights moved) equal to an eager ``Trainer.val`` of
+   the final state;
 6. serving the trained checkpoint: an occupancy grid baked from the trained
    coarse net, ``engine_from_cfg`` on it, one 200x200 ``full``-tier view
    through K5 (PSNR against the test image, mean acc);
@@ -77,7 +80,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    steps), the loss falling, validation on both test views;
    (b) the packed march in bf16 at 4096 rays; (c) lego_hash_packed.yaml
    with the packed march (the cell-packed encoder: plain PyTorch, no K6);
-   (d) lego_hash through the ordinary coarse+fine trainer, 20 steps;
+   (d) lego_hash through the ordinary coarse+fine trainer, 100 steps;
 12. the proposal-sampling path at ``lego_proposal.yaml``'s full
    width (fine W=256 D=8, proposal D=2 W=64, 96 proposal / 64 fine
    samples, ``fused_trunk true fused_tile 512``) on the 200x200 scene,
@@ -111,6 +114,30 @@ imports nothing of JAX. Phases, each fatal on failure:
    (``tools/profile_train_step.py``) for NGP f32 warm / march, NGP bf16
    packed march, proposal f32, lego f32 and lego bf16; one line with all
    of it and the card.
+14. serving the hash checkpoints of phase 11: run (d) (lego_hash, the
+   coarse+fine trainer) with a grid baked from its coarse branch, run (a)
+   (NGP f32) with its checkpoint's live grid; ``engine_from_cfg`` on each
+   answers one 200x200 request on the staged per-ray route (``march_fused
+   off``), the staged packed route (``march_coarse_block 8``) and
+   ``gather`` (K4), eagerly and from the captured ``full`` family: maps
+   bitwise, captures constant after warm-up, K6 launched on every route
+   and K4 on ``gather`` (counts reset right before the graphed request and
+   read right after), the maps within 1e-4 of the same request through
+   K6's plain version; request ms on the host clock, eager and graphed;
+15. the eval renders as CUDA graphs: phase 7's three routes
+   (``Renderer.aot_register_eval`` of the march: K1 per-ray, K3a packed
+   hier and clip) and ``Trainer.val``'s chunked render (K1) of the trained
+   f32 checkpoint, both test views eager then graphed (view 0 bitwise, or
+   within two eager renders' difference; no capture after the first view;
+   net_time per view and peak MB of each); the chunked render's K1 at
+   its own shapes (8192-ray chunks x 64 and x 192 samples) against the
+   plain Network: raw on every row, the coarse maps and the fine maps on
+   the same rows (``_chunked_vs_plain``); and the NGP val of phase 11's
+   run (a) (``NGPTrainer.aot_register_render``: one capture, both views
+   and the evaluator's val replayed, bitwise eager). K1/K3a/K6 counts
+   reset right before the graphed views and read right after. Since this
+   phase, phase 7's ``run_evaluate`` and every fit's validation replay
+   their captured view too (their registry lines are checked).
 
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
@@ -129,9 +156,10 @@ bounds: ``bound_ms`` counts a float32 product as three TF32 products at the
 TF32 peak (the chain's arithmetic, K2's convention), ``bound_ms_cuda_cores``
 one product at the CUDA cores' float32 peak (the earlier chain's).
 
-Prints a ``{"kernels": [...]}`` line (K1, K2 and K3a with their launches
-by path: the earlier phases and the proposal path), the nvidia-smi line,
-and last ``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line (with launches by path: K1, K2 and
+K3a on the proposal path, K1 and K3a on the graphed eval, K6 on the graphed
+NGP val and on hash serving, K4 on hash serving's ``gather`` route), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1057,6 +1085,25 @@ def _fit_run(torch, np, lego, opts, label):
     return res
 
 
+def _eager_val(run, summary):
+    """``Trainer.val`` of a fit's final state with no registry (every view
+    eager), as ``fit`` builds its trainer; the evaluator's summary.json."""
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.evaluators import make_evaluator
+    from nerf_replication_tpu_torch.registry import load_attr
+    from nerf_replication_tpu_torch.train.trainer import Trainer
+
+    cfg, network = run["cfg"], run["state"].network
+    loss = load_attr(cfg.loss_module, "make_loss", "NetworkWrapper")(
+        cfg, network)
+    trainer = Trainer(cfg, network, loss, make_evaluator(cfg))
+    require(trainer.aot is None, "a fresh Trainer holds a registry")
+    trainer.val(run["state"], -1, make_dataset(cfg, "test"),
+                log=lambda _s: None)
+    with open(summary) as f:
+        return json.load(f)
+
+
 def phase_train(torch, np, tmp):
     """Phase 5: the slice-2 main path, fit on a procedural scene."""
     from nerf_replication_tpu_torch.datasets.procedural import generate_scene
@@ -1096,6 +1143,15 @@ def phase_train(torch, np, tmp):
     require(os.path.exists(ckpt), "no checkpoint written")
     summary = os.path.join(f32["cfg"].result_dir, "summary.json")
     require(os.path.exists(summary), "no summary.json")
+    # the fit captured its validation view before the epoch loop and
+    # replayed it after the last step: it must score the final weights
+    with open(summary) as f:
+        replayed = json.load(f)
+    eager = _eager_val(f32, summary)
+    require(eager == replayed, f"the fit's replayed validation {replayed} "
+            f"differs from an eager Trainer.val of its final state {eager}")
+    print(f"f32 fit's replayed validation equals an eager Trainer.val of "
+          f"its final state: per-view PSNR {eager['per_image_psnr']}")
 
     # the promoted configuration (BENCH_DEFAULTS.json): bf16, 4096 rays
     before = dict(fmlp.LAUNCHES)
@@ -1217,6 +1273,10 @@ def phase_eval(torch, np, tmp, data):
         wall = time.perf_counter() - t0
         counts[route] = dict(fmlp.LAUNCHES)
         require(res["used_grid"], f"eval {route}: the grid did not load")
+        st = res["compile"]
+        require(st is not None and not st["errors"]
+                and st["captures"] == st["entries"] == 1,
+                f"eval {route}: the view's march was not captured: {st}")
         require(res["n_images"] == 2, f"eval {route}: {res['n_images']} views")
         require(np.isfinite(res["psnr"]) and np.isfinite(res["ssim"]),
                 f"eval {route}: PSNR/SSIM not finite (maps not finite)")
@@ -1560,7 +1620,8 @@ def _ngp_run(torch, np, cfg_name, opts, label):
                                        last.items()})
           + f"; launches {json.dumps(counts)}; graphs {json.dumps(st)}")
     return dict(state=state, rows=rows, logs=logs, counts=counts,
-                losses=losses, by_phase=by_phase, cfg=cfg)
+                losses=losses, by_phase=by_phase, cfg=cfg, compile=st,
+                opts=opts, cfg_name=cfg_name)
 
 
 def phase_ngp(torch, np, tmp, data):
@@ -1618,15 +1679,22 @@ def phase_ngp(torch, np, tmp, data):
             "100"]), "c: lego_hash_packed packed march")
     require(sum(c["counts"].values()) == 0,
             "(c) the cell-packed encoder launched K6/K6b")
-    # (d) lego_hash through the ordinary coarse+fine trainer
+    # (d) lego_hash through the ordinary coarse+fine trainer; 100 steps and
+    # a checkpoint, so that phase 14 serves a coarse branch that carves
     dd = _ngp_run(torch, np, "lego_hash.yaml", _hash_opts(data, out, "hash_d", [
-        "ep_iter", "20", "train.epoch", "1", "eval_ep", "100", "save_ep",
-        "100", "save_latest_ep", "100"]), "d: lego_hash coarse+fine")
+        "ep_iter", "100", "train.epoch", "1", "eval_ep", "100", "save_ep",
+        "100", "save_latest_ep", "1"]), "d: lego_hash coarse+fine")
     for k in ("hash_encode_fwd", "hash_encode_bwd"):
         require(b["counts"][k] > 0 and dd["counts"][k] > 0,
                 f"(b)/(d) never launched {k}")
-    return {k: a["counts"][k] + b["counts"][k] + dd["counts"][k]
-            for k in a["counts"]}
+    # (a)'s fit captured its eval render beside the steps (one entry, its
+    # validation replayed it on both views)
+    require(any(line.startswith("ngp val") for line in a["logs"])
+            and a["compile"]["entries"] == 3,
+            f"(a) registry {a['compile']}: not warm + march + the render")
+    counts = {k: a["counts"][k] + b["counts"][k] + dd["counts"][k]
+              for k in a["counts"]}
+    return counts, {"ngp_a": a, "hash_d": dd}
 
 
 def _prop_opts(data, out, exp, extra=()):
@@ -2217,6 +2285,390 @@ def phase_graphs(torch, np, tmp, data):
     return profiles, serving
 
 
+HASH_ROUTES = (
+    ("staged per-ray", ["task_arg.march_fused", "off",
+                        "task_arg.march_coarse_block", "0"]),
+    ("staged packed", ["task_arg.march_fused", "off",
+                       "task_arg.march_coarse_block", "8"]),
+    ("gather", ["task_arg.march_fused", "gather",
+                "task_arg.march_coarse_block", "8"]),
+)
+# a hash route's maps through K6 vs through K6's plain version on the card
+# (K6 measured bitwise its plain version: phase 10)
+TOL_HASH_MAPS = 1e-4
+
+
+def _request_ms(torch, engine, rays, near, far):
+    """One request's host-clock ms (the card idle before it; the maps are
+    on the host when it returns) and its maps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.render_request(rays, near, far)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _serve_hash_route(torch, np, run, route, extra, rays, near, far):
+    """One checkpoint on one route: an eager engine (``compile.aot false``)
+    and a graphed one (the ``full`` family captured, as a server's warm-up
+    does; ``gather`` stays eager), one 200x200 request each after a first,
+    maps equal; the eager engine again with K6's plain version."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.ops import fused_march as fm
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.serve import engine_from_cfg
+
+    cfg_path = os.path.join(REPO, "configs", "nerf", run["cfg_name"])
+    res = {}
+    for aot in ("false", "true"):
+        cfg = make_cfg(cfg_path, run["opts"] + extra + [
+            "compile.aot", aot, "serve.buckets", "[16384]", "serve.warmup",
+            "false"], default_task="run")
+        engine = engine_from_cfg(cfg, cfg_file=cfg_path, device=DEVICE)
+        require(engine.use_grid, f"hash {route}: the grid did not load")
+        trained = run["state"].network.state_dict()
+        require(all(torch.equal(v, trained[k]) for k, v in
+                    engine.network.state_dict().items()),
+                f"hash {route}: the engine did not load the trained weights")
+        engine.warm_up(("full",))
+        engine.render_request(rays, near, far)  # first use
+        if aot == "true":
+            he.reset_launch_counts()
+            fm.reset_launch_counts()
+        ms, out = _request_ms(torch, engine, rays, near, far)
+        st = engine.stats()
+        res[aot] = {"ms": ms, "out": out, "engine": engine}
+        if aot == "true":
+            counts = {"K6": he.LAUNCHES["hash_encode_fwd"],
+                      "K4": fm.LAUNCHES["fused_dda_gather"]}
+            require(counts["K6"] > 0, f"hash {route}: K6 never launched")
+            if route == "gather":
+                require(counts["K4"] > 0, "hash gather: K4 never launched")
+            else:
+                require("serve/full/b16384" in st["captured_routes"]
+                        and not st["compile"]["errors"],
+                        f"hash {route}: not captured: {st['compile']}")
+                captures = st["captures"]
+                for _ in range(3):
+                    engine.render_request(rays, near, far)
+                require(engine.stats()["captures"] == captures,
+                        f"hash {route}: captures grew after warm-up")
+    a, b = res["false"]["out"], res["true"]["out"]
+    keys = ("rgb_map_f", "depth_map_f", "acc_map_f")
+    require(all(np.array_equal(a[k], b[k]) for k in keys),
+            f"hash {route}: graphed maps differ from eager ones")
+    kernel = he.hash_encode_fwd
+    he.hash_encode_fwd = he.forward_plain
+    try:
+        plain = res["false"]["engine"].render_request(rays, near, far)
+    finally:
+        he.hash_encode_fwd = kernel
+    err = max(float(np.abs(a[k] - plain[k]).max()) for k in keys)
+    require(err <= TOL_HASH_MAPS, f"hash {route}: maps through K6 vs its "
+            f"plain version differ by {err} > {TOL_HASH_MAPS}")
+    return {"eager_ms": round(res["false"]["ms"], 2),
+            "graphed_ms": round(res["true"]["ms"], 2),
+            "vs_plain_k6": err, "mean_acc": float(np.mean(a["acc_map_f"])),
+            "launches": counts}
+
+
+def phase_serve_hash(torch, np, tmp, runs):
+    """Phase 14: the hash checkpoints of phase 11 served. Run (d) (lego_hash
+    through the coarse+fine trainer) with a grid baked from its trained
+    coarse branch, as phase 6 bakes; run (a) (NGP f32) with its own live
+    grid, ``grid_ema > threshold`` from the checkpoint, written with
+    ``save_occupancy_grid`` (a smoke-side choice, like phase 12's
+    fine-branch bake: an NGP run trains no coarse branch to bake). Each
+    boots ``engine_from_cfg`` (its own working directory, for its grid
+    file) and answers one 200x200 request per route."""
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        bake_occupancy_grid,
+        default_grid_path,
+        save_occupancy_grid,
+    )
+    from nerf_replication_tpu_torch.train.ngp import NGPTrainer
+
+    rows, counts = {}, {"K6": 0, "K4": 0}
+    for label, run in (("hash_d", runs["hash_d"]), ("ngp_a", runs["ngp_a"])):
+        cfg = run["cfg"]
+        if label == "hash_d":
+            threshold = float(cfg.task_arg.occupancy_grid_threshold)
+            grid = bake_occupancy_grid(run["state"].network, cfg,
+                                       device=DEVICE)
+        else:
+            threshold = NGPTrainer(cfg, run["state"].network).threshold
+            blob = torch.load(os.path.join(cfg.trained_model_dir,
+                                           "latest.pt"), weights_only=True)
+            grid = (blob["grid_ema"] > threshold).cpu().numpy()
+        require(0.0 < grid.mean() < 1.0, f"hash {label}: grid occupancy "
+                f"{grid.mean()}: nothing to march through")
+        work = os.path.join(tmp, f"serve_{label}")
+        os.makedirs(work, exist_ok=True)
+        os.chdir(work)
+        save_occupancy_grid(default_grid_path(run["cfg_name"]), grid,
+                            cfg.train_dataset.scene_bbox, threshold)
+        batch = make_dataset(cfg, "test").image_batch(0)
+        for route, extra in HASH_ROUTES:
+            row = _serve_hash_route(torch, np, run, route, extra,
+                                    batch["rays"], float(batch["near"]),
+                                    float(batch["far"]))
+            for k in counts:
+                counts[k] += row["launches"][k]
+            rows[f"{label} {route}"] = {"grid_occupancy": float(grid.mean()),
+                                        **row}
+        os.chdir(tmp)
+    print("serving hash checkpoints, one 200x200 request (3 buckets of "
+          "16384 rays; host clock; graphed maps bitwise eager): "
+          + json.dumps({"routes": rows, "card": smi_line()}))
+    return counts
+
+
+def _view_ms(torch, render, rays):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render(rays)
+    out = {k: v.clone() for k, v in out.items()}
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _graphed_views(torch, np, label, make, register, views):
+    """Two views eager (view 0 twice: the eager-vs-eager difference), then
+    registered, captured and replayed: view 0 graphed equals eager (bitwise
+    or within that difference), no capture after the first view; net_time
+    per view and peak MB of each, and view 0's graphed maps."""
+    from nerf_replication_tpu_torch.compile import AOTRegistry
+
+    row = {}
+    outs = {}
+    for mode in ("eager", "graphed"):
+        render = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reg = None
+        if mode == "graphed":
+            reg = AOTRegistry(device=torch.device(DEVICE))
+            register(render, reg)
+            require(reg.captures == 1 and not reg.summary()["errors"],
+                    f"graphed eval {label}: {reg.status()}")
+        times = []
+        for i, rays in enumerate(views):
+            ms, out = _view_ms(torch, render, rays)
+            times.append(round(ms, 2))
+            if i == 0:
+                outs[mode] = out
+        if mode == "eager":
+            _, again = _view_ms(torch, render, views[0])
+        else:
+            require(reg.captures == 1, f"graphed eval {label}: captures "
+                    f"grew to {reg.captures} after the first view")
+        row[mode] = {"net_time_ms": times, "peak_mb": round(
+            torch.cuda.max_memory_allocated() / 2**20, 1)}
+    diff = {k: float((outs["eager"][k].double() - again[k].double())
+                     .abs().max()) for k in outs["eager"]}
+    gdiff = {k: float((outs["eager"][k].double() - outs["graphed"][k]
+                       .double()).abs().max()) for k in outs["eager"]}
+    require(all(gdiff[k] <= diff[k] for k in gdiff),
+            f"graphed eval {label}: graphed vs eager {gdiff} beyond eager "
+            f"vs eager {diff}")
+    row["bitwise"] = all(v == 0.0 for v in gdiff.values())
+    row["eager_vs_eager"] = max(diff.values())
+    return row, outs["graphed"]
+
+
+def _chunked_vs_plain(torch, make_cfg, lego, opts, net, rays, near, far,
+                      graphed):
+    """The chunked render's K1 held against the plain Network (cuBLAS f32)
+    at the route's own shapes: view 0 in chunks of 8192 rays, 64 coarse and
+    192 fine samples a ray. The fine samples are drawn from the coarse
+    weights (an inverse CDF), so a whole plain render moves them too; the
+    fine pass is held where both networks see the same rows: K1's coarse
+    pass, then the plain fine pass. K1's raw within TOL_TRAINED_RAW_REL of
+    max|raw| of the plain version on every row it is given, the coarse maps
+    and the same-rows fine maps within TOL_EVAL_MAPS; the K1 render equals
+    the graphed view 0 bitwise. The whole-render fine difference and how
+    far the fine samples moved are printed."""
+    from nerf_replication_tpu_torch.renderer.volume import (
+        make_renderer,
+        map_chunks,
+        render_rays,
+    )
+
+    fused = make_renderer(make_cfg(lego, opts), net)
+    plain_r = make_renderer(make_cfg(lego, opts + [
+        "network.nerf.fused_trunk", "false"]), net)
+    k1, plain = fused._apply_fn(), plain_r._apply_fn()
+    raw = {"coarse": [0.0, 0.0], "fine": [0.0, 0.0]}  # max|diff|, max|raw|
+    fine_pts = {"k1": [], "plain": []}
+
+    def k1_held(pts, viewdirs, model):
+        out = k1(pts, viewdirs, model)
+        ref = plain(pts, viewdirs, model)
+        raw[model][0] = max(raw[model][0], float((out - ref).abs().max()))
+        raw[model][1] = max(raw[model][1], float(ref.abs().max()))
+        if model == "fine":
+            fine_pts["k1"].append(pts)
+        return out
+
+    def plain_seen(pts, viewdirs, model):
+        if model == "fine":
+            fine_pts["plain"].append(pts)
+        return plain(pts, viewdirs, model)
+
+    def k1_coarse(pts, viewdirs, model):
+        return (k1 if model == "coarse" else plain)(pts, viewdirs, model)
+
+    options = fused.eval_options
+    maps = {}
+    for name, apply_fn in (("k1", k1_held), ("plain", plain_seen),
+                           ("k1_coarse", k1_coarse)):
+        with torch.no_grad():
+            maps[name] = map_chunks(
+                lambda rc, f=apply_fn: render_rays(f, rc, near, far, None,
+                                                   options),
+                rays, options.chunk_size)
+    require(all(torch.equal(maps["k1"][k], graphed[k]) for k in graphed),
+            "the chunked render through K1 differs from its graphed view 0")
+
+    def diff(a, b, branch):
+        return max(float((maps[a][k + branch] - maps[b][k + branch])
+                         .abs().max()) for k in ("rgb_map", "acc_map",
+                                                 "depth_map"))
+
+    res = {"raw_rel": {m: e[0] / e[1] for m, e in raw.items()},
+           "coarse_maps": diff("k1", "plain", "_c"),
+           "fine_maps_same_rows": diff("k1", "k1_coarse", "_f"),
+           "fine_maps_whole_render": diff("k1", "plain", "_f"),
+           "fine_samples_moved": max(
+               float((a - b).abs().max())
+               for a, b in zip(fine_pts["k1"], fine_pts["plain"]))}
+    for m, rel in res["raw_rel"].items():
+        require(rel <= TOL_TRAINED_RAW_REL, f"chunked view 0: K1's {m} raw "
+                f"vs the plain Network {rel} of max|raw| > "
+                f"{TOL_TRAINED_RAW_REL}")
+    for k in ("coarse_maps", "fine_maps_same_rows"):
+        require(res[k] <= TOL_EVAL_MAPS, f"chunked view 0 through K1 vs the "
+                f"plain Network: {k} differ by {res[k]} > {TOL_EVAL_MAPS}")
+    print("chunked (Trainer.val) view 0, K1 vs plain Network (cuBLAS f32), "
+          f"tol raw {TOL_TRAINED_RAW_REL} of max|raw|, maps "
+          f"{TOL_EVAL_MAPS}: " + json.dumps(res))
+
+
+def phase_eval_graphs(torch, np, tmp, data, ngp_run):
+    """Phase 15: the eval renders as CUDA graphs (cwd: tmp, where phase 6
+    saved logs/lego/). Phase 7's three routes (``Renderer.aot_register_eval``
+    of the march) and ``Trainer.val``'s chunked render of the trained f32
+    checkpoint, on both 200x200 test views; the NGP val of phase 11's run
+    (a) (``NGPTrainer.aot_register_render``). K1/K3a launch counts reset
+    right before the graphed views and read right after."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.evaluators import make_evaluator
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.renderer.volume import make_renderer
+    from nerf_replication_tpu_torch.train.checkpoint import (
+        load_trained_network,
+    )
+    from nerf_replication_tpu_torch.train.ngp import NGPTrainer
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    cfg0 = make_cfg(lego, _eval_opts(data, tmp))
+    net, _ = load_trained_network(cfg0, DEVICE, verbose=False)
+    test_ds = make_dataset(cfg0, "test")
+    batches = [test_ds.image_batch(i) for i in range(len(test_ds))]
+    views = [torch.from_numpy(b["rays"]).to(DEVICE) for b in batches]
+    near, far = float(batches[0]["near"]), float(batches[0]["far"])
+    n_rays = views[0].shape[0]
+    rows, counts = {}, {}
+    for route, extra in EVAL_ROUTES + (("chunked (Trainer.val)", None),):
+        cfg = make_cfg(lego, _eval_opts(data, tmp, extra or []))
+        grid = extra is not None
+
+        def make(cfg=cfg, grid=grid):
+            r = make_renderer(cfg, net)
+            if grid:
+                require(r.load_occupancy_grid(os.path.join(
+                    "logs", "lego", "occupancy_grid.npz")), "grid")
+
+            def render(rays):
+                with torch.no_grad():
+                    return r.render_accelerated({"rays": rays, "near": near,
+                                                 "far": far})
+            render.renderer = r
+            return render
+
+        def register(render, reg, grid=grid):
+            r = render.renderer
+            r.aot_register_eval(reg, n_rays, near, far, chunked=not grid)
+            reg.compile_all()
+            require(r.aot_install(reg) == 1, "eval entry not installed")
+            fmlp.reset_launch_counts()
+
+        rows[route], graphed = _graphed_views(torch, np, route, make,
+                                              register, views)
+        counts[route] = dict(fmlp.LAUNCHES)
+    _chunked_vs_plain(torch, make_cfg, lego, _eval_opts(data, tmp), net,
+                      views[0], near, far, graphed)
+    for route, c in counts.items():
+        key = "fused_mlp_fwd_masked" if "packed" in route else "fused_mlp_fwd"
+        require(c[key] > 0, f"graphed eval {route} never launched {key}")
+
+    # the NGP val of run (a): its entry captured once, both views replayed
+    cfg = ngp_run["cfg"]
+    state = ngp_run["state"]
+    ngp = {}
+    for mode in ("eager", "graphed"):
+        trainer = NGPTrainer(cfg, state.network)
+        if mode == "graphed":
+            from nerf_replication_tpu_torch.compile import AOTRegistry
+
+            trainer.aot = AOTRegistry(device=torch.device(DEVICE))
+            trainer.aot_register_render(state, n_rays)
+            require(trainer.aot.captures == 1 and not
+                    trainer.aot.summary()["errors"],
+                    f"ngp val: {trainer.aot.status()}")
+            he.reset_launch_counts()
+        times, maps = [], None
+        for rays in views:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = trainer.render_image(state, {"rays": rays})
+            out = {k: v.clone() for k, v in out.items()}
+            torch.cuda.synchronize()
+            times.append(round((time.perf_counter() - t0) * 1e3, 2))
+            if maps is None:
+                maps = out
+        result = trainer.val(state, make_dataset(cfg, "test"),
+                             make_evaluator(cfg), log=lambda _s: None)
+        ngp[mode] = {"net_time_ms": times, "maps": maps, "val": result}
+        if mode == "graphed":
+            (name,) = trainer.aot.names()
+            require(trainer.aot.captures == 1
+                    and trainer.aot.take(name).replays == 2 * len(views),
+                    f"ngp val: captures {trainer.aot.captures}, replays "
+                    f"{trainer.aot.take(name).replays}")
+            counts["ngp val"] = {"hash_encode_fwd":
+                                 he.LAUNCHES["hash_encode_fwd"]}
+    a, b = ngp["eager"]["maps"], ngp["graphed"]["maps"]
+    require(all(torch.equal(a[k], b[k]) for k in a),
+            "ngp val: graphed maps differ from eager ones")
+    require(ngp["eager"]["val"] == ngp["graphed"]["val"],
+            f"ngp val: {ngp['eager']['val']} vs {ngp['graphed']['val']}")
+    rows["ngp val (run a)"] = {m: {"net_time_ms": ngp[m]["net_time_ms"]}
+                               for m in ngp}
+    rows["ngp val (run a)"]["bitwise"] = True
+    print("graphed eval, both 200x200 test views (host clock, synced; peak "
+          "= max_memory_allocated over the mode): " + json.dumps(
+              {"routes": rows, "card": smi_line()}))
+    return {"K1": sum(c["fused_mlp_fwd"] for r, c in counts.items()
+                      if r != "ngp val"),
+            "K3a": sum(c["fused_mlp_fwd_masked"] for r, c in counts.items()
+                       if r != "ngp val"),
+            "K6": counts["ngp val"]["hash_encode_fwd"]}
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -2277,11 +2729,14 @@ def main() -> int:
             _, _, k3a_launches = phase_eval(torch, np, tmp, data)
             grad_counts = phase_packed_grad(torch, np, tmp, data)
             phase_engine_routes(torch, np, tmp, data)
-            hash_counts = phase_ngp(torch, np, tmp, data)
+            hash_counts, hash_runs = phase_ngp(torch, np, tmp, data)
             os.chdir(tmp)
             prop_counts = phase_proposal(torch, np, tmp, data,
                                          f32["state"].network)
             phase_graphs(torch, np, tmp, data)
+            serve_hash_counts = phase_serve_hash(torch, np, tmp, hash_runs)
+            eval_graph_counts = phase_eval_graphs(torch, np, tmp, data,
+                                                  hash_runs["ngp_a"])
         finally:
             os.chdir(cwd)
     run_bench()
@@ -2302,13 +2757,26 @@ def main() -> int:
                            if f"({k})" in row["name"])
         row["launches"] = counts[key]
         require(row["launches"] > 0, f"{row['name']} never launched")
+        # later main paths, each launching the kernel: the proposal path
+        # (phase 12; K1, K2, K3a), the graphed eval (phase 15; K1, K3a, and
+        # K6 in the NGP val) and serving the hash checkpoints (phase 14;
+        # K6, and K4 on the gather route)
+        paths = {}
         if kernel in ("K1", "K2", "K3a"):
-            # the proposal path (phase 12) is a main path of these three
+            paths["proposal"] = prop_counts[key]
+        if kernel in ("K1", "K3a"):
+            paths["eval_graphed"] = eval_graph_counts[kernel]
+        if kernel in ("K4", "K6"):
+            paths["serving_hash"] = serve_hash_counts[kernel]
+        if kernel == "K6":
+            paths["eval_graphed"] = eval_graph_counts["K6"]
+        if paths:
             row["launches_by_path"] = {"earlier_phases": counts[key],
-                                       "proposal": prop_counts[key]}
-            row["launches"] += prop_counts[key]
-            require(prop_counts[key] > 0,
-                    f"{row['name']} never launched on the proposal path")
+                                       **paths}
+            row["launches"] += sum(paths.values())
+            for path, n in paths.items():
+                require(n > 0, f"{row['name']} never launched on the "
+                        f"{path} path")
         for k, c in parts.items():
             if f"({k})" in row["name"]:
                 row["part_launches"] = {

@@ -21,8 +21,9 @@ the rays of a chunk into one stream of M = N × cap_avg rows.
 Per-ray sums: the JAX package's ``segment_sum`` scatters the stream rows in
 order in float32; the port takes each ray's run of rows as the difference
 of one float64 prefix sum over the stream, rounded once — a few float32
-ulps from the sequential sum, deterministic on the card (a scan, no
-atomics) and free of the serial per-segment loop of
+ulps from the sequential sum, reproducible on the card (a scan in a fixed
+order, ``utils.numerics.prefix_sum``; no atomics) and free of the serial
+per-segment loop of
 ``torch.segment_reduce``, which on the card summed the ~95% padding tail of
 a sparse stream in one thread. The transmittance's prefix ``e − e0`` is
 float64 too (see :func:`_composite_stream`).
@@ -37,6 +38,7 @@ candidates and the grid culls them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .accelerated import (
     MarchOptions,
@@ -48,7 +50,7 @@ from .accelerated import (
     occupancy_sweep,
     real_rays,
 )
-from ..utils.numerics import norm3_rn
+from ..utils.numerics import norm3_rn, prefix_sum
 from .occupancy import PYRAMID_FACTORS, coarse_from_grid, world_to_voxel
 
 
@@ -192,7 +194,7 @@ def _composite_stream(apply_fn, rays_o, rays_d, occupied, t_cand, dist_cand,
     # ~1e-2 of absolute precision, so two applies that differ by an ulp
     # would composite maps ~1e-3 apart
     tau64 = tau.double()
-    c = torch.cumsum(tau64, 0)
+    c = prefix_sum(tau64)
     e = c - tau64  # exclusive prefix
 
     # per-ray segment starts: samples are (ray, t)-sorted
@@ -211,13 +213,10 @@ def _composite_stream(apply_fn, rays_o, rays_d, occupied, t_cand, dist_cand,
                          (weights * t_m)[:, None]], -1)  # [M, 5]
     # each ray's kept rows are one run [kept_start, kept_end) of the valid
     # prefix: its sum is a difference of one float64 prefix sum over the
-    # stream, rounded once (a scan: no atomics, no per-ray serial loop).
-    # One 1-D scan per column: the card scans a 1-D tensor in one device-
-    # wide pass, but a [M, 5] tensor along dim 0 one column per thread
-    zero = contrib.new_zeros((1,), dtype=torch.float64)
-    pre = torch.stack([torch.cat([zero, torch.cumsum(col, 0)])
-                       for col in contrib.double().unbind(-1)], -1)
-    sums = (pre[kept_end] - pre[kept_start]).to(f32)
+    # stream, rounded once (a scan: no atomics, no per-ray serial loop),
+    # the five columns scanned as five series along their inner axis
+    pre = F.pad(prefix_sum(contrib.double().t()), (1, 0))  # [5, M + 1]
+    sums = (pre[:, kept_end] - pre[:, kept_start]).t().to(f32)
     rgb_map, acc_map, depth_map = sums[:, 0:3], sums[:, 3], sums[:, 4]
     if options.white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])

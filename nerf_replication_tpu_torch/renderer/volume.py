@@ -34,9 +34,21 @@ admission, its fine MLP through K3a under ``fused_trunk``); else the packed
 march when ``march_coarse_block > 0`` or ``march_clip_bbox`` (its MLP
 through K3a under ``fused_trunk``); else the per-ray march (through K1 under
 ``fused_trunk``). Without a grid it is the chunked render, with the JAX
-package's message. Deliberate difference: the JAX renderer caches one jitted
-executable per (chunks, bounds, options); PyTorch runs eagerly, so the port
-builds the route per render and caches nothing.
+package's message. The built route is cached per (bounds, options), as the
+JAX renderer caches its jitted function. The ``full`` route packs the fine
+branch's weights for K5 when it is built, as the serving engine packs them
+at load: a Renderer assumes that its network's weights stay as they were
+(eval, serving); a caller that loads other weights builds a new Renderer.
+
+CUDA graphs (the JAX renderer's ``aot_register_eval`` / ``aot_install``):
+a caller registers the whole-image eval renders of one ray count and bounds
+with a ``compile.AOTRegistry``, captures them and installs them; a render
+whose chunks and bounds match an installed entry then copies its padded
+rays into the entry and replays it, any other runs eagerly. A graph closes
+over the bounds, the grid and the bbox, so loading another grid drops the
+installed marches. A replay returns the graph's static tensors: the caller
+reads them before the next replay of its registry. The ``gather`` route is
+not captured (its ``nonzero`` compaction has a data-dependent shape).
 """
 
 from __future__ import annotations
@@ -48,6 +60,11 @@ import torch
 from ..utils.numerics import cumprod, norm3_rn
 from ..utils.platform import device_scalar
 from .sampling import SamplingOptions, proposal_render_rays
+
+# the per-chunk traversal stats of the marches ([n_chunks] after map_chunks;
+# every other output is per ray)
+MARCH_STATS = ("march_candidates", "march_samples_out", "march_coarse_occ",
+               "overflow_frac")
 
 
 @dataclass(frozen=True)
@@ -268,6 +285,13 @@ class Renderer:
         # them
         self.last_march_stats: dict = {}
         self._march_sweep = 0
+        # built march routes per (near, far, march options), and the
+        # installed CUDA graphs keyed as the JAX renderer keys its
+        # executables, plus the bounds a graph closes over
+        self._march_routes: dict = {}
+        self._chunked_fns: dict = {}  # (n_chunks, chunk, near, far)
+        self._march_fns: dict = {}  # (n_chunks, chunk, near, far, options)
+        self._aot_names: dict = {}
 
     def _apply_fn(self):
         if self._fused_apply is not None:
@@ -301,13 +325,25 @@ class Renderer:
         zero-padded to the same shape, as the JAX package's ``lax.map``
         does), outputs concatenated and cut back to the N rays. Drawn
         without a generator, as the JAX package's validation renders with
-        no key: eval is deterministic."""
+        no key: eval is deterministic. Replays an installed entry of the
+        batch's chunks and bounds."""
         self.last_march_stats = {}
+        rays = batch["rays"]
+        if self._chunked_fns:
+            chunk, n_chunks = chunk_layout(rays.shape[0],
+                                           self.eval_options.chunk_size)
+            fn = self._chunked_fns.get((n_chunks, chunk, float(batch["near"]),
+                                        float(batch["far"])))
+            if fn is not None:
+                return replay_padded(fn, rays, n_chunks * chunk)
+        return map_chunks(self._chunked_route(batch["near"], batch["far"]),
+                          rays, self.eval_options.chunk_size)
+
+    def _chunked_route(self, near, far):
+        """``fn(rays_chunk) -> out``: one chunk of the chunked render."""
         apply_fn = self._apply_fn()
-        return map_chunks(
-            lambda rc: render_rays(apply_fn, rc, batch["near"], batch["far"],
-                                   None, self.eval_options),
-            batch["rays"], self.eval_options.chunk_size)
+        options = self.eval_options
+        return lambda rc: render_rays(apply_fn, rc, near, far, None, options)
 
     # -- occupancy-accelerated path (ESS + ERT) ------------------------------
 
@@ -339,7 +375,19 @@ class Renderer:
         self.occupancy_grid = torch.from_numpy(
             np.ascontiguousarray(levels[0])).to(dev)
         self.grid_bbox = torch.from_numpy(np.asarray(bbox, np.float32)).to(dev)
+        # routes and graphs close over the grid they were built on
+        self._march_routes.clear()
+        self._march_fns.clear()
+        self._aot_names = {k: v for k, v in self._aot_names.items()
+                           if v[0] != "march"}
         return True
+
+    def _march_route(self, near: float, far: float):
+        """:meth:`_build_march_fn` cached per (near, far, march options)."""
+        key = (near, far, self.march_options)
+        if key not in self._march_routes:
+            self._march_routes[key] = self._build_march_fn(near, far)
+        return self._march_routes[key]
 
     def _build_march_fn(self, near: float, far: float):
         """``fn(rays_chunk [chunk, 6]) -> out`` for one route, chosen as the
@@ -369,19 +417,76 @@ class Renderer:
         (the last one zero-padded); the chunked render when no grid is
         loaded. The per-chunk traversal stats move to
         ``last_march_stats`` and the truncation flags into the device
-        counter that :meth:`report_truncation` reads."""
+        counter that :meth:`report_truncation` reads. Replays an installed
+        entry of the batch's chunks, bounds and march options."""
         if self.occupancy_grid is None:
             return self.render_chunked(batch)
-        fn = self._build_march_fn(float(batch["near"]), float(batch["far"]))
-        out = map_chunks(fn, batch["rays"], self.march_options.chunk_size)
-        stats = {k: out.pop(k) for k in (
-            "march_candidates", "march_samples_out", "march_coarse_occ",
-            "overflow_frac") if k in out}
+        near, far = float(batch["near"]), float(batch["far"])
+        rays = batch["rays"]
+        chunk, n_chunks = chunk_layout(rays.shape[0],
+                                       self.march_options.chunk_size)
+        fn = self._march_fns.get((n_chunks, chunk, near, far,
+                                  self.march_options))
+        if fn is not None:
+            out = replay_padded(fn, rays, n_chunks * chunk)
+        else:
+            out = map_chunks(self._march_route(near, far), rays,
+                             self.march_options.chunk_size)
+        # copies: a replay's stats are its static tensors
+        stats = {k: out.pop(k).clone() for k in MARCH_STATS if k in out}
         self._march_sweep += 1
         stats["sweep"] = self._march_sweep
         self.last_march_stats = stats
         self.accumulate_truncated(out.pop("truncated"))
         return out
+
+    # -- CUDA graphs ---------------------------------------------------------
+
+    def aot_register_eval(self, registry, n_rays: int, near: float,
+                          far: float, chunked: bool = True) -> list[str]:
+        """Register the whole-image eval renders of ``n_rays`` rays at these
+        bounds with ``registry`` (JAX ``Renderer.aot_register_eval``): the
+        chunked render ``eval_chunked_{n_chunks}x{chunk}`` (unless
+        ``chunked`` is False: a caller that renders through the grid only)
+        and, with a grid loaded, the march ``eval_march_{n_chunks}x{chunk}``
+        — not for the ``gather`` route. Each entry renders the padded image
+        from one static ``[n_chunks·chunk, 6]`` ray tensor. Call
+        :meth:`aot_install` after ``registry.compile_all()``. Returns the
+        registered names."""
+        near, far = float(near), float(far)
+        dev = self._device()
+        names = []
+
+        def register(name, kind, route, chunk_size, key):
+            chunk, n_chunks = chunk_layout(int(n_rays), chunk_size)
+            name = f"{name}_{n_chunks}x{chunk}"
+            rays = torch.zeros((n_chunks * chunk, 6), dtype=torch.float32,
+                               device=dev)
+            registry.register(name, eval_entry(lambda: route, chunk), (rays,))
+            self._aot_names[name] = (kind, (n_chunks, chunk, near, far, *key))
+            names.append(name)
+
+        if chunked:
+            register("eval_chunked", "chunked", self._chunked_route(near, far),
+                     self.eval_options.chunk_size, ())
+        if (self.occupancy_grid is not None
+                and self.march_options.march_fused != "gather"):
+            register("eval_march", "march", self._march_route(near, far),
+                     self.march_options.chunk_size, (self.march_options,))
+        return names
+
+    def aot_install(self, registry) -> int:
+        """Adopt every captured eval entry (a failed capture keeps the eager
+        path). Returns the number installed."""
+        installed = 0
+        for name, (kind, key) in self._aot_names.items():
+            fn = registry.take(name)
+            if fn is None:
+                continue
+            (self._chunked_fns if kind == "chunked" else
+             self._march_fns)[key] = fn
+            installed += 1
+        return installed
 
     def accumulate_truncated(self, flags_or_count) -> None:
         """Fold per-ray truncation flags (or a count) into the on-device
@@ -471,8 +576,7 @@ def map_chunks(fn, rays: torch.Tensor, chunk_size: int) -> dict:
     padded chunks): per-ray outputs concatenated and cut back to the N
     rays, per-chunk scalars stacked into ``[n_chunks]``."""
     n = rays.shape[0]
-    chunk = min(int(chunk_size), n)
-    n_chunks = -(-n // chunk)
+    chunk, n_chunks = chunk_layout(n, chunk_size)
     pad = n_chunks * chunk - n
     if pad:
         rays = torch.cat([rays, rays.new_zeros((pad, rays.shape[-1]))], 0)
@@ -480,6 +584,35 @@ def map_chunks(fn, rays: torch.Tensor, chunk_size: int) -> dict:
     return {k: (torch.cat([o[k] for o in outs], 0)[:n] if outs[0][k].dim()
                 else torch.stack([o[k] for o in outs]))
             for k in outs[0]}
+
+
+def chunk_layout(n_rays: int, chunk_size: int) -> tuple[int, int]:
+    """``(chunk, n_chunks)`` of :func:`map_chunks` over ``n_rays`` rays."""
+    chunk = min(int(chunk_size), int(n_rays))
+    return chunk, -(-int(n_rays) // chunk)
+
+
+def eval_entry(make_route, chunk: int):
+    """``fn(rays_padded, *static) -> out``: the per-chunk route
+    ``make_route(*static)`` over the chunks of a padded image, without
+    autograd — the function a whole-image graph captures."""
+
+    def render(rays, *static):
+        with torch.no_grad():
+            return map_chunks(make_route(*static), rays, chunk)
+
+    return render
+
+
+def replay_padded(fn, rays: torch.Tensor, n_pad: int, *static) -> dict:
+    """Replay the whole-image entry ``fn`` on ``rays`` zero-padded to
+    ``n_pad``: per-ray outputs cut back to the N rays (views of the entry's
+    static outputs), the per-chunk stats whole."""
+    n = rays.shape[0]
+    if n < n_pad:
+        rays = torch.cat([rays, rays.new_zeros((n_pad - n, rays.shape[-1]))])
+    out = fn(rays, *static)
+    return {k: v if k in MARCH_STATS else v[:n] for k, v in out.items()}
 
 
 def make_renderer(cfg, network) -> Renderer:

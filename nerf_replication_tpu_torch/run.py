@@ -18,14 +18,18 @@
   score PSNR/SSIM with ``evaluators/nerf.py`` (PNGs and ``summary.json`` in
   ``result_dir``), and print the mean net_time / fps and the summary.
 
-The first view is left out of the mean net_time (the reference does the
-same; here it pays the kernels' first build). ``--device cpu`` runs the
+On the card, under ``compile.aot`` (default on), ``evaluate`` captures the
+route it renders (the march when the grid loaded, else the chunked render)
+as a CUDA graph before the timed loop and prints the registry's ``compile:``
+line; every view then replays it. The first view is left out of the mean
+net_time all the same (the reference does so). ``--device cpu`` runs the
 plain PyTorch path on the CPU. The telemetry rows of the JAX CLI come with
 port slice 10; ``--type mesh`` comes with slice 6.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 
@@ -102,8 +106,9 @@ def run_network(cfg, args=None):
 def run_evaluate(cfg, args=None):
     """Render every test view, PSNR/SSIM, summary.json. Returns the
     evaluator's summary plus ``mean_net_time_s``, ``fps``, ``n_images``,
-    ``used_grid``, ``n_truncated`` and, for a march that reports them, the
-    per-chunk traversal stats averaged over the views (``march``)."""
+    ``used_grid``, ``n_truncated``, for a march that reports them, the
+    per-chunk traversal stats averaged over the views (``march``), and the
+    registry's status after the views (``compile``; None: eager)."""
     from .evaluators import make_evaluator
     from .renderer.gate import full_image_render_fn
     from .renderer.occupancy import default_grid_path
@@ -117,6 +122,7 @@ def run_evaluate(cfg, args=None):
         grid_loaded = renderer.load_occupancy_grid(grid_path)
     render = full_image_render_fn(cfg, network, renderer, test_ds,
                                   use_grid=grid_loaded)
+    registry = _capture_eval(cfg, renderer, test_ds, dev, grid_loaded)
 
     net_times, march = [], {}
     for i in range(len(test_ds)):
@@ -143,7 +149,27 @@ def run_evaluate(cfg, args=None):
     print(result)
     return {**(result or {}), "mean_net_time_s": mean, "fps": 1.0 / mean,
             "n_images": len(net_times), "used_grid": grid_loaded,
-            "n_truncated": n_truncated, "march": march or None}
+            "n_truncated": n_truncated, "march": march or None,
+            "compile": None if registry is None else registry.status()}
+
+
+def _capture_eval(cfg, renderer, test_ds, dev, use_grid: bool):
+    """The view's render captured (``compile.aot`` on the card) and
+    installed in ``renderer``, and the registry's ``compile:`` line printed;
+    returns the registry (None: eager)."""
+    from .compile import registry_from_cfg
+
+    registry = registry_from_cfg(cfg, dev)
+    if registry is None or not registry.enabled or not len(test_ds):
+        return None
+    first = test_ds.image_batch(0)
+    renderer.aot_register_eval(registry, first["rays"].shape[0],
+                               first["near"], first["far"],
+                               chunked=not use_grid)
+    registry.compile_all()
+    renderer.aot_install(registry)
+    print("compile: " + json.dumps(registry.status()))
+    return registry
 
 
 def run_mesh(cfg, args=None):

@@ -1,6 +1,7 @@
 """Where an occupancy-accelerated eval view's time goes, on the card.
 
-    python -m nerf_replication_tpu_torch.tools.profile_eval [--hw 200]
+    python -m nerf_replication_tpu_torch.tools.profile_eval [--hw 200] \
+        [--graphed]
 
 Needs the card and ``nvcc``. Renders one lego-camera view (``--hw`` square,
 4096-ray march chunks) of lego.yaml's network at full width, random weights
@@ -20,7 +21,14 @@ short training run). For each it prints one JSON line:
   sweep's gathers, encoding, compositing);
 * ``idle_share`` = 1 − kernel time / ``view_ms``, and the kernels per view;
 * the stream's rows and occupied rows (``march_candidates``,
-  ``march_samples_out``), so K3a's skipped-tile share can be read off.
+  ``march_samples_out``), so K3a's skipped-tile share can be read off;
+* ``peak_mb``: ``max_memory_allocated`` from the renderer's build to the
+  last render (with ``--graphed``, the capture's pool included).
+
+``--graphed`` adds a second pass per route and grid (``mode: graphed``):
+the view's march registered with ``Renderer.aot_register_eval``, captured
+as a CUDA graph and replayed on every render, its maps held bitwise to the
+eager pass's.
 
 Then the nvidia-smi name/power line; ``--out PATH`` also writes the lines.
 """
@@ -59,7 +67,8 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile(torch, np, cfg, grid_np, rays, iters):
+def profile(torch, np, cfg, grid_np, rays, iters, graphed=False):
+    from ..compile import AOTRegistry
     from ..models import init_params_for, make_network
     from ..renderer.volume import make_renderer
 
@@ -67,18 +76,28 @@ def profile(torch, np, cfg, grid_np, rays, iters):
     network = make_network(cfg)
     init_params_for(cfg)(network, torch.Generator().manual_seed(0))
     network = network.to(dev).eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     renderer = make_renderer(cfg, network)
     renderer.occupancy_grid = torch.from_numpy(grid_np).to(dev)
     renderer.grid_bbox = torch.tensor(
         np.asarray(cfg.train_dataset.scene_bbox, np.float32), device=dev)
     batch = {"rays": torch.from_numpy(rays).to(dev),
              "near": float(cfg.task_arg.near), "far": float(cfg.task_arg.far)}
+    if graphed:
+        registry = AOTRegistry(device=dev)
+        renderer.aot_register_eval(registry, rays.shape[0], batch["near"],
+                                   batch["far"], chunked=False)
+        registry.compile_all()
+        if renderer.aot_install(registry) != 1:
+            raise RuntimeError(f"the view was not captured: "
+                               f"{registry.status()}")
 
     def view():
         with torch.no_grad():
             return renderer.render_accelerated(batch)
 
-    out = view()
+    out = {k: v.clone() for k, v in view().items()}
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -106,11 +125,13 @@ def profile(torch, np, cfg, grid_np, rays, iters):
              if k in ("march_candidates", "march_samples_out")}
     renderer.report_truncation(log=lambda _msg: None)
     return {
+        "mode": "graphed" if graphed else "eager",
         "view_ms": view_ms, "kernel_ms": kernels, "kernel_busy_ms": busy,
         "idle_share": max(0.0, 1.0 - busy / view_ms) if busy else None,
         "kernels_per_view": n_kernels,
+        "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
         "mean_acc": float(out["acc_map_f"].mean()), **stats,
-    }
+    }, out
 
 
 def main(argv=None) -> int:
@@ -121,6 +142,8 @@ def main(argv=None) -> int:
     parser.add_argument("--hw", type=int, default=200)
     parser.add_argument("--iters", type=int, default=3)
     parser.add_argument("--out", default="")
+    parser.add_argument("--graphed", action="store_true",
+                        help="add a pass replaying each view's CUDA graph")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -139,12 +162,19 @@ def main(argv=None) -> int:
         grid = ball_grid(128, radius)
         for route, opts in ROUTES.items():
             cfg = make_cfg(lego, opts)
-            row = {"grid": gname, "occupancy": float(grid.mean()),
-                   "route": route, "hw": args.hw,
-                   **profile(torch, np, cfg, grid, rays, args.iters),
-                   "device": torch.cuda.get_device_name(0)}
-            rows.append(row)
-            print(json.dumps(row), flush=True)
+            maps = None
+            for graphed in (False, True)[:1 + args.graphed]:
+                res, out = profile(torch, np, cfg, grid, rays, args.iters,
+                                   graphed)
+                if maps is None:
+                    maps = out
+                elif any(not torch.equal(maps[k], out[k]) for k in maps):
+                    raise RuntimeError(f"{route}: graphed maps differ")
+                row = {"grid": gname, "occupancy": float(grid.mean()),
+                       "route": route, "hw": args.hw, **res,
+                       "device": torch.cuda.get_device_name(0)}
+                rows.append(row)
+                print(json.dumps(row), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

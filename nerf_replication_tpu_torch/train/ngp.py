@@ -33,7 +33,12 @@ telemetry rows (slice 10) raise where a config asks for them. Under
 ``compile.aot`` (the JAX package's AOT registry) :func:`fit_ngp` captures
 both phase variants of the step as CUDA graphs before the loop
 (:meth:`NGPTrainer.aot_register_steps`); each step then reseeds the
-generator, fills the lr and replays. The eval render is not captured.
+generator, fills the lr and replays. It also captures the eval render of
+one test image at the eval stream cap (:meth:`NGPTrainer.
+aot_register_render`): each view copies its rays and the live grid into the
+graph and replays it; a cap that grows (derived from the carved grid, or
+doubled on an overflow) captures its own entry once. The ``gather`` eval
+route stays eager (its ``nonzero`` compaction).
 """
 
 from __future__ import annotations
@@ -52,7 +57,14 @@ from ..renderer.accelerated import (
     march_rays_accelerated,
 )
 from ..renderer.occupancy import world_to_voxel
-from ..renderer.volume import map_chunks, raw2outputs, stratified_z_vals
+from ..renderer.volume import (
+    chunk_layout,
+    eval_entry,
+    map_chunks,
+    raw2outputs,
+    replay_padded,
+    stratified_z_vals,
+)
 from ..utils.numerics import norm3_rn
 from .loss import mse, mse_to_psnr
 from .optim import make_optimizer, optimizer_step, set_lr
@@ -61,6 +73,7 @@ from .trainer import (
     _device_mem_mb,
     _later_slice,
     capture_steps,
+    validates,
 )
 
 
@@ -131,6 +144,9 @@ class NGPTrainer:
         # captured steps draw from it (registry.py)
         self._gen: torch.Generator | None = None
         self.aot = None  # compile.AOTRegistry, or None: eager steps
+        # captured eval renders per (n_chunks, chunk, eval cap); None: a
+        # capture that failed (that render stays eager)
+        self._render_fns: dict = {}
 
     # -- state ---------------------------------------------------------------
     def _bbox(self, device) -> torch.Tensor:
@@ -381,6 +397,39 @@ class NGPTrainer:
         if not capture_steps(self, state, entries):
             self._gen = None
 
+    def aot_register_render(self, state: NGPState, n_rays_image: int) -> None:
+        """Capture the eval render of one test image's ray count at the eval
+        stream cap (JAX ``ngp.py:316``), the cap first sized from the live
+        grid (:meth:`maybe_derive_eval_cap`)."""
+        if self.aot is None or not self.aot.enabled:
+            return
+        grid = state.grid_ema > self.threshold
+        self.maybe_derive_eval_cap(grid)
+        self._render_entry(grid, int(n_rays_image))
+
+    def _render_entry(self, grid: torch.Tensor, n_rays: int):
+        """The captured render of ``n_rays`` rays at the current cap,
+        registered and captured on first use (JAX compiles a new cap's
+        executable): ``ngp_render_{n_chunks}x{chunk}_cap{cap}``, the JAX
+        name. None: no registry on the card, a ``march_fused`` route
+        (``gather`` runs eagerly, ``full`` raises there) or a capture that
+        failed."""
+        if (self.aot is None or not self.aot.enabled
+                or self.eval_march.march_fused != "off"):
+            return None
+        chunk, n_chunks = chunk_layout(n_rays, self.eval_march.chunk_size)
+        key = (n_chunks, chunk, self.packed_cap_avg_eval)
+        if key not in self._render_fns:
+            name = f"ngp_render_{n_chunks}x{chunk}_cap{key[2]}"
+            bbox = self._bbox(grid.device)
+            rays = torch.zeros((n_chunks * chunk, 6), dtype=torch.float32,
+                               device=grid.device)
+            render = eval_entry(lambda g: self._march_fn(g, bbox), chunk)
+            self.aot.register(name, render, (rays, grid.clone()))
+            self.aot.compile_all()
+            self._render_fns[key] = self.aot.take(name)
+        return self._render_fns[key]
+
     def multi_step(self, state: NGPState, bank_rays, bank_rgbs,
                    k_steps: int | None = None):
         """A burst of K steps in one phase; a burst never straddles the end
@@ -480,16 +529,25 @@ class NGPTrainer:
 
     def render_image(self, state: NGPState, batch: dict) -> dict:
         """Whole-image eval through the march with the live grid, in
-        ``march_chunk_size``-ray chunks. A packed stream that overflows its
-        cap doubles ``ngp_packed_cap_avg_eval`` and re-renders (at most 3
-        times; the raised cap persists). Returns the per-ray maps."""
+        ``march_chunk_size``-ray chunks: the captured render of the current
+        cap when the registry is on the card, else eagerly. A packed stream
+        that overflows its cap doubles ``ngp_packed_cap_avg_eval`` and
+        re-renders (at most 3 times; the raised cap persists). Returns the
+        per-ray maps (a replay's: read them before the next replay)."""
         grid = state.grid_ema > self.threshold
         self.maybe_derive_eval_cap(grid)
         bbox = self._bbox(grid.device)
         rays = batch["rays"]
+        chunk, n_chunks = chunk_layout(rays.shape[0],
+                                       self.eval_march.chunk_size)
         for attempt in range(4):
-            out = map_chunks(self._march_fn(grid, bbox), rays,
-                             self.eval_march.chunk_size)
+            # the cap is part of the entry's key: an escalation never
+            # replays the outgrown entry
+            fn = self._render_entry(grid, rays.shape[0])
+            if fn is not None:
+                out = replay_padded(fn, rays, n_chunks * chunk, grid)
+            else:
+                out = map_chunks(self._march_fn(grid, bbox), rays, chunk)
             overflow = out.pop("overflow_frac", None)
             max_of = float(overflow.max()) if overflow is not None else 0.0
             if max_of <= 0.0 or attempt == 3:
@@ -611,14 +669,11 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
 
     train_ds = make_dataset(cfg, "train")
     bank = tuple(torch.from_numpy(a).to(dev) for a in train_ds.ray_bank())
-    # CUDA graphs: both phase variants captured before the loop
-    # (compile.aot; a disabled registry on the CPU)
+    # CUDA graphs: both phase variants and the eval render captured before
+    # the loop (compile.aot; a disabled registry on the CPU)
     trainer.aot = registry_from_cfg(cfg, dev)
     trainer.aot_register_steps(state, bank)
-    if trainer.aot is not None and trainer.aot.names():
-        log("compile: " + json.dumps(trainer.aot.status()))
     test_ds = make_dataset(cfg, "test")
-
     epochs = int(cfg.train.epoch)
     ep_iter = int(cfg.get("ep_iter", 500))
     if ep_iter <= 0:
@@ -626,6 +681,10 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
     save_ep = int(cfg.get("save_ep", 40))
     save_latest_ep = int(cfg.get("save_latest_ep", 10))
     eval_ep = int(cfg.get("eval_ep", 10))
+    if evaluator is not None and validates(begin_epoch, epochs, eval_ep):
+        trainer.aot_register_render(state, int(test_ds.H) * int(test_ds.W))
+    if trainer.aot is not None and trainer.aot.names():
+        log("compile: " + json.dumps(trainer.aot.status()))
     log_interval = int(cfg.get("log_interval", 20))
     finite_guard = bool(cfg.get("resil", {}).get("finite_guard", True))
     for epoch in range(begin_epoch, epochs):

@@ -25,15 +25,18 @@ optimizer step whose lr is the schedule at the step count (optax's order).
   reseeds, so a burst replays one captured step K times), with the same
   numerics.
 * Validation renders whole test images through the render gate
-  (``renderer/gate.py``) and feeds the evaluator.
+  (``renderer/gate.py``) and feeds the evaluator; under ``compile.aot``
+  :func:`fit` captures the test view's chunked render beside the steps
+  (:meth:`Trainer.aot_register_val`), and every view replays it.
 
 ``task_arg.ngp_training`` routes :func:`fit` to ``ngp.fit_ngp`` (the
 occupancy-accelerated trainer with a live grid), as the JAX package does.
 
 Not in the port yet, each raising ``NotImplementedError`` where a run asks
-for it: a mesh of several cards (slice 7), ``pretrain`` warm starts, and the
-divergence rollback (slice 10) — a non-finite loss stops the run. The
-SIGTERM checkpoint flush (slice 10) is not installed.
+for it: a mesh of several cards (slice 7), ``pretrain`` warm starts, the
+profiler window ``train.profile`` and the divergence rollback (slice 10) — a
+non-finite loss stops the run. The SIGTERM checkpoint flush (slice 10) is
+not installed.
 """
 
 from __future__ import annotations
@@ -235,6 +238,19 @@ class Trainer:
         if not capture_steps(self, state, entries):
             self._gen = None
 
+    def aot_register_val(self, test_dataset) -> None:
+        """Capture the chunked render of one test view (every view has its
+        ray count and bounds) in the steps' registry and pool
+        (``Renderer.aot_register_eval``); :meth:`val` then replays it."""
+        if self.aot is None or not self.aot.enabled or not len(test_dataset):
+            return
+        batch = test_dataset.image_batch(0)
+        renderer = self.loss.renderer
+        renderer.aot_register_eval(self.aot, batch["rays"].shape[0],
+                                   batch["near"], batch["far"])
+        self.aot.compile_all()
+        renderer.aot_install(self.aot)
+
     def multi_step(self, state: TrainState, bank_rays, bank_rgbs,
                    k_steps: int | None = None):
         """A burst of ``k_steps`` steps (``scan_steps`` by default); returns
@@ -345,6 +361,12 @@ def _device_mem_mb(device) -> float | None:
     return torch.cuda.max_memory_allocated(device) / 2**20
 
 
+def validates(begin_epoch: int, epochs: int, eval_ep: int) -> bool:
+    """Whether an epoch loop from ``begin_epoch`` to ``epochs`` runs a
+    validation (the fit loops capture the eval render only then)."""
+    return any((e + 1) % eval_ep == 0 for e in range(begin_epoch, epochs))
+
+
 def _check_single_card(cfg) -> None:
     par = cfg.get("parallel", {})
     if int(par.get("model_axis", 1)) > 1 or int(par.get("data_axis", -1)) > 1:
@@ -376,6 +398,8 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
             "pretrain warm starts read the JAX package's Orbax checkpoints, "
             "which the port does not"
         )
+    if int(cfg.train.get("profile", {}).get("start_step", -1)) >= 0:
+        raise _later_slice("train.profile (the profiler window)", 10)
     dev = resolve_device(device)
 
     if network is None:
@@ -405,18 +429,19 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
         frac = float(cfg.task_arg.get("precrop_frac", 0.5))
         pool = torch.from_numpy(
             np.asarray(train_ds.precrop_index_pool(frac))).to(dev)
-    # CUDA graphs: every step of this run captured before the loop
-    # (compile.aot; a disabled registry on the CPU)
+    # CUDA graphs: every step of this run and the validation render
+    # captured before the loop (compile.aot; a disabled registry on the CPU)
     trainer.aot = registry_from_cfg(cfg, dev)
     trainer.aot_register_steps(state, bank, pool=pool)
-    if trainer.aot is not None and trainer.aot.names():
-        log("compile: " + json.dumps(trainer.aot.status()))
     test_ds = make_dataset(cfg, "test")
-
     epochs = int(cfg.train.epoch)
     save_ep = int(cfg.get("save_ep", 40))
     save_latest_ep = int(cfg.get("save_latest_ep", 10))
     eval_ep = int(cfg.get("eval_ep", 10))
+    if evaluator is not None and validates(begin_epoch, epochs, eval_ep):
+        trainer.aot_register_val(test_ds)
+    if trainer.aot is not None and trainer.aot.names():
+        log("compile: " + json.dumps(trainer.aot.status()))
     for epoch in range(begin_epoch, epochs):
         recorder.epoch = epoch
         try:

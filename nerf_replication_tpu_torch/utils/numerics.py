@@ -15,11 +15,20 @@ root (53 ≥ 2·24 + 2 bits, so the double rounding is harmless).
 ``cumprod`` is ``torch.cumprod`` along the last axis with a backward that
 the card runs without asking the host anything, so that a train step can
 be captured in a CUDA graph (the compositing transmittances).
+
+``prefix_sum`` is ``torch.cumsum`` along the last axis whose additions come
+in an order fixed by the shape, run after run (the packed march's float64
+stream sums; the CPU and the card each take theirs): a 1-D float
+``torch.cumsum`` on CUDA is CUB's single-pass scan, whose decoupled
+look-back takes a predecessor tile's inclusive prefix or adds up its
+aggregates as timing has it, so two runs can differ in the last bit (a
+200×200 packed view: a few rays a float32 ulp apart).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -76,3 +85,26 @@ def cumprod(x: torch.Tensor) -> torch.Tensor:
     """``torch.cumprod(x, -1)`` (the same forward) whose gradient needs no
     host synchronisation (:class:`_Cumprod`)."""
     return _Cumprod.apply(x)
+
+
+# row length of prefix_sum's blocked scan
+SCAN_ROW = 1024
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of ``x [..., n]`` along its last axis: each
+    series cut into rows of ``SCAN_ROW`` (at least two), each row scanned,
+    plus the prefix of the earlier rows' totals, taken the same way over
+    the series and a zero series. A scan along the inner axis of a tensor
+    that holds more than one row takes PyTorch's per-row kernel, which adds
+    in an order fixed by the shape; only a tensor that is a single row goes
+    to the 1-D scan."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    rows = max(2, -(-n // SCAN_ROW))
+    inner = torch.cumsum(F.pad(x, (0, rows * SCAN_ROW - n))
+                         .reshape(*lead, rows, SCAN_ROW), -1)
+    before = F.pad(inner[..., :-1, -1], (1, 0)).reshape(-1, rows)
+    offset = torch.cumsum(torch.cat([before, torch.zeros_like(before[:1])]),
+                          -1)[:-1]
+    return (inner + offset.reshape(*lead, rows, 1)).reshape(
+        *lead, rows * SCAN_ROW)[..., :n]
