@@ -139,6 +139,31 @@ imports nothing of JAX. Phases, each fatal on failure:
    phase, phase 7's ``run_evaluate`` and every fit's validation replay
    their captured view too (their registry lines are checked).
 
+16. the ops layers (``obs/``, ``resil/``), their K1/K2/K5/K6/K6b launch
+   counts reset right before and read right after (the eager reference
+   steps of (c) and (e) left out): (a) lego f32 graphed through ``python -m
+   nerf_replication_tpu_torch.train`` (2 epochs of 30 steps): every row of
+   its ``telemetry.jsonl`` valid, a ``memory`` row per epoch with the
+   card's allocator numbers, ``step`` rows with the dispatch/block split,
+   no ``compile`` row after the first step, its step ms beside phase 13's
+   graphed lego f32 step; (b) ``train.profile`` over steps [20, 25): the
+   Chrome trace's K1 / K2a / K2b kernel events are 5 x the launches a step;
+   (c) a ``nan_loss`` fault in epoch 1: one rollback with its ``fault``
+   rows, no capture after it, a finite final loss, and the first graphed
+   step after the restore bitwise an eager step from the restored
+   checkpoint; (d) SIGTERM from a row tap at step 15 of the train CLI:
+   ``latest.pt`` and its checksum sidecar flushed, exit 0, and the resumed
+   run's final weights bitwise (a)'s; (e) NGP f32 per-ray (K6/K6b) with
+   one ``nan_loss`` rollback: the step after the restore (grid EMA, weights,
+   the phase sidecar's phase) within 1e-5 relative Frobenius of an eager
+   step from the restored checkpoint; (f) a lego engine (``full``, K5)
+   behind the batcher with tracing, metrics and the flight recorder:
+   ``serve.dispatch`` io_errors open the breaker (a flight dump), which
+   sheds, goes half open and closes, with no capture in the engine; the
+   spans under their requests; the HTTP entry's ``/metrics`` (Prometheus
+   text) and ``/healthz`` (its ``slo`` block); (g) ``run --type evaluate``
+   writes ``run_meta`` and ``eval`` rows. One line with all of it.
+
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
 as a subprocess; its JSON line is printed before the kernels line.
@@ -158,7 +183,8 @@ one product at the CUDA cores' float32 peak (the earlier chain's).
 
 Prints a ``{"kernels": [...]}`` line (with launches by path: K1, K2 and
 K3a on the proposal path, K1 and K3a on the graphed eval, K6 on the graphed
-NGP val and on hash serving, K4 on hash serving's ``gather`` route), the
+NGP val and on hash serving, K4 on hash serving's ``gather`` route, K1, K2,
+K5, K6 and K6b on the ops phase), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1055,22 +1081,50 @@ def _compile_status(logs, label):
     return st
 
 
+class _Rows:
+    """The telemetry rows emitted inside the block, read through a row tap
+    (``obs.add_row_tap``); ``of(kind)`` filters them."""
+
+    def __enter__(self):
+        from nerf_replication_tpu_torch.obs import add_row_tap
+
+        self.rows = []
+        add_row_tap(self.rows.append)
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_replication_tpu_torch.obs import remove_row_tap
+
+        remove_row_tap(self.rows.append)
+
+    def of(self, kind):
+        return [r for r in self.rows if r["kind"] == kind]
+
+
+def _step_times(rows):
+    """Host wall time per step between consecutive ``step`` rows (each row
+    follows the stats read that synchronises with the card; log_interval
+    1), the first row's step dropped."""
+    return [(b["t"] - a["t"]) / b["k"] for a, b in zip(rows, rows[1:])]
+
+
 def _fit_run(torch, np, lego, opts, label):
     from nerf_replication_tpu_torch.config import make_cfg
     from nerf_replication_tpu_torch.train.trainer import fit
 
     cfg = make_cfg(lego, opts)
-    rows = []
     logs = []
     t0 = time.perf_counter()
-    state = fit(cfg, device=DEVICE, emit=rows.append, log=logs.append)
+    with _Rows() as tapped:
+        state = fit(cfg, device=DEVICE, log=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rows = tapped.of("step")
     losses = [r["stats"]["loss"] for r in rows]
     require(len(rows) == state.step, f"{label}: {len(rows)} rows for "
             f"{state.step} steps")
     require(all(np.isfinite(losses)), f"{label}: non-finite loss")
-    times = [r["step_time_s"] for r in rows[3:]]
+    times = _step_times(rows)[2:]
     med = float(np.median(times)) * 1e3
     n_rays = int(cfg.task_arg.N_rays)
     st = _compile_status(logs, label)
@@ -1258,9 +1312,7 @@ def phase_eval(torch, np, tmp, data):
     from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
     from nerf_replication_tpu_torch.renderer.volume import make_renderer
     from nerf_replication_tpu_torch.run import run_evaluate
-    from nerf_replication_tpu_torch.train.checkpoint import (
-        load_trained_network,
-    )
+    from nerf_replication_tpu_torch.utils.setup import load_trained_network
 
     lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
     args = SimpleNamespace(cfg_file=lego, device=DEVICE)
@@ -1338,9 +1390,7 @@ def phase_packed_grad(torch, np, tmp, data):
     from nerf_replication_tpu_torch.renderer.occupancy import (
         load_occupancy_pyramid,
     )
-    from nerf_replication_tpu_torch.train.checkpoint import (
-        load_trained_network,
-    )
+    from nerf_replication_tpu_torch.utils.setup import load_trained_network
 
     lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
     cfg = make_cfg(lego, _eval_opts(data, tmp, EVAL_ROUTES[1][1]))
@@ -1590,12 +1640,14 @@ def _ngp_run(torch, np, cfg_name, opts, label):
     from nerf_replication_tpu_torch.train.trainer import fit
 
     cfg = make_cfg(os.path.join(REPO, "configs", "nerf", cfg_name), opts)
-    rows, logs = [], []
+    logs = []
     he.reset_launch_counts()
     t0 = time.perf_counter()
-    state = fit(cfg, device=DEVICE, emit=rows.append, log=logs.append)
+    with _Rows() as tapped:
+        state = fit(cfg, device=DEVICE, log=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    rows = tapped.of("step")
     counts = dict(he.LAUNCHES)
     losses = [r["stats"]["loss"] for r in rows]
     require(len(rows) == state.step, f"{label}: {len(rows)} rows for "
@@ -1605,9 +1657,9 @@ def _ngp_run(torch, np, cfg_name, opts, label):
     by_phase = {}
     for phase in ("warm", "march", "step"):
         # NGP rows carry the phase; the ordinary trainer's are plain steps
-        times = [r["step_time_s"] for r in rows if
-                 {True: "warm", False: "march"}.get(r.get("warm")) == phase
-                 or (phase == "step" and "warm" not in r)]
+        times = [dt for r, dt in zip(rows[1:], _step_times(rows)) if
+                 {True: "warm", False: "march"}.get(r["stats"].get("warm"))
+                 == phase or (phase == "step" and "warm" not in r["stats"])]
         if len(times) > 3:
             med = float(np.median(times[3:])) * 1e3
             by_phase[phase] = {"steps": len(times), "median_step_ms": med,
@@ -1636,7 +1688,7 @@ def phase_ngp(torch, np, tmp, data):
         "task_arg.ngp_warmup_max", "30", "task_arg.ngp_grid_decay", "0.1",
         "ep_iter", "50", "train.epoch", "2", "eval_ep", "2", "save_ep", "2",
         "save_latest_ep", "2"]), "a: lego_hash f32 per-ray")
-    warm = [r["warm"] for r in a["rows"]]
+    warm = [r["stats"]["warm"] for r in a["rows"]]
     require(warm == [True] * 30 + [False] * 70, "(a) did not run 30 warm "
             "then 70 march steps")
     first, last = float(np.mean(a["losses"][:10])), float(
@@ -2567,9 +2619,7 @@ def phase_eval_graphs(torch, np, tmp, data, ngp_run):
     from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
     from nerf_replication_tpu_torch.ops import hash_encode as he
     from nerf_replication_tpu_torch.renderer.volume import make_renderer
-    from nerf_replication_tpu_torch.train.checkpoint import (
-        load_trained_network,
-    )
+    from nerf_replication_tpu_torch.utils.setup import load_trained_network
     from nerf_replication_tpu_torch.train.ngp import NGPTrainer
 
     lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
@@ -2669,6 +2719,557 @@ def phase_eval_graphs(torch, np, tmp, data, ngp_run):
             "K6": counts["ngp val"]["hash_encode_fwd"]}
 
 
+# the SIGTERM run of phase 16 (d): the train CLI, with a row tap that sends
+# the process SIGTERM as the step-OPS_SIGTERM_STEP row goes out
+_SIGTERM_DRIVER = """
+import os, signal, sys
+sys.path.insert(0, {repo!r})
+from nerf_replication_tpu_torch.obs import add_row_tap
+
+
+def tap(row):
+    if row["kind"] == "step" and row["step"] == {step}:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+add_row_tap(tap)
+from nerf_replication_tpu_torch.train.__main__ import main
+sys.exit(main(sys.argv[1:]))
+"""
+OPS_SIGTERM_STEP = 15
+# K1 / K2a / K2b kernel symbols in the profiler's trace (csrc/fused_mlp.cu,
+# csrc/fused_mlp_bwd.cu) and the launch counters they match
+TRACE_KERNELS = {"fused_mlp_fwd_kernel": "fused_mlp_fwd",
+                 "fused_mlp_bwd_rows_kernel": "fused_mlp_bwd_rows",
+                 "fused_mlp_bwd_dw_kernel": "fused_mlp_bwd_dw"}
+
+
+def _telemetry(cfg):
+    from nerf_replication_tpu_torch.obs import validate_row
+
+    path = os.path.join(str(cfg.record_dir), "telemetry.jsonl")
+    require(os.path.exists(path), f"no telemetry at {path}")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        errs = validate_row(r)
+        require(not errs, f"telemetry row {r['kind']} invalid: {errs}")
+    return rows
+
+
+def _net_tensors(torch, net):
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def _bitwise(torch, a, b, label):
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    require(not bad, f"{label}: differ bitwise in {bad[:4]}")
+
+
+class _Snapshots:
+    """A row tap for a rollback: on the ``rollback`` fault row, keeps a copy
+    of ``latest.pt`` (the checkpoint about to be restored) and, on the next
+    ``step`` row, the live network's tensors (and ``grid()``'s) after the
+    first step taken from the restored state."""
+
+    def __init__(self, torch, model_dir, keep_dir, net, grid=None):
+        self.torch, self.model_dir, self.keep_dir = torch, model_dir, keep_dir
+        self.net, self.grid = net, grid
+        self.after, self.after_step, self.rolled = None, None, 0
+
+    def __call__(self, row):
+        import shutil
+
+        if row["kind"] == "fault" and row["fault"] == "rollback":
+            self.rolled += 1
+            os.makedirs(self.keep_dir, exist_ok=True)
+            for f in os.listdir(self.model_dir):
+                if f.startswith("latest"):
+                    shutil.copy(os.path.join(self.model_dir, f),
+                                self.keep_dir)
+        elif (row["kind"] == "step" and self.rolled
+              and self.after is None):
+            self.after = _net_tensors(self.torch, self.net)
+            if self.grid is not None:
+                self.after["grid_ema"] = self.grid().detach().clone()
+            self.after_step = row["step"]
+
+
+def phase_ops(torch, np, tmp, data, graphed_step_ms):
+    """Phase 16: the ops layers (obs/, resil/) on the lego fit (K1/K2), the
+    NGP fit (K6/K6b), serving (K5) and the eval CLI (cwd: tmp)."""
+    from nerf_replication_tpu_torch import resil
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.obs import add_row_tap, remove_row_tap
+    from nerf_replication_tpu_torch.ops import fused_march as fm
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.train.trainer import fit
+
+    t_phase = time.perf_counter()
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    out = os.path.join(tmp, "out_ops")
+    steps_ep = 30
+
+    def lego_opts(exp, extra=()):
+        return _train_opts(data, out, exp) + [
+            "task_arg.precrop_iters", "0", "ep_iter", str(steps_ep),
+            "train.epoch", "2", "eval_ep", "100", "save_ep", "1",
+            "save_latest_ep", "1", *extra]
+
+    report = {"card": smi_line()}
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    # (a) lego f32 graphed through the train CLI, telemetry on
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "nerf_replication_tpu_torch.train",
+         "--cfg_file", lego, "--device", DEVICE, *lego_opts("ops_a")],
+        capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
+    require(res.returncode == 0, f"ops (a): the train CLI failed "
+            f"(rc {res.returncode}): {res.stderr[-2000:]}")
+    cfg_a = make_cfg(lego, lego_opts("ops_a"))
+    rows = _telemetry(cfg_a)
+    kinds = [r["kind"] for r in rows]
+    steps = [r for r in rows if r["kind"] == "step"]
+    require(len(steps) == 2 * steps_ep, f"ops (a): {len(steps)} step rows")
+    require(all(r["dispatch_s"] >= 0 and r["block_s"] >= 0 for r in steps),
+            "ops (a): a step row lacks its dispatch/block split")
+    first = kinds.index("step")
+    late = [r["name"] for r in rows[first:] if r["kind"] == "compile"]
+    require(not late, f"ops (a): compile rows after the first step: {late}")
+    early = [r for r in rows[:first] if r["kind"] == "compile"]
+    mem = [r for r in rows if r["kind"] == "memory"]
+    require(len(mem) == 2, f"ops (a): memory rows {mem}")
+    meta = rows[0]
+    require(meta["kind"] == "run_meta", f"ops (a): first row {meta}")
+    on_card = DEVICE == "cuda"  # else a CPU rehearsal of the phase
+    if on_card:
+        require(any(r.get("phase") == "capture" for r in early),
+                "ops (a): no capture row before the first step")
+        require(all(r["devices"] and r["devices"][0]["bytes_in_use"] > 0
+                    and r["devices"][0]["peak_bytes_in_use"] > 0
+                    and r["devices"][0]["bytes_limit"] > 0 for r in mem),
+                f"ops (a): memory rows {mem}")
+        require(meta["platform"] == "gpu" and meta["device_kind"]
+                == torch.cuda.get_device_name(0), f"ops (a): run_meta {meta}")
+    step_ms = float(np.median(_step_times(steps)[2:])) * 1e3
+    report["a"] = {"rows": len(rows), "kinds": sorted(set(kinds)),
+                   "compile_rows": len(early),
+                   "step_ms_telemetry_on": round(step_ms, 3),
+                   "step_ms_graphed_phase13": graphed_step_ms,
+                   "memory_row": mem[-1]["devices"],
+                   "wall_s": round(time.perf_counter() - t0, 1)}
+    print(f"ops (a): lego f32 through the train CLI, {len(rows)} rows, all "
+          f"valid, no compile row after the first step; step "
+          f"{step_ms:.3f} ms with telemetry on against phase 13's graphed "
+          f"{graphed_step_ms} ms")
+
+    fmlp.reset_launch_counts()
+    fm.reset_launch_counts()
+    he.reset_launch_counts()
+    # (b) the profiler window over steps [20, 25) of one epoch
+    t0 = time.perf_counter()
+    cfg_b = make_cfg(lego, lego_opts("ops_b", [
+        "train.epoch", "1", "train.profile.start_step", "20",
+        "train.profile.num_steps", "5"]))
+    # the launches a step: the counters' change between the step-10 and
+    # step-20 rows (the capture's warm-up step launched before step 1)
+    marks = {}
+
+    def mark(row):
+        if row["kind"] == "step" and row["step"] in (10, 20):
+            marks[row["step"]] = dict(fmlp.LAUNCHES)
+
+    add_row_tap(mark)
+    try:
+        fit(cfg_b, device=DEVICE, log=lambda _s: None)
+    finally:
+        remove_row_tap(mark)
+    per_step = {k: (marks[20][k] - marks[10][k]) / 10
+                for k in TRACE_KERNELS.values()}
+    trace = os.path.join(str(cfg_b.record_dir), "profile", "trace.json")
+    require(os.path.exists(trace), f"ops (b): no trace at {trace}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    counts = {sym: sum(1 for e in kern if sym in e["name"])
+              for sym in TRACE_KERNELS}
+    want = {sym: 5 * per_step[key] for sym, key in TRACE_KERNELS.items()}
+    require(counts == want and (all(v > 0 for v in want.values())
+                                or not on_card),
+            f"ops (b): kernel events in the window {counts}, want 5 x the "
+            f"launches a step {want}")
+    # the host's annotations (the card's copies are gpu_user_annotation)
+    dispatches = sum(1 for e in events
+                     if e.get("name") == "train/step_dispatch"
+                     and e.get("cat") == "user_annotation")
+    require(dispatches == 5, f"ops (b): {dispatches} step dispatches traced")
+    report["b"] = {"kernel_events": counts, "launches_per_step": per_step,
+                   "kernel_events_total": len(kern),
+                   "wall_s": round(time.perf_counter() - t0, 1)}
+    print(f"ops (b): the window traced {counts} kernel events = 5 x "
+          f"{per_step} launches a step, in 5 graphed steps")
+
+    # (c) a nan_loss rollback in epoch 1: one rollback, no capture after
+    # it, and the first graphed step after the restore equal to an eager
+    # step from the restored checkpoint
+    t0 = time.perf_counter()
+    cfg_c = make_cfg(lego, lego_opts("ops_c"))
+    net_c = make_network(cfg_c)
+    snap = _Snapshots(torch, cfg_c.trained_model_dir,
+                      os.path.join(out, "ops_c_restored"), net_c)
+    plan = resil.FaultPlan().add("train.loss", "nan_loss",
+                                 after=steps_ep + 5)
+    add_row_tap(snap)
+    try:
+        with resil.injecting(plan):
+            state_c = fit(cfg_c, network=net_c, device=DEVICE,
+                          log=lambda _s: None)
+    finally:
+        remove_row_tap(snap)
+    rows_c = _telemetry(cfg_c)
+    faults = [(r["fault"], r["injected"]) for r in rows_c
+              if r["kind"] == "fault"]
+    require(faults == [("nan_loss", True), ("rollback", False)],
+            f"ops (c): fault rows {faults}")
+    roll = next(i for i, r in enumerate(rows_c) if r.get("fault") ==
+                "rollback")
+    late = [r["name"] for r in rows_c[roll:] if r["kind"] == "compile"]
+    require(not late, f"ops (c): captures after the rollback: {late}")
+    last = [r for r in rows_c if r["kind"] == "step"][-1]
+    require(state_c.step == 2 * steps_ep and np.isfinite(
+        last["stats"]["loss"]), f"ops (c): step {state_c.step}, last loss "
+        f"{last['stats']['loss']}")
+    eager = _uncounted(_eager_lego_step, torch, cfg_c, snap.keep_dir)
+    require(snap.after_step == steps_ep + 1, f"ops (c): first step after "
+            f"the rollback is {snap.after_step}")
+    _bitwise(torch, snap.after, eager, "ops (c): the graphed step after the "
+             "restore against an eager step from the restored checkpoint")
+    report["c"] = {"faults": faults, "final_loss": last["stats"]["loss"],
+                   "wall_s": round(time.perf_counter() - t0, 1)}
+    print("ops (c): one rollback, no capture after it, the graphed step "
+          "after the restore bitwise an eager step from the checkpoint; "
+          f"final loss {last['stats']['loss']:.5f}")
+
+    # (d) SIGTERM mid-epoch 0 (the train CLI), then a resume in-process:
+    # the final weights equal run (a)'s (the same config, uninterrupted)
+    t0 = time.perf_counter()
+    opts_d = lego_opts("ops_d")
+    res = subprocess.run(
+        [sys.executable, "-c", _SIGTERM_DRIVER.format(
+            repo=REPO, step=OPS_SIGTERM_STEP),
+         "--cfg_file", lego, "--device", DEVICE, *opts_d],
+        capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
+    require(res.returncode == 0, f"ops (d): the SIGTERM run exited "
+            f"{res.returncode}: {res.stderr[-2000:]}")
+    cfg_d = make_cfg(lego, opts_d)
+    latest = os.path.join(cfg_d.trained_model_dir, "latest.pt")
+    require(resil.verify_checksum(latest) is True,
+            "ops (d): latest.pt or its sidecar was not flushed")
+    blob = torch.load(latest, weights_only=True)
+    require((blob["step"], blob["epoch_it"]) == (OPS_SIGTERM_STEP,
+                                                 OPS_SIGTERM_STEP),
+            f"ops (d): flushed step {blob['step']} epoch_it "
+            f"{blob['epoch_it']}")
+    state_d = fit(cfg_d, device=DEVICE, log=lambda _s: None)
+    require(state_d.step == 2 * steps_ep, f"ops (d): resumed to step "
+            f"{state_d.step}")
+    whole = torch.load(os.path.join(cfg_a.trained_model_dir, "latest.pt"),
+                       weights_only=True)["network"]
+    _bitwise(torch, {k: v.cpu() for k, v in
+                     _net_tensors(torch, state_d.network).items()}, whole,
+             "ops (d): resumed against uninterrupted final weights")
+    report["d"] = {"flushed_step": blob["step"],
+                   "wall_s": round(time.perf_counter() - t0, 1)}
+    print(f"ops (d): SIGTERM at step {OPS_SIGTERM_STEP} flushed latest.pt "
+          "+ sidecar and exited 0; the resumed run's weights equal the "
+          "uninterrupted run's bitwise")
+    counts_k12 = dict(fmlp.LAUNCHES)
+
+    # (e) NGP f32 per-ray (K6/K6b), telemetry and one nan_loss rollback
+    t0 = time.perf_counter()
+    hashy = os.path.join(REPO, "configs", "nerf", "lego_hash.yaml")
+    cfg_e = make_cfg(hashy, _hash_opts(data, out, "ops_e", [
+        "task_arg.ngp_training", "true", "task_arg.ngp_warmup_steps", "20",
+        "task_arg.ngp_warmup_max", "20", "task_arg.ngp_grid_decay", "0.1",
+        "ep_iter", "25", "train.epoch", "2", "eval_ep", "100",
+        "save_ep", "1", "save_latest_ep", "1"]))
+    net_e = make_network(cfg_e)
+    holder = {}
+    snap_e = _Snapshots(torch, cfg_e.trained_model_dir,
+                        os.path.join(out, "ops_e_restored"), net_e,
+                        grid=lambda: holder["grid"])
+    plan = resil.FaultPlan().add("train.loss", "nan_loss", after=30)
+    from nerf_replication_tpu_torch.train import ngp as ngp_mod
+
+    make_state = ngp_mod.NGPTrainer.make_state
+
+    def keep(self, device):  # the live grid, for the snapshot tap
+        st = make_state(self, device)
+        holder["grid"] = st.grid_ema
+        return st
+
+    ngp_mod.NGPTrainer.make_state = keep
+    add_row_tap(snap_e)
+    try:
+        with resil.injecting(plan):
+            state_e = fit(cfg_e, network=net_e, device=DEVICE,
+                          log=lambda _s: None)
+    finally:
+        remove_row_tap(snap_e)
+        ngp_mod.NGPTrainer.make_state = make_state
+    rows_e = _telemetry(cfg_e)
+    faults = [r["fault"] for r in rows_e if r["kind"] == "fault"]
+    require(faults == ["nan_loss", "rollback"], f"ops (e): faults {faults}")
+    require(state_e.step == 50, f"ops (e): step {state_e.step}")
+    eager = _uncounted(_eager_ngp_step, torch, cfg_e, snap_e.keep_dir)
+    errs = {k: _fro_rel([snap_e.after[k]], [eager[k]]) for k in eager}
+    worst = max(errs.values())
+    require(worst <= 1e-5, f"ops (e): the step after the restore is "
+            f"{worst} (relative Frobenius) from an eager step from the "
+            f"restored checkpoint: {errs}")
+    report["e"] = {"faults": faults, "max_rel_fro": worst,
+                   "grid_ema_rel_fro": errs["grid_ema"],
+                   "wall_s": round(time.perf_counter() - t0, 1)}
+    print(f"ops (e): NGP rollback; grid_ema and the weights after the "
+          f"first step from the restore within {worst:.3g} of an eager "
+          "step from the restored checkpoint (and its phase sidecar)")
+    counts_k6 = dict(he.LAUNCHES)
+
+    # (f) serving through K5 with tracing, metrics and the breaker cycle
+    report["f"] = _ops_serving(torch, np, tmp, data, out)
+    counts_k5 = dict(fm.LAUNCHES)
+
+    # (g) the eval CLI writes run_meta and eval rows
+    t0 = time.perf_counter()
+    from nerf_replication_tpu_torch.run import main as run_main
+
+    opts_g = _eval_opts(data, tmp) + [
+        "test_dataset.cams", "[0, 1, 1]",
+        "record_dir", os.path.join(out, "ops_g_record")]
+    require(run_main(["--type", "evaluate", "--cfg_file", lego,
+                      "--device", DEVICE, *opts_g]) == 0,
+            "ops (g): run --type evaluate failed")
+    rows_g = _telemetry(make_cfg(lego, opts_g))
+    require([r["kind"] for r in rows_g] == ["run_meta", "eval"]
+            and rows_g[0]["component"] == "evaluate"
+            and np.isfinite(rows_g[1]["metrics"]["psnr"]),
+            f"ops (g): rows {rows_g}")
+    report["g"] = {"psnr": rows_g[1]["metrics"]["psnr"],
+                   "fps": rows_g[1]["fps"],
+                   "wall_s": round(time.perf_counter() - t0, 1)}
+    ops = {"K1": counts_k12["fused_mlp_fwd"],
+           "K2": counts_k12["fused_mlp_bwd"],
+           "K5": counts_k5["fused_march_full"],
+           "K6": counts_k6["hash_encode_fwd"],
+           "K6b": counts_k6["hash_encode_bwd"]}
+    report["launches"] = ops
+    report["wall_s"] = round(time.perf_counter() - t_phase, 1)
+    print("ops phase: " + json.dumps(report))
+    return ops
+
+
+def _uncounted(fn, *args):
+    """``fn(*args)`` with the kernels' launch counters left as they were:
+    the eager reference steps of phase 16 are checks, not its main path."""
+    from nerf_replication_tpu_torch.ops import fused_march, fused_mlp
+    from nerf_replication_tpu_torch.ops import hash_encode
+
+    saved = [(m.LAUNCHES, dict(m.LAUNCHES))
+             for m in (fused_march, fused_mlp, hash_encode)]
+    try:
+        return fn(*args)
+    finally:
+        for counters, before in saved:
+            counters.clear()
+            counters.update(before)
+
+
+def _eager_lego_step(torch, cfg, ckpt_dir):
+    """One eager step (no registry) of a fresh lego trainer from the
+    checkpoint in ``ckpt_dir``: the network's tensors after it."""
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.registry import load_attr
+    from nerf_replication_tpu_torch.train.checkpoint import load_model
+    from nerf_replication_tpu_torch.train.trainer import (
+        Trainer,
+        make_train_state,
+    )
+
+    net = make_network(cfg)
+    tr = Trainer(cfg, net, load_attr(cfg.loss_module, "make_loss")(cfg, net))
+    state, _, _ = load_model(ckpt_dir, make_train_state(cfg, net, DEVICE))
+    bank = tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in make_dataset(cfg, "train").ray_bank())
+    tr.step(state, bank[0], bank[1])
+    return _net_tensors(torch, net)
+
+
+def _eager_ngp_step(torch, cfg, ckpt_dir):
+    """One eager NGP burst of one step from the checkpoint (and phase
+    sidecar) in ``ckpt_dir``: the network's tensors and the grid after."""
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.train.checkpoint import (
+        load_model,
+        load_phase_state,
+    )
+    from nerf_replication_tpu_torch.train.ngp import NGPTrainer
+
+    net = make_network(cfg)
+    tr = NGPTrainer(cfg, net)
+    state, _, _ = load_model(ckpt_dir, tr.make_state(DEVICE))
+    require(tr.restore_phase(load_phase_state(ckpt_dir),
+                             expect_step=state.step),
+            "ops (e): the checkpoint's phase sidecar did not restore")
+    bank = tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in make_dataset(cfg, "train").ray_bank())
+    tr.multi_step(state, bank[0], bank[1], 1)
+    return {**_net_tensors(torch, net),
+            "grid_ema": state.grid_ema.detach().clone()}
+
+
+def _ops_serving(torch, np, tmp, data, out):
+    """Phase 16 (f): a lego engine (``full``, K5) behind the batcher with
+    tracing, metrics and the flight recorder; ``serve.dispatch`` faults
+    open the breaker, which sheds, goes half open and closes, with no
+    capture in the engine; spans descend from their requests; the HTTP
+    entry's /metrics and /healthz."""
+    import threading
+    import urllib.request
+
+    from nerf_replication_tpu_torch import resil
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.obs import (
+        configure_tracing,
+        init_run,
+        reset_metrics,
+    )
+    from nerf_replication_tpu_torch.serve import (
+        TIER_NAMES,
+        MicroBatcher,
+        engine_from_cfg,
+    )
+    from nerf_replication_tpu_torch.serve.__main__ import make_server
+    from nerf_replication_tpu_torch.tools.slice_inputs import SLICE_OPTS
+
+    t0 = time.perf_counter()
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    cfg = make_cfg(lego, _eval_opts(data, tmp, SLICE_OPTS) + [
+        "serve.buckets", "[16384]", "serve.max_batch_rays", "16384",
+        "record_dir", os.path.join(out, "ops_f_record")],
+        default_task="run")
+    flight_dir = os.path.join(out, "ops_f_flight")
+    # the HTTP entry's set-up: telemetry, metrics, tracing, flight recorder
+    emitter = init_run(cfg, component="serve")
+    reset_metrics()
+    trs = configure_tracing(enabled=True)
+    resil.install_flight_recorder(resil.FlightRecorder(flight_dir))
+    engine = engine_from_cfg(cfg, cfg_file=lego, device=DEVICE)
+    captures = engine.stats()["captures"]
+    require(captures > 0 or DEVICE != "cuda",
+            "ops (f): the engine captured nothing")
+    batch = make_dataset(cfg, "test").image_batch(0)
+    rays = batch["rays"].reshape(-1, 6)[:16384]
+    near, far = float(batch["near"]), float(batch["far"])
+    clock = {"t": 0.0}
+    breaker = resil.CircuitBreaker(threshold=2, cooldown_s=1.0,
+                                   clock=lambda: clock["t"])
+    batcher = MicroBatcher(engine, start=False, breaker=breaker)
+    seen = []
+
+    def request(root_name="serve.request"):
+        with trs.span(root_name) as root:
+            try:
+                fut = batcher.submit(rays, near, far)
+            except resil.BreakerOpenError:
+                return "shed", root
+        batcher.pump()
+        try:
+            return fut.result(60.0)["tier"], root
+        except OSError:
+            return "error", root
+
+    try:
+        plan = resil.FaultPlan().add("serve.dispatch", "io_error", after=1,
+                                     times=2)
+        with resil.injecting(plan):
+            for i in range(5):
+                if i == 4:
+                    clock["t"] += 1.5  # past the cooldown
+                status, root = request()
+                seen.append((status, breaker.state))
+        # two failures open the breaker; the probe after the cooldown runs
+        # two tiers down the ladder (the pre-open pressure) and closes it
+        require([s for s, _ in seen] == ["full", "error", "error", "shed",
+                                         TIER_NAMES[2]]
+                 and [b for _, b in seen] == ["closed", "closed", "open",
+                                              "open", "closed"],
+                 f"ops (f): {seen}")
+        require(os.path.exists(os.path.join(
+            flight_dir, "flight_breaker_open.json")),
+            "ops (f): no flight dump when the breaker opened")
+        require(engine.stats()["captures"] == captures,
+                "ops (f): the engine captured during the breaker cycle")
+        server = make_server(engine, batcher, port=0, slo_target_ms=100.0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        batcher.close(drain=False)
+        resil.uninstall_flight_recorder()
+        configure_tracing(enabled=False)
+        emitter.close()
+    rows = _telemetry(cfg)
+    spans = [r for r in rows if r["kind"] == "span"]
+    by_id = {s["span_id"]: s for s in spans}
+    mine = [s for s in spans if s["trace_id"] == root.context.trace_id]
+    names = {s["name"] for s in mine}
+    require({"serve.request", "serve.queue", "serve.batch", "serve.dispatch",
+             "serve.device", "serve.scatter"} <= names,
+            f"ops (f): spans {names}")
+    for s in mine:
+        p = s
+        while p.get("parent_id"):
+            p = by_id[p["parent_id"]]
+        require(p["span_id"] == root.context.span_id,
+                f"ops (f): span {s['name']} not under its request")
+    breaker_rows = [r["state"] for r in rows if r["kind"] == "breaker"]
+    require(breaker_rows == ["open", "half_open", "closed"],
+            f"ops (f): breaker rows {breaker_rows}")
+    samples = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+    require(samples and all(len(ln.rsplit(" ", 1)) == 2 and float(
+        ln.rsplit(" ", 1)[1]) == float(ln.rsplit(" ", 1)[1]) for ln in samples),
+        "ops (f): /metrics is not Prometheus text")
+    served = sum(float(ln.rsplit(" ", 1)[1]) for ln in samples
+                 if ln.startswith('serve_requests_total{status="ok"'))
+    require(served == 2, f"ops (f): /metrics counts {served} served "
+            "requests, not 2")
+    require("slo" in health and health["slo"]["requests"] >= 2,
+            f"ops (f): /healthz {health}")
+    ok_ms = [s["dur_s"] * 1e3 for s in mine if s["name"] == "serve.batch"]
+    row = {"statuses": seen, "captures": captures, "rows": len(rows),
+           "batch_ms": round(ok_ms[0], 3) if ok_ms else None,
+           "metrics_lines": len(samples), "slo": health["slo"],
+           "wall_s": round(time.perf_counter() - t0, 1)}
+    print(f"ops (f): breaker cycle {seen} with {captures} captures and none "
+          "added; flight dump written; spans under their requests; "
+          "/metrics and /healthz served")
+    return row
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -2733,10 +3334,13 @@ def main() -> int:
             os.chdir(tmp)
             prop_counts = phase_proposal(torch, np, tmp, data,
                                          f32["state"].network)
-            phase_graphs(torch, np, tmp, data)
+            profiles, _ = phase_graphs(torch, np, tmp, data)
             serve_hash_counts = phase_serve_hash(torch, np, tmp, hash_runs)
             eval_graph_counts = phase_eval_graphs(torch, np, tmp, data,
                                                   hash_runs["ngp_a"])
+            ops_counts = phase_ops(
+                torch, np, tmp, data,
+                profiles["f32_fused"]["graphed"]["step_ms"])
         finally:
             os.chdir(cwd)
     run_bench()
@@ -2770,6 +3374,10 @@ def main() -> int:
             paths["serving_hash"] = serve_hash_counts[kernel]
         if kernel == "K6":
             paths["eval_graphed"] = eval_graph_counts["K6"]
+        # the ops layers' runs (phase 16): lego fits (K1, K2), the NGP fit
+        # (K6, K6b) and the traced serving engine (K5)
+        if kernel in ops_counts:
+            paths["ops"] = ops_counts[kernel]
         if paths:
             row["launches_by_path"] = {"earlier_phases": counts[key],
                                        **paths}

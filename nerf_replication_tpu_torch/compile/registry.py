@@ -140,9 +140,11 @@ class AOTRegistry:
     module docstring). ``enabled=False`` (a CPU device) keeps the API and
     captures nothing: ``take`` returns None."""
 
-    def __init__(self, device=None, enabled: bool = True):
+    def __init__(self, device=None, enabled: bool = True, tracker=None):
         self.device = device
         self.enabled = enabled
+        # an obs.CompileTracker: one ``compile`` row per capture
+        self.tracker = tracker
         self.captures = 0
         self._entries: dict[str, _Entry] = {}
         self._pool = None
@@ -208,6 +210,9 @@ class AOTRegistry:
         entry.wall_s = time.perf_counter() - t0
         entry.result = CapturedFn(entry.name, graph, entry.static_inputs,
                                   outputs, delta, self.warm_source())
+        if self.tracker is not None:
+            self.tracker.note_compile(entry.name, entry.wall_s,
+                                      phase="capture")
 
     def _recover(self, dev) -> None:
         """After a failed capture: later entries take a new stream and
@@ -267,14 +272,16 @@ class AOTRegistry:
         return "disk" if kernels.builds == 0 else "compiled"
 
 
-def registry_from_cfg(cfg, device="cuda") -> AOTRegistry | None:
+def registry_from_cfg(cfg, device="cuda", tracker=None) -> AOTRegistry | None:
     """The config-gated registry (``cfg.compile.aot``): None when it is
     switched off, so callers keep their eager path; a disabled registry on
-    a CPU device."""
+    a CPU device. ``tracker`` (an ``obs.CompileTracker``) gets a
+    ``compile`` row per capture."""
     import torch
 
     c = cfg.get("compile", {})
     if not bool(c.get("aot", True)):
         return None
     dev = torch.device(device)
-    return AOTRegistry(device=dev, enabled=dev.type == "cuda")
+    return AOTRegistry(device=dev, enabled=dev.type == "cuda",
+                       tracker=tracker)

@@ -24,7 +24,7 @@ def main(argv=None) -> int:
         occupancy_stats,
         save_occupancy_grid,
     )
-    from .train.checkpoint import load_trained_network
+    from .utils.setup import load_trained_network
     from .utils.platform import resolve_device
 
     parser = make_parser()

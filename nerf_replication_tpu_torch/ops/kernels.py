@@ -11,6 +11,13 @@ at once; :func:`load` builds on first use; ``builds`` counts the ``nvcc``
 runs this process started (0 in a process that found every library on
 disk). Nothing here runs at import time.
 
+Each library carries a checksum sidecar (``resil/checksum.py``) written
+after it lands; a library whose bytes no longer match (a torn write) is
+reported as a ``fault`` row and rebuilt, never loaded. The fault points
+``artifact.save`` and ``artifact.load`` sit on those two paths, and every
+build and load is a ``compile`` row (``compiles``, phase ``build`` or
+``load``) with its wall time.
+
 No ``--use_fast_math``: the kernels use IEEE ``sinf``/``cosf``/``expf`` and
 division. The voxel-id arithmetic further spells out every rounding with
 ``__fmul_rn``/``__fadd_rn`` so that it is never contracted into an FMA.
@@ -23,8 +30,17 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 from ..compile.artifacts import artifact_key, artifact_path, default_artifact_dir
+from ..obs.hooks import CompileTracker
+from ..resil import (
+    fault_point,
+    report,
+    verify_checksum,
+    with_retry,
+    write_checksum,
+)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -117,6 +133,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 builds = 0  # nvcc runs started by this process
+compiles = CompileTracker()  # this process's kernel builds and loads
 
 
 def nvcc_path() -> str:
@@ -139,10 +156,25 @@ def _lib_path(name: str) -> str:
     return artifact_path(BUILD_DIR, key)
 
 
+def _on_disk(out: str) -> bool:
+    """Whether a whole library ``out`` is on disk: a torn one (its
+    checksum no longer matches) is reported and removed, to be rebuilt."""
+    if not os.path.exists(out):
+        return False
+    with_retry(lambda: fault_point("artifact.load", path=out),
+               point="artifact.load")
+    if verify_checksum(out) is False:
+        report("artifact.load", "checksum", path=out,
+               detail="torn kernel library: rebuilt")
+        os.remove(out)
+        return False
+    return True
+
+
 def _start(name: str):
     global builds
     out = _lib_path(name)
-    if os.path.exists(out):
+    if _on_disk(out):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     builds += 1
@@ -154,24 +186,33 @@ def _start(name: str):
     return out, tmp, proc
 
 
-def _finish(name: str, out: str, tmp: str | None, proc) -> None:
+def _persist(tmp: str, out: str) -> None:
+    fault_point("artifact.save", path=out)
+    os.replace(tmp, out)
+    write_checksum(out)
+
+
+def _finish(name: str, out: str, tmp: str | None, proc, t0: float) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
     build_logs[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-    os.replace(tmp, out)
+    with_retry(lambda: _persist(tmp, out), point="artifact.save")
+    compiles.note_compile(f"kernel_{name}", time.perf_counter() - t0,
+                          phase="build")
 
 
 def build_all() -> dict[str, str]:
     """Compile every kernel source concurrently; returns the nvcc logs
     (``-Xptxas -v``: registers, shared memory, spills)."""
     with _lock:
+        t0 = time.perf_counter()
         started = {name: _start(name) for name in SOURCES}
         try:
             for name, (out, tmp, proc) in started.items():
-                _finish(name, out, tmp, proc)
+                _finish(name, out, tmp, proc, t0)
         finally:
             for out, tmp, proc in started.values():
                 if proc is not None and proc.poll() is None:
@@ -186,8 +227,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
+        t0 = time.perf_counter()
         out, tmp, proc = _start(name)
-        _finish(name, out, tmp, proc)
+        _finish(name, out, tmp, proc, t0)
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(out)
         for fn, argtypes in ARGTYPES[name].items():
             f = getattr(lib, fn)
@@ -196,4 +239,6 @@ def load(name: str) -> ctypes.CDLL:
         lib.nrt_error_string.argtypes = [ctypes.c_int]
         lib.nrt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
+        compiles.note_compile(f"kernel_{name}", time.perf_counter() - t0,
+                              phase="load")
         return lib

@@ -3,25 +3,33 @@
 
 The ``.npz`` artifact has the same keys as the JAX package's (``grid``,
 ``bbox``, ``threshold``, ``pyramid_version``, ``pyramid_factors``,
-``level_1``, ``level_2``) and the same SHA-256 sidecar, so a grid baked by
-either package loads in the other.
+``level_1``, ``level_2``) and the same SHA-256 sidecar
+(``resil/checksum.py``), so a grid baked by either package loads in the
+other. A load passes the ``occupancy.load`` fault point with retries; a
+checksum mismatch or a torn archive is a ``fault`` row and an ``OSError``,
+on which the renderer falls back to the chunked (slow) path.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import zipfile
 
 import numpy as np
 import torch
+
+from ..resil import (
+    fault_point,
+    report,
+    verify_checksum,
+    with_retry,
+    write_checksum,
+)
 
 SUBSAMPLES = (2, 2, 2)
 PYRAMID_VERSION = 1
 # reduction factor of each coarse level relative to the fine grid; the
 # fused march tests the coarsest (last) level
 PYRAMID_FACTORS = (2, 4)
-SIDECAR_SUFFIX = ".sha256"
 
 
 def voxel_sample_points(bbox: np.ndarray, resolution: int) -> np.ndarray:
@@ -100,43 +108,6 @@ def build_pyramid(grid: np.ndarray) -> list[np.ndarray]:
     return [grid] + [_reduce_any(grid, f) for f in PYRAMID_FACTORS]
 
 
-def file_sha256(path: str, chunk: int = 1 << 20) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as fh:
-        while True:
-            block = fh.read(chunk)
-            if not block:
-                break
-            h.update(block)
-    return h.hexdigest()
-
-
-def write_checksum(path: str) -> str:
-    """Write ``path``'s digest sidecar atomically; returns the digest."""
-    digest = file_sha256(path)
-    sidecar = path + SIDECAR_SUFFIX
-    tmp = f"{sidecar}.tmp.{os.getpid()}"
-    with open(tmp, "w", encoding="utf-8") as fh:
-        fh.write(digest + "\n")
-    os.replace(tmp, sidecar)
-    return digest
-
-
-def verify_checksum(path: str) -> bool | None:
-    """True = digest matches, False = mismatch, None = no usable sidecar."""
-    try:
-        with open(path + SIDECAR_SUFFIX, encoding="utf-8") as fh:
-            expected = fh.read().strip()
-    except OSError:
-        return None
-    if not expected:
-        return None
-    try:
-        return file_sha256(path) == expected
-    except OSError:
-        return None
-
-
 def save_occupancy_grid(path: str, grid: np.ndarray, bbox,
                         threshold: float) -> str:
     """Write the versioned pyramid artifact plus its checksum sidecar."""
@@ -159,11 +130,15 @@ def load_occupancy_pyramid(path: str):
     """(levels ``[fine, coarse@2, coarse@4]``, bbox [2,3]).
 
     A flat legacy grid or one baked with other pyramid factors rebuilds
-    its levels from the fine grid. A checksum mismatch or an unreadable
-    archive raises ``OSError``."""
+    its levels from the fine grid. Transient read errors retry with
+    backoff; a checksum mismatch or an unreadable archive raises
+    ``OSError`` after a detected-fault row."""
     if verify_checksum(path) is False:
+        report("occupancy.load", "checksum", path=path)
         raise OSError(f"corrupt occupancy artifact (checksum mismatch): {path}")
-    try:
+
+    def _read():
+        fault_point("occupancy.load", path=path)
         with np.load(path) as z:
             grid = np.asarray(z["grid"], bool)
             bbox = np.asarray(z["bbox"], np.float32)
@@ -180,11 +155,18 @@ def load_occupancy_pyramid(path: str):
                 ]
             else:
                 levels = build_pyramid(grid)
-    except (KeyError, ValueError, EOFError, zipfile.BadZipFile) as exc:
+        return levels, bbox
+
+    try:
+        return with_retry(_read, point="occupancy.load")
+    except OSError:
+        raise
+    except Exception as exc:  # torn zip member / bad header / missing key
+        report("occupancy.load", "torn", path=path,
+               detail=f"{type(exc).__name__}")
         raise OSError(
             f"corrupt occupancy artifact: {path} ({type(exc).__name__})"
         ) from exc
-    return levels, bbox
 
 
 def occupancy_stats(grid: np.ndarray) -> dict:

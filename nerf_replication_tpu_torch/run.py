@@ -23,8 +23,10 @@ route it renders (the march when the grid loaded, else the chunked render)
 as a CUDA graph before the timed loop and prints the registry's ``compile:``
 line; every view then replays it. The first view is left out of the mean
 net_time all the same (the reference does so). ``--device cpu`` runs the
-plain PyTorch path on the CPU. The telemetry rows of the JAX CLI come with
-port slice 10; ``--type mesh`` comes with slice 6.
+plain PyTorch path on the CPU. ``network`` and ``evaluate`` append a
+``run_meta`` and an ``eval`` row to ``<record_dir>/telemetry.jsonl``, as the
+JAX CLI does, so quality and fps are diffable by ``scripts/tlm_report.py``.
+``--type mesh`` comes with slice 6.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def _load_eval_setup(cfg, device):
     """(network from the trained checkpoint, renderer, test set, device)."""
     from .datasets import make_dataset
     from .renderer.volume import make_renderer
-    from .train.checkpoint import load_trained_network
+    from .utils.setup import load_trained_network
     from .utils.platform import resolve_device
 
     dev = resolve_device(device)
@@ -100,7 +102,21 @@ def run_network(cfg, args=None):
         net_times.append(time.perf_counter() - t0)
     mean = _mean_times(net_times)
     print(f"mean net_time: {mean:.4f}s  fps: {1.0 / mean:.3f}")
+    _eval_row(cfg, "eval_network", "network", {}, len(net_times), mean)
     return {"mean_net_time_s": mean, "n_images": len(net_times)}
+
+
+def _eval_row(cfg, component: str, prefix: str, metrics: dict,
+              n_images: int, mean_s: float) -> None:
+    """The run's ``run_meta`` and its one ``eval`` row."""
+    from .obs import init_run
+
+    emitter = init_run(cfg, component=component)
+    emitter.emit("eval", prefix=prefix,
+                 metrics={k: float(v) for k, v in metrics.items()},
+                 n_images=n_images, mean_net_time_s=float(mean_s),
+                 fps=float(1.0 / mean_s))
+    emitter.close()
 
 
 def run_evaluate(cfg, args=None):
@@ -147,6 +163,7 @@ def run_evaluate(cfg, args=None):
     if march:
         print("march: " + "  ".join(f"{k}: {v:.6g}" for k, v in march.items()))
     print(result)
+    _eval_row(cfg, "evaluate", "evaluate", result or {}, len(net_times), mean)
     return {**(result or {}), "mean_net_time_s": mean, "fps": 1.0 / mean,
             "n_images": len(net_times), "used_grid": grid_loaded,
             "n_truncated": n_truncated, "march": march or None,
@@ -185,6 +202,9 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     cfg = cfg_from_args(args)
+    from .utils.setup import configure_runtime
+
+    configure_runtime(cfg)
     fn = globals().get("run_" + args.type)
     if fn is None:
         known = sorted(n[len("run_"):] for n in globals()

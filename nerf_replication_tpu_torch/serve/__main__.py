@@ -14,7 +14,20 @@ The port of ``serve.py``'s request surface (all JSON):
   out-of-bounds request → 400, a render timeout → 504, anything else → 500.
 * ``GET /stats`` — engine counters (with the ``march`` block and kernel
   launch counts) plus the batcher's.
-* ``GET /healthz`` — ``{"ok": true, "queue_depth": ...}`` while serving.
+* ``GET /healthz`` — the batcher's health (queue depth, last-dispatch age,
+  breaker state, worker liveness) plus the ``slo`` block: latency
+  attainment against ``obs.slo_target_ms`` and the shed / timeout / error
+  / breaker rates of the live metrics. 200 while healthy, 503 while the
+  breaker is open.
+* ``GET /metrics`` — Prometheus text of the live counters, gauges and
+  histograms (``obs/metrics.py``).
+
+A breaker that is open answers ``/render`` with 503 and ``Retry-After``.
+Each request runs under a root span (``serve.request``) parented to the
+``Traceparent`` header when the caller sends one (``obs.trace``); with
+``obs.trace`` on, spans land in ``<record_dir>/telemetry.jsonl`` and the
+flight recorder rings them. SIGTERM dumps ``flight_sigterm.json`` into
+``obs.flight_dir`` (default ``record_dir``), drains the batcher and exits 0.
 
 ``--port 0`` binds an ephemeral port; the first line printed names it.
 """
@@ -24,7 +37,7 @@ from __future__ import annotations
 import argparse
 import base64
 import json
-import sys
+import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -77,33 +90,51 @@ def render_pose(engine, batcher, body: dict) -> dict:
 
 
 def make_server(engine, batcher, host: str = "127.0.0.1",
-                port: int = 8008) -> ThreadingHTTPServer:
+                port: int = 8008,
+                slo_target_ms: float = 100.0) -> ThreadingHTTPServer:
     """A ready-to-serve ThreadingHTTPServer (port 0 = ephemeral)."""
+    from ..obs import get_metrics, get_tracer
+    from ..obs.trace import TRACE_HEADER, SpanContext
+    from ..resil import BreakerOpenError, report
     from .batcher import ServeTimeoutError
 
+    slo_target_s = float(slo_target_ms) / 1e3
+
     class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *args):
+        def log_message(self, *args):  # quiet: telemetry is the record
             pass
 
-        def _reply(self, code: int, payload: dict) -> None:
+        def _reply(self, code: int, payload: dict,
+                   headers: dict | None = None) -> None:
             body = json.dumps(payload).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
         def do_GET(self):
             if self.path == "/healthz":
-                return self._reply(200, {
-                    "ok": True,
-                    "queue_depth": batcher.queue_depth() if batcher else 0,
-                })
+                health = (batcher.health() if batcher is not None
+                          else {"ok": True, "queue_depth": 0})
+                health["slo"] = get_metrics().slo_view(slo_target_s)
+                return self._reply(200 if health["ok"] else 503, health)
             if self.path == "/stats":
                 stats = engine.stats()
                 if batcher is not None:
                     stats["batcher"] = batcher.stats()
                 return self._reply(200, stats)
+            if self.path == "/metrics":
+                data = get_metrics().render_prometheus().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                return None
             return self._reply(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
@@ -112,14 +143,27 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
-                return self._reply(200, render_pose(engine, batcher, body))
+                # the request's root span; the batcher captures its context
+                # at submit, so the worker's spans descend from it
+                with get_tracer().span(
+                        "serve.request",
+                        parent=SpanContext.from_header(
+                            self.headers.get(TRACE_HEADER))):
+                    out = render_pose(engine, batcher, body)
+                return self._reply(200, out)
+            except BreakerOpenError as err:
+                return self._reply(
+                    503, {"error": str(err),
+                          "retry_after_s": err.retry_after_s},
+                    headers={"Retry-After":
+                             str(max(1, round(err.retry_after_s)))})
             except (ServeTimeoutError, TimeoutError) as err:
                 return self._reply(504, {"error": str(err) or "timed out"})
             except (ValueError, KeyError) as err:
                 return self._reply(400, {"error": str(err)})
             except Exception as err:  # structured 500, never a traceback
-                print(f"render failed: {type(err).__name__}: {err}",
-                      file=sys.stderr)
+                report("serve.request", "error",
+                       detail=f"{type(err).__name__}: {err}"[:200])
                 return self._reply(500, {"error": "internal error"})
 
     return ThreadingHTTPServer((host, port), Handler)
@@ -135,23 +179,59 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from ..config import make_cfg
+    from ..obs import configure_tracing, get_metrics, init_run
+    from ..resil import (
+        CircuitBreaker,
+        FlightRecorder,
+        PreemptionGuard,
+        install_flight_recorder,
+    )
+    from ..utils.setup import configure_runtime
     from .batcher import MicroBatcher
     from .engine import engine_from_cfg
 
     cfg = make_cfg(args.cfg_file, args.opts or (), default_task="run")
+    configure_runtime(cfg)
+    emitter = init_run(cfg, component="serve")
+    # tracing and the flight recorder come up BEFORE the engine, so the
+    # warm-up and the first request are on the record
+    o = cfg.get("obs", {})
+    trace_on = bool(o.get("trace", True))
+    flight_dir = str(o.get("flight_dir", "")) or str(
+        cfg.get("record_dir", "."))
+    slo_target_ms = float(o.get("slo_target_ms", 100.0))
+    configure_tracing(enabled=trace_on)
+    install_flight_recorder(FlightRecorder(
+        flight_dir, capacity=int(o.get("trace_ring", 256))))
+    # SIGTERM: the guard's handler dumps the flight ring; the loop below
+    # then drains and exits cleanly
+    guard = PreemptionGuard.install()
+
     engine = engine_from_cfg(cfg, cfg_file=args.cfg_file, device=args.device)
-    batcher = MicroBatcher(engine)
-    server = make_server(engine, batcher, host=args.host, port=args.port)
+    batcher = MicroBatcher(engine, breaker=CircuitBreaker.from_cfg(cfg))
+    server = make_server(engine, batcher, host=args.host, port=args.port,
+                         slo_target_ms=slo_target_ms)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
           f"(device {engine.device}, route {engine.march_options.march_fused}, "
-          f"buckets {list(engine.buckets)})", flush=True)
+          f"buckets {list(engine.buckets)}, "
+          f"tracing {'on' if trace_on else 'off'})", flush=True)
     try:
-        server.serve_forever()
+        t = threading.Thread(target=server.serve_forever, daemon=True)
+        t.start()
+        while t.is_alive() and not (guard is not None and guard.triggered):
+            t.join(timeout=0.5)
+        server.shutdown()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
         batcher.close()
+        snap = get_metrics().snapshot()
+        snap["slo"] = get_metrics().slo_view(slo_target_ms / 1e3)
+        emitter.emit("metrics_snapshot", **snap)
+        emitter.close()
+        if guard is not None:
+            guard.uninstall()
     return 0
 
 

@@ -1,16 +1,31 @@
 """Request micro-batching: coalesce pending ray batches across requests.
 
-Port of the core of ``nerf_replication_tpu/serve/batcher.py``. One worker
-thread cuts a batch when EITHER edge fires: pending rays reach
-``max_batch_rays``, or the oldest request has waited ``max_delay_s``. The
-batch concatenates whole requests, renders through the engine in one flat
-call, and hands each request its slice. The tier of a batch comes from
+Port of ``nerf_replication_tpu/serve/batcher.py``. One worker thread cuts a
+batch when EITHER edge fires: pending rays reach ``max_batch_rays``, or the
+oldest request has waited ``max_delay_s``. The batch concatenates whole
+requests, renders through the engine in one flat call, and hands each
+request its slice. The tier of a batch comes from
 ``DegradationPolicy.tier_for(queue_depth)`` at the cut; requests that waited
 past ``request_timeout_s`` fail with :class:`ServeTimeoutError` before any
 compute is spent on them.
 
-Not ported here (operations slices): the circuit breaker, per-tenant QoS,
-multi-scene fleets, telemetry and span tracing.
+The ops layers, as in the JAX batcher:
+
+* a :class:`~..resil.CircuitBreaker` (``CircuitBreaker.from_cfg``: the
+  ``resil:`` block): consecutive dispatch failures push the tier down the
+  same ladder load does, then open the breaker — submissions fail fast
+  with :class:`~..resil.BreakerOpenError` (503 + Retry-After at the HTTP
+  edge) until the cooldown lets one batch probe (half open);
+* the ``serve.flush`` fault point around each batch's render, and a
+  watchdog (:meth:`MicroBatcher.ensure_worker`, on every submit and
+  health probe) that restarts a worker thread that died, failing its
+  stranded batch at once;
+* spans: each request's queue wait and scatter, and the batch, parented to
+  the request that submitted it (the context captured at ``submit``);
+* telemetry rows ``serve_request`` / ``serve_batch`` / ``serve_shed``,
+  ``fault`` rows, and the live metrics behind ``GET /metrics``.
+
+Per-tenant QoS and multi-scene fleets are not ported (the fleet slice).
 
 Determinism for tests: construct with ``start=False`` and an injectable
 ``clock``, enqueue with ``submit`` and drive batches with ``pump()`` — the
@@ -26,8 +41,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs import get_emitter
+from ..obs.metrics import get_metrics
+from ..obs.trace import current_ctx, get_tracer
 from ..renderer.gate import check_baked_bounds
-from .policy import TIER_IMPL, DegradationPolicy
+from ..resil import (
+    BreakerOpenError,
+    CircuitBreaker,
+    dump_flight,
+    fault_point,
+    report,
+)
+from .policy import TIER_IMPL, TIER_NAMES, DegradationPolicy
 
 
 class ServeTimeoutError(TimeoutError):
@@ -69,6 +94,11 @@ class _Pending:
     rays: np.ndarray
     future: ServeFuture
     t_enqueued: float
+    # the trace context captured on the submitting thread (how a request's
+    # identity crosses into the worker thread) and the enqueue time on the
+    # TRACER's clock, so queue-wait spans share the trace's timebase
+    ctx: object | None = None
+    t_trace: float = 0.0
     n_rays: int = field(init=False)
 
     def __post_init__(self):
@@ -79,32 +109,93 @@ class MicroBatcher:
     """Deadline-coalescing request queue in front of a RenderEngine."""
 
     def __init__(self, engine, policy: DegradationPolicy | None = None,
-                 clock=time.monotonic, start: bool = True):
+                 clock=time.monotonic, start: bool = True,
+                 breaker: CircuitBreaker | None = None):
         self.engine = engine
         self.options = engine.options
         self.policy = policy or DegradationPolicy(
             thresholds=engine.options.shed_queue_depths
         )
         self.clock = clock
+        self.breaker = breaker or CircuitBreaker(clock=clock)
         self._queue: deque[_Pending] = deque()
-        self._cond = threading.Condition()  # guards _queue and _stop
+        # guards _queue, _stop and _inflight; the counters below are
+        # written by the batch-rendering thread only
+        self._cond = threading.Condition()
         self._stop = False
-        # counters, written by the batch-rendering thread only
         self.n_batches = 0
         self.n_shed = 0
         self.n_timeouts = 0
         self.n_completed = 0
         self.n_dispatch_errors = 0
+        self.worker_restarts = 0
+        self._inflight: list[_Pending] = []
+        self._worker_dead = False
+        self._last_dispatch_t: float | None = None
         self._thread: threading.Thread | None = None
+        self._started = start
         if start:
-            self._thread = threading.Thread(
-                target=self._worker, name="serve-batcher", daemon=True
-            )
-            self._thread.start()
+            self._spawn_worker()
 
-    def submit(self, rays, near, far) -> ServeFuture:
-        """Enqueue a [N, C] ray request; returns a future. Bounds are
-        checked here, so a bad request never occupies the queue."""
+    def _spawn_worker(self) -> None:
+        self._worker_dead = False
+        self._thread = threading.Thread(
+            target=self._worker_main, name="serve-batcher", daemon=True
+        )
+        self._thread.start()
+
+    def _worker_main(self) -> None:
+        try:
+            self._worker()
+        except BaseException:
+            # flag FIRST: a client unblocked below may resubmit before this
+            # thread finishes unwinding; then fail the in-flight batch, so
+            # its callers get an error now, not at their timeout. Recovery
+            # is the watchdog's job.
+            self._worker_dead = True
+            self._fail_inflight()
+            raise
+
+    def ensure_worker(self) -> bool:
+        """Watchdog: restart a dead worker thread (a crash that escaped the
+        batch-level handler, such as a kill fault) so the queue keeps
+        draining. Runs on every submit and health probe; returns whether a
+        worker is running."""
+        if not self._started or self._stop:
+            return self._thread is not None and self._thread.is_alive()
+        t = self._thread
+        if t is None or not t.is_alive() or self._worker_dead:
+            self.worker_restarts += 1
+            report("serve.flush", "crash",
+                   detail=f"worker dead; restart #{self.worker_restarts}")
+            dump_flight(
+                "watchdog_crash",
+                detail=f"serve worker dead; restart #{self.worker_restarts}",
+            )
+            self._fail_inflight()
+            self._spawn_worker()
+        return True
+
+    def _fail_inflight(self) -> None:
+        with self._cond:
+            stranded = [p for p in self._inflight if not p.future.done()]
+            self._inflight = []
+        for p in stranded:
+            p.future.set_exception(RuntimeError(
+                "serve worker crashed mid-batch; request lost"
+            ))
+
+    # -- submission -----------------------------------------------------------
+
+    def submit(self, rays, near, far, ctx=None) -> ServeFuture:
+        """Enqueue a [N, C] ray request; returns a future. ``ctx`` (a
+        ``SpanContext``) parents the request's spans; default: the calling
+        thread's current span. With the breaker open, submission fails
+        fast with :class:`BreakerOpenError`; bounds are checked here, so a
+        bad request never occupies the queue."""
+        if not self.breaker.allow():
+            raise BreakerOpenError(self.breaker.retry_after_s())
+        self.ensure_worker()
         check_baked_bounds(self.engine.near, self.engine.far, near, far,
                            surface="serve micro-batcher")
         rays = np.asarray(rays, np.float32)
@@ -112,12 +203,16 @@ class MicroBatcher:
             raise ValueError(
                 f"rays must be a non-empty [N, C] array, got {rays.shape}"
             )
-        pending = _Pending(rays, ServeFuture(rays.shape[0]), self.clock())
+        pending = _Pending(rays, ServeFuture(rays.shape[0]), self.clock(),
+                           ctx=ctx if ctx is not None else current_ctx(),
+                           t_trace=get_tracer().now())
         with self._cond:
             if self._stop:
                 raise RuntimeError("batcher is closed")
             self._queue.append(pending)
+            depth = len(self._queue)
             self._cond.notify_all()
+        get_metrics().gauge("serve_queue_depth", depth)
         return pending.future
 
     def queue_depth(self) -> int:
@@ -138,6 +233,8 @@ class MicroBatcher:
         if self._thread is not None:
             self._thread.join(timeout=60.0)
             self._thread = None
+
+    # -- batching core --------------------------------------------------------
 
     def _cut_batch(self) -> tuple[list[_Pending], int] | None:
         """Block until a batch edge fires; pop and return (batch, depth
@@ -184,8 +281,23 @@ class MicroBatcher:
                     return
             self.pump()
 
+    def _request_row(self, p: _Pending, status: str, tier: str,
+                     latency_s: float, queue_s: float) -> None:
+        get_emitter().emit("serve_request", latency_s=latency_s,
+                           n_rays=p.n_rays, tier=tier, status=status,
+                           queue_s=queue_s)
+        mx = get_metrics()
+        mx.counter("serve_requests_total", status=status, tier=tier)
+        if status in ("ok", "timeout"):
+            mx.observe("serve_request_latency_seconds", latency_s,
+                       trace_id=(p.ctx.trace_id if p.ctx is not None
+                                 else None), tier=tier)
+
     def _render_batch(self, batch: list[_Pending], queue_depth: int) -> int:
+        emitter = get_emitter()
+        trs = get_tracer()
         now = self.clock()
+        t_cut = trs.now()  # queue wait ends here, on the tracer's clock
         live: list[_Pending] = []
         for p in batch:
             waited = now - p.t_enqueued
@@ -195,14 +307,34 @@ class MicroBatcher:
                     f"request waited {waited:.3f}s in queue "
                     f"(timeout {self.options.request_timeout_s}s)"
                 ))
+                self._request_row(p, "timeout", "none", waited, waited)
+                trs.record("serve.queue", start_s=p.t_trace, end_s=t_cut,
+                           parent=p.ctx, stage="queue", n_rays=p.n_rays,
+                           status="timeout")
             else:
                 live.append(p)
         if not live:
             return 0
+        for p in live:
+            trs.record("serve.queue", start_s=p.t_trace, end_s=t_cut,
+                       parent=p.ctx, stage="queue", n_rays=p.n_rays)
+
+        # failure degrades through the SAME ladder load does: consecutive
+        # dispatch failures push the tier further down before the breaker
+        # opens (cheaper captured routes, never a new capture)
         tier = self.policy.tier_for(queue_depth)
+        steps = self.breaker.degrade_steps()
+        if steps:
+            i = TIER_NAMES.index(tier)
+            tier = TIER_NAMES[min(i + steps, len(TIER_NAMES) - 1)]
         family, stride = TIER_IMPL[tier]
         if tier != "full":
             self.n_shed += 1
+            emitter.emit("serve_shed", tier=tier, queue_depth=queue_depth,
+                         n_requests=len(live),
+                         n_rays=sum(p.n_rays for p in live))
+            get_metrics().counter("serve_sheds_total", tier=tier)
+
         segments = []
         offset = 0
         for p in live:
@@ -210,15 +342,46 @@ class MicroBatcher:
             segments.append((offset, length))
             offset += length
         flat = np.concatenate([p.rays[::stride] for p in live], axis=0)
+        t0 = self.clock()
+        # no try/finally around _inflight: a kill must LEAVE it set, so
+        # the watchdog fails the stranded futures
+        with self._cond:
+            self._inflight = live
         try:
-            out, _info = self.engine.render_flat(flat, family)
+            # the batch span runs on the worker thread, parented to the
+            # first coalesced request (a batch has one timeline, many
+            # riders); it nests the engine's dispatch/device spans
+            with trs.span("serve.batch", parent=live[0].ctx, tier=tier,
+                          n_requests=len(live), n_rays=int(flat.shape[0]),
+                          queue_depth=queue_depth):
+                fault_point("serve.flush")
+                out, info = self.engine.render_flat(flat, family)
         except Exception as err:  # fail this batch's requests, keep serving
             self.n_dispatch_errors += 1
+            self._last_dispatch_t = self.clock()
+            self.breaker.record_failure()
             for p in live:
                 p.future.set_exception(err)
+                self._request_row(p, "error", tier,
+                                  self.clock() - p.t_enqueued,
+                                  t0 - p.t_enqueued)
+            report("serve.dispatch", "error",
+                   detail=f"{type(err).__name__}: {err}"[:200])
+            with self._cond:
+                self._inflight = []
             return 0
+        render_s = self.clock() - t0
+        self._last_dispatch_t = self.clock()
+        self.breaker.record_success()
         self.n_batches += 1
+        emitter.emit("serve_batch", n_requests=len(live),
+                     n_rays=int(flat.shape[0]),
+                     occupancy=float(info["occupancy"]), tier=tier,
+                     render_s=float(render_s), queue_depth=queue_depth,
+                     bucket_rays=int(info["bucket_rays"]))
+        t_done = self.clock()
         for p, (start, length) in zip(live, segments):
+            t_sc = trs.now()
             sliced = {k: v[start:start + length] for k, v in out.items()}
             if stride > 1:
                 sliced = {k: np.repeat(v, stride, axis=0)[:p.n_rays]
@@ -226,7 +389,14 @@ class MicroBatcher:
             sliced["tier"] = tier
             self.n_completed += 1
             self.engine.n_requests += 1
+            self._request_row(p, "ok", tier, t_done - p.t_enqueued,
+                              t0 - p.t_enqueued)
+            trs.record("serve.scatter", start_s=t_sc, parent=p.ctx,
+                       stage="scatter", n_rays=p.n_rays, tier=tier)
             p.future.set_result(sliced)
+        get_metrics().gauge("serve_queue_depth", queue_depth)
+        with self._cond:
+            self._inflight = []
         return len(live)
 
     def stats(self) -> dict:
@@ -237,4 +407,29 @@ class MicroBatcher:
             "n_shed": self.n_shed,
             "n_timeouts": self.n_timeouts,
             "n_dispatch_errors": self.n_dispatch_errors,
+            "worker_restarts": self.worker_restarts,
+            "breaker": self.breaker.snapshot(),
+        }
+
+    def last_dispatch_age_s(self) -> float | None:
+        """Seconds since the last dispatch attempt (None before the
+        first) — the liveness number /healthz reports."""
+        if self._last_dispatch_t is None:
+            return None
+        return max(0.0, self.clock() - self._last_dispatch_t)
+
+    def health(self) -> dict:
+        """The /healthz payload: queue depth, last-dispatch age, breaker
+        state, worker liveness. ``ok`` is false when the breaker is open or
+        the worker is dead and could not be restarted."""
+        worker_alive = self.ensure_worker() if self._started else True
+        breaker = self.breaker.snapshot()
+        age = self.last_dispatch_age_s()
+        return {
+            "ok": bool(worker_alive and breaker["state"] != "open"),
+            "queue_depth": self.queue_depth(),
+            "last_dispatch_age_s": None if age is None else round(age, 3),
+            "breaker": breaker,
+            "worker_alive": bool(worker_alive),
+            "worker_restarts": self.worker_restarts,
         }

@@ -43,8 +43,11 @@ CUDA graphs (``compile.aot``, the JAX engine's AOT registry): on the card
 copied into the entry's static input, and the static outputs are copied to
 the host under the engine's lock before another dispatch may replay. The
 ``gather`` route stays eager: it compacts the valid slots with
-``torch.nonzero``, a data-dependent shape. Mesh, fleet and tracing are not
-ported.
+``torch.nonzero``, a data-dependent shape.
+
+Each request dispatch passes the ``serve.dispatch`` fault point and runs
+under ``serve.dispatch`` (the host's part) and ``serve.device`` (the wait
+at the copy back) spans (``obs/trace.py``). Mesh and fleet are not ported.
 """
 
 from __future__ import annotations
@@ -56,7 +59,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..obs.trace import get_tracer
 from ..renderer.gate import check_baked_bounds
+from ..resil import fault_point
 from .cache import PoseCache
 from .policy import FAMILIES, TIER_IMPL
 
@@ -350,13 +355,24 @@ class RenderEngine:
                        warm: bool = False) -> dict:
         n = rays.shape[0]
         rays_b = np.pad(rays, ((0, bucket - n), (0, 0)))
+        trs = get_tracer()
         with self._lock:  # a replay's outputs live until the next replay
-            out = dict(self._dispatch(rays_b, bucket, family))
-            # per-chunk traversal stats (the packed and fused routes only)
-            stats = {k: out.pop(k).cpu().numpy() for k in (
-                "march_candidates", "march_samples_out", "march_coarse_occ",
-                "overflow_frac") if k in out}
-            out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
+            # the dispatch span is the host's part (copy in, replay or
+            # launch); the device's work lands in the device span, at the
+            # copy back that waits for it
+            with trs.span("serve.dispatch", stage="dispatch", family=family,
+                          bucket=int(bucket)):
+                if not warm:
+                    # chaos hook: an injected dispatch failure drives the
+                    # batcher's breaker without touching the routes
+                    fault_point("serve.dispatch")
+                out = dict(self._dispatch(rays_b, bucket, family))
+            with trs.span("serve.device", stage="device", bucket=int(bucket)):
+                # per-chunk traversal stats (the packed and fused routes)
+                stats = {k: out.pop(k).cpu().numpy() for k in (
+                    "march_candidates", "march_samples_out",
+                    "march_coarse_occ", "overflow_frac") if k in out}
+                out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
         trunc = out.pop("truncated", None)
         if not warm:
             if stats:
@@ -530,7 +546,7 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
 
     from ..datasets import make_camera
     from ..renderer.occupancy import default_grid_path, load_occupancy_pyramid
-    from ..train.checkpoint import load_trained_network
+    from ..utils.setup import load_trained_network
     from ..utils.platform import resolve_device
 
     dev = resolve_device(device)

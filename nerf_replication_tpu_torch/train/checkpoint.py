@@ -4,13 +4,27 @@
 The port stores one ``torch.save`` file per checkpoint:
 ``<model_dir>/latest.pt`` and ``<model_dir>/<epoch>.pt``. A training bundle
 holds the network's state dict, the optimizer's state (Adam moments and step
-counts), the global step, the epoch and the recorder's state; numbered
-checkpoints keep the newest ``KEEP_EPOCHS``. An NGP state's live grid EMA
-rides the bundle (``grid_ema``), and its host-side warm/carve phase counters a
-JSON sidecar ``<name>_phase.json`` (:func:`load_phase_state`), so a resumed
-run re-enters the phase it left. ``load_network`` reads the
+counts), the global step, the epoch, the steps already taken of the next
+epoch (``epoch_it``: a SIGTERM flush lands mid-epoch) and the recorder's
+state; numbered checkpoints keep the newest ``KEEP_EPOCHS``. An NGP state's
+live grid EMA rides the bundle (``grid_ema``), and its host-side warm/carve
+phase counters a JSON sidecar ``<name>_phase.json`` (:func:`load_phase_state`),
+so a resumed run re-enters the phase it left. ``load_network`` reads the
 weights of either a training bundle or a weights-only file
 (``save_network``), which is how the serving engine loads a trained model.
+
+Resilience (``resil/``), as in the JAX package: every ``.pt`` gets a
+checksum sidecar (``<file>.sha256``) after it lands; saves pass the fault
+points ``checkpoint.save`` (before the write: a kill there leaves the
+previous checkpoint whole) and ``checkpoint.save.sidecar`` (between the
+bundle and its sidecars) and retry under ``save_model_with_retry``; loads
+pass ``checkpoint.load`` with retries, and a torn or mismatched
+``latest.pt`` falls back to the newest numbered checkpoint with a ``fault``
+row. :func:`load_model` restores INTO the caller's tensors (parameters,
+Adam's moments and step counts, the grid EMA) with ``copy_``, never
+rebinding them: a captured CUDA graph keeps reading those very tensors, so
+a rollback or warm start in the middle of a run is seen by its replays.
+
 The JAX package's Orbax directories are not read here;
 ``convert.params_from_jax`` carries a JAX parameter tree across.
 """
@@ -24,7 +38,14 @@ import sys
 
 import torch
 
-from .optim import make_capturable
+from ..resil import (
+    fault_point,
+    report,
+    retry_params,
+    verify_checksum,
+    with_retry,
+    write_checksum,
+)
 
 KEEP_EPOCHS = 5
 
@@ -50,6 +71,7 @@ def _write(model_dir: str, name: str, blob: dict) -> str:
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(blob, tmp)
     os.replace(tmp, path)
+    write_checksum(path)
     return path
 
 
@@ -67,24 +89,34 @@ def _phase_sidecar(model_dir: str, name: str) -> str:
 
 
 def save_model(model_dir: str, state, epoch: int, recorder_state=None,
-               latest: bool = False, phase_state=None) -> str:
+               latest: bool = False, phase_state=None,
+               epoch_it: int = 0) -> str:
     """Save a training bundle (``state``: network, optimizer, step, and an
     NGP state's ``grid_ema``) as ``latest.pt`` or ``<epoch>.pt``; prune
-    numbered ones to KEEP_EPOCHS. ``phase_state`` (the NGP trainer's phase
-    counters) goes to a sidecar written atomically AFTER the bundle, so a
-    crash leaves at worst a bundle with a stale or absent sidecar."""
+    numbered ones to KEEP_EPOCHS. ``epoch`` is the last epoch completed;
+    ``epoch_it`` the steps of the next one already taken. ``phase_state``
+    (the NGP trainer's phase counters) goes to a sidecar written atomically
+    AFTER the bundle, so a crash leaves at worst a bundle with a stale or
+    absent sidecar."""
     blob = {
         "network": _cpu_state(state.network),
         "optimizer": state.optimizer.state_dict(),
         "step": int(state.step),
         "epoch": int(epoch),
+        "epoch_it": int(epoch_it),
         "recorder": recorder_state or {},
     }
     grid = getattr(state, "grid_ema", None)
     if grid is not None:
         blob["grid_ema"] = grid.detach().cpu()
     name = "latest" if latest else str(int(epoch))
+    # before the write: a kill here leaves the previous checkpoint whole
+    fault_point("checkpoint.save",
+                path=os.path.join(model_dir, f"{name}.pt"))
     path = _write(model_dir, name, blob)
+    # the torn window: a kill between the bundle and its sidecars leaves a
+    # loadable bundle with a stale or absent phase sidecar
+    fault_point("checkpoint.save.sidecar", path=path)
     if phase_state:
         sidecar = _phase_sidecar(model_dir, name)
         tmp = f"{sidecar}.tmp.{os.getpid()}"
@@ -93,11 +125,34 @@ def save_model(model_dir: str, state, epoch: int, recorder_state=None,
         os.replace(tmp, sidecar)
     if not latest:
         for old in _available_epochs(model_dir)[:-KEEP_EPOCHS]:
-            os.remove(os.path.join(model_dir, f"{old}.pt"))
-            sidecar = _phase_sidecar(model_dir, str(old))
-            if os.path.exists(sidecar):
-                os.remove(sidecar)
+            for f in (os.path.join(model_dir, f"{old}.pt"),
+                      os.path.join(model_dir, f"{old}.pt.sha256"),
+                      _phase_sidecar(model_dir, str(old))):
+                if os.path.exists(f):
+                    os.remove(f)
     return path
+
+
+def save_model_with_retry(cfg, model_dir: str, state, epoch: int,
+                          recorder_state=None, *, log=print, **kw) -> bool:
+    """``save_model`` under the bounded retry ladder (``resil:`` knobs).
+
+    An exhausted ladder is logged and ABSORBED: losing one cadence save
+    must not kill a healthy run — the next cadence saves again, and a
+    resume falls back to the previous epoch. The ``retry`` telemetry rows
+    (status ``exhausted``) still record the loss."""
+    try:
+        with_retry(
+            lambda: save_model(model_dir, state, epoch, recorder_state,
+                               **kw),
+            point="checkpoint.save",
+            **retry_params(cfg),
+        )
+        return True
+    except OSError as exc:
+        log(f"warning: checkpoint save (epoch {epoch}) failed after "
+            f"retries: {exc} — training continues")
+        return False
 
 
 def has_checkpoint(model_dir: str) -> bool:
@@ -106,38 +161,107 @@ def has_checkpoint(model_dir: str) -> bool:
         _available_epochs(model_dir))
 
 
+def _read(path: str) -> dict:
+    """One checkpoint file through the ``checkpoint.load`` fault point and
+    its checksum sidecar (a mismatch raises)."""
+    fault_point("checkpoint.load", path=path)
+    if verify_checksum(path) is False:
+        raise ValueError(f"checksum mismatch: {path}")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _candidates(model_dir: str, epoch: int) -> list[str]:
+    """What to load, in order: ``latest.pt`` then the numbered ones newest
+    first (``epoch == -1``), or exactly the pinned epoch."""
+    epochs = _available_epochs(model_dir)
+    if epoch != -1:
+        return ([os.path.join(model_dir, f"{epoch}.pt")]
+                if epoch in epochs else [])
+    out = []
+    if os.path.exists(os.path.join(model_dir, "latest.pt")):
+        out.append(os.path.join(model_dir, "latest.pt"))
+    return out + [os.path.join(model_dir, f"{e}.pt")
+                  for e in reversed(epochs)]
+
+
+def _load_first(cands: list[str], point: str = "checkpoint.load"):
+    """``(blob, path)`` of the first candidate that reads whole, each read
+    retried; a torn one is reported and the next is tried. The last
+    candidate's failure raises."""
+    for i, cand in enumerate(cands):
+        try:
+            return with_retry(lambda cand=cand: _read(cand), point=point), cand
+        except Exception as exc:
+            if i + 1 >= len(cands):
+                raise
+            report(point, "torn", path=cand,
+                   detail=f"{type(exc).__name__}: falling back to "
+                          f"{os.path.basename(cands[i + 1])}")
+    raise FileNotFoundError("no checkpoint")
+
+
+def load_optimizer_state(optimizer, saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)`` into the optimizer's own
+    tensors: existing state (Adam's moments and step counts) is filled with
+    ``copy_`` and new state lands on its parameter's device, and the
+    groups' hyperparameters are taken, except the lr tensor, which
+    ``set_lr`` fills before every step. A captured step reads these
+    tensors, so nothing it holds is rebound."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    saved_groups = saved["param_groups"]
+    if len(saved_groups) != len(optimizer.param_groups) or sum(
+            len(g["params"]) for g in saved_groups) != len(params):
+        raise ValueError("the saved optimizer state does not match the "
+                         "optimizer's parameter groups")
+    for g, sg in zip(optimizer.param_groups, saved_groups):
+        for k, v in sg.items():
+            if k not in ("params", "lr", "capturable"):
+                g[k] = v
+    # the saved ids, in group order, name the parameters in group order
+    index = dict(zip((i for sg in saved_groups for i in sg["params"]),
+                     params))
+    capturable = any(g.get("capturable", False)
+                     for g in optimizer.param_groups)
+    with torch.no_grad():
+        for i, st in saved["state"].items():
+            p = index[int(i)]
+            mine = optimizer.state[p]
+            for k, v in st.items():
+                if not torch.is_tensor(v):
+                    mine[k] = v
+                elif k in mine and torch.is_tensor(mine[k]):
+                    mine[k].copy_(v)
+                elif k == "step":
+                    mine[k] = v.to(device=p.device if capturable else "cpu",
+                                   dtype=torch.float32)
+                else:
+                    mine[k] = v.to(p.device)
+
+
 def load_model(model_dir: str, state, epoch: int = -1):
     """Full resume into ``state`` in place: ``(state, begin_epoch,
     recorder_state)``, or ``(state, 0, None)`` when there is nothing to
-    resume. ``epoch == -1`` takes ``latest.pt``, else the newest numbered
-    checkpoint; a pinned epoch loads exactly that one."""
-    epochs = _available_epochs(model_dir)
-    target = None
-    if epoch == -1:
-        latest = os.path.join(model_dir, "latest.pt")
-        if os.path.exists(latest):
-            target = latest
-        elif epochs:
-            target = os.path.join(model_dir, f"{epochs[-1]}.pt")
-    elif epoch in epochs:
-        target = os.path.join(model_dir, f"{epoch}.pt")
-    if target is None:
+    resume. ``epoch == -1`` takes ``latest.pt``, falling back to the newest
+    numbered checkpoint that reads whole; a pinned epoch loads exactly that
+    one. ``state.epoch_it`` becomes the steps of ``begin_epoch`` already
+    taken."""
+    cands = _candidates(model_dir, epoch)
+    if not cands:
         return state, 0, None
-    blob = torch.load(target, map_location="cpu", weights_only=True)
+    blob, target = _load_first(cands)
     if "optimizer" not in blob:
         raise ValueError(f"{target} holds weights only, not a training "
                          "bundle to resume from")
+    if getattr(state, "grid_ema", None) is not None and "grid_ema" not in blob:
+        raise ValueError(f"{target} holds no grid_ema to resume an NGP "
+                         "run from")
     state.network.load_state_dict(blob["network"], strict=True)
-    state.optimizer.load_state_dict(blob["optimizer"])
-    # the saved groups bring their own flags and a CPU-loaded lr
-    make_capturable(state.optimizer)
+    load_optimizer_state(state.optimizer, blob["optimizer"])
     state.step = int(blob["step"])
+    state.epoch_it = int(blob.get("epoch_it", 0))
     if getattr(state, "grid_ema", None) is not None:
-        if "grid_ema" not in blob:
-            raise ValueError(f"{target} holds no grid_ema to resume an NGP "
-                             "run from")
-        # in place: a captured NGP step reads the grid where it lies
-        state.grid_ema.copy_(blob["grid_ema"])
+        with torch.no_grad():
+            state.grid_ema.copy_(blob["grid_ema"])
     return state, int(blob["epoch"]) + 1, dict(blob.get("recorder") or {})
 
 
@@ -172,42 +296,47 @@ def load_network(model_dir: str, network: torch.nn.Module,
                  epoch: int = -1) -> int:
     """Weights-only load with epoch selection, into ``network`` in place.
 
-    ``epoch == -1`` takes ``latest.pt``, else the newest numbered one; a
+    ``epoch == -1`` takes ``latest.pt`` (falling back to the newest
+    numbered file that reads whole), else the newest numbered one; a
     pinned epoch loads exactly that file. Returns the loaded epoch (-1 for
     ``latest``), and leaves ``network`` unchanged (returning -1) when there
     is no checkpoint."""
-    epochs = _available_epochs(model_dir)
-    target, picked = None, -1
-    if epoch == -1:
-        latest = os.path.join(model_dir, "latest.pt")
-        if os.path.exists(latest):
-            target = latest
-        elif epochs:
-            target, picked = os.path.join(model_dir, f"{epochs[-1]}.pt"), epochs[-1]
-    elif epoch in epochs:
-        target, picked = os.path.join(model_dir, f"{epoch}.pt"), epoch
-    if target is None:
+    cands = _candidates(model_dir, epoch)
+    if not cands:
         return -1
-    blob = torch.load(target, map_location="cpu", weights_only=True)
+    blob, target = _load_first(cands)
     network.load_state_dict(blob["network"], strict=True)
-    return picked
+    name = os.path.basename(target)[:-len(".pt")]
+    return -1 if name == "latest" else int(name)
 
 
-def load_trained_network(cfg, device="cuda", verbose: bool = True):
-    """``(network, epoch)``: the config's network, initialised from
-    ``cfg.seed`` as the trainer does, then loaded from the checkpoint in
-    ``cfg.trained_model_dir`` (epoch ``cfg.test.epoch``, -1 = latest; the
-    seeded init stays when there is none), on ``device`` (the card unless
-    the caller asks for the CPU; raises without CUDA), in eval mode."""
-    from ..models import init_params_for, make_network
-    from ..utils.platform import resolve_device
+def save_pretrain(pretrain_dir: str, network: torch.nn.Module) -> str:
+    """Write the network's weights as ``<pretrain_dir>/pretrain.pt``, the
+    warm start :func:`load_pretrain` reads."""
+    return _write(pretrain_dir, "pretrain",
+                  {"network": _cpu_state(network), "epoch": -1})
 
-    device = resolve_device(device)
-    network = make_network(cfg)
-    gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
-    init_params_for(cfg)(network, gen)
-    epoch = load_network(cfg.trained_model_dir, network,
-                         epoch=int(cfg.test.get("epoch", -1)))
-    if verbose:
-        print(f"loaded network from {cfg.trained_model_dir} (epoch {epoch})")
-    return network.to(device).eval(), epoch
+
+def load_pretrain(pretrain: str, network: torch.nn.Module) -> bool:
+    """Warm-start the parameters only, in place (``copy_``), from a port
+    checkpoint: ``pretrain`` is a ``.pt`` file, or a directory holding
+    ``pretrain.pt`` or training checkpoints (``latest.pt``, else the newest
+    numbered). False when there is none. A JAX Orbax directory is refused:
+    ``convert.params_from_jax`` carries its parameter tree across."""
+    if os.path.isfile(pretrain):
+        cands = [pretrain]
+    elif os.path.isdir(os.path.join(pretrain, "pretrain")) or os.path.exists(
+            os.path.join(pretrain, "_CHECKPOINT_METADATA")):
+        raise ValueError(
+            f"{pretrain} is a JAX Orbax checkpoint, which the port does not "
+            "read: convert its parameters with convert.params_from_jax and "
+            "save them with train.checkpoint.save_pretrain")
+    elif os.path.exists(os.path.join(pretrain, "pretrain.pt")):
+        cands = [os.path.join(pretrain, "pretrain.pt")]
+    else:
+        cands = _candidates(pretrain, -1)
+    if not cands:
+        return False
+    blob, _ = _load_first(cands)
+    network.load_state_dict(blob["network"], strict=True)
+    return True

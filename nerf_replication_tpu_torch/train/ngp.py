@@ -28,8 +28,13 @@ learnable encoder). Randomness: one generator, reseeded from (seed, step)
 before every step, drawn in the order ray batch, warm depths, refresh
 cells, jitter.
 
-Not in the port yet: a mesh of cards (slice 7) and the profiler window /
-telemetry rows (slice 10) raise where a config asks for them. Under
+The ops layers run as in :func:`trainer.fit`: telemetry rows (``step``
+with the dispatch/block split, ``epoch``, ``memory``, ``heartbeat``,
+``eval``, a ``compile`` row per capture and per eval-cap change, and a
+``march`` row per packed eval view), the ``train.profile`` window, the
+divergence rollback (the grid EMA and the phase counters restored too),
+the SIGTERM flush with the phase sidecar, and ``pretrain`` warm starts.
+A mesh of cards (slice 7) raises where a config asks for it. Under
 ``compile.aot`` (the JAX package's AOT registry) :func:`fit_ngp` captures
 both phase variants of the step as CUDA graphs before the loop
 (:meth:`NGPTrainer.aot_register_steps`); each step then reseeds the
@@ -68,10 +73,13 @@ from ..renderer.volume import (
 from ..utils.numerics import norm3_rn
 from .loss import mse, mse_to_psnr
 from .optim import make_optimizer, optimizer_step, set_lr
+from ..obs import CompileTracker, ProfileWindow, annotate, get_emitter
 from .trainer import (
     _check_single_card,
     _device_mem_mb,
-    _later_slice,
+    _epoch_rows,
+    _flush_preempted,
+    _roll_back,
     capture_steps,
     validates,
 )
@@ -80,13 +88,15 @@ from .trainer import (
 @dataclass
 class NGPState:
     """The trainer's state: network (parameters, table included),
-    optimizer with its schedule, the step count and the live grid EMA."""
+    optimizer with its schedule, the step count and the live grid EMA;
+    ``epoch_it`` as in ``trainer.TrainState``."""
 
     network: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: object
     step: int
     grid_ema: torch.Tensor
+    epoch_it: int = 0
 
 
 class NGPTrainer:
@@ -144,6 +154,9 @@ class NGPTrainer:
         # captured steps draw from it (registry.py)
         self._gen: torch.Generator | None = None
         self.aot = None  # compile.AOTRegistry, or None: eager steps
+        self.tracker = CompileTracker()
+        self.profile = ProfileWindow.from_cfg(cfg)
+        self._eval_cap_escalations = 0
         # captured eval renders per (n_chunks, chunk, eval cap); None: a
         # capture that failed (that render stays eager)
         self._render_fns: dict = {}
@@ -225,10 +238,13 @@ class NGPTrainer:
         self._eval_cap_derived = True
         if cap == self.packed_cap_avg_eval:
             return False
+        cap_old, self.packed_cap_avg_eval = self.packed_cap_avg_eval, cap
+        get_emitter().emit("compile", name="ngp_render_eval_cap_derived",
+                           n_compiles=0, wall_s=0.0, cap_old=cap_old,
+                           cap_new=cap)
         print(f"ngp eval cap: occupancy {occ:.1%} x "
               f"{self.eval_march.max_samples} max_samples x 1.5 headroom "
-              f"-> packed_cap_avg_eval {cap} (was {self.packed_cap_avg_eval})")
-        self.packed_cap_avg_eval = cap
+              f"-> packed_cap_avg_eval {cap} (was {cap_old})")
         return True
 
     # -- the step pieces -----------------------------------------------------
@@ -552,13 +568,27 @@ class NGPTrainer:
             max_of = float(overflow.max()) if overflow is not None else 0.0
             if max_of <= 0.0 or attempt == 3:
                 break
+            cap_old = self.packed_cap_avg_eval
             self.packed_cap_avg_eval *= 2
+            self._eval_cap_escalations += 1
+            get_emitter().emit("compile", name="ngp_render_eval_cap",
+                               n_compiles=self._eval_cap_escalations,
+                               wall_s=0.0, cap_old=cap_old,
+                               cap_new=self.packed_cap_avg_eval)
             print(f"ngp render_image: packed stream overflow {max_of:.1%} — "
                   "escalating ngp_packed_cap_avg_eval to "
                   f"{self.packed_cap_avg_eval} and re-rendering")
-        for k in ("march_candidates", "march_samples_out",
-                  "march_coarse_occ"):
-            out.pop(k, None)  # per-chunk traversal scalars
+        if "march_candidates" in out:
+            # per-chunk traversal scalars: one march row per eval view
+            get_emitter().emit(
+                "march", surface="ngp_eval",
+                mode=("fused" if self.eval_march.march_fused != "off"
+                      else "hierarchical" if self.eval_march.coarse_block > 0
+                      else "packed"),
+                candidates_in=float(out.pop("march_candidates").sum()),
+                samples_out=float(out.pop("march_samples_out").sum()),
+                coarse_occ=float(out.pop("march_coarse_occ").mean()),
+                overflow_frac=max_of, n_rays=int(rays.shape[0]))
         n_trunc = int(out.pop("truncated").sum())
         if n_trunc:
             budget = (f"ngp_packed_cap_avg_eval={self.packed_cap_avg_eval}"
@@ -576,18 +606,22 @@ class NGPTrainer:
 
 def _ngp_epoch_steps(trainer: NGPTrainer, state: NGPState, bank, recorder,
                      epoch: int, ep_iter: int, log_interval: int,
-                     finite_guard: bool = True, log=print, emit=None):
-    """One epoch's burst loop. ``emit(row)`` receives one dict per logged
-    burst: ``step``, ``epoch``, ``k``, ``warm``, ``step_time_s`` (host wall
-    time per step; the burst ends in the stats read that synchronises with
-    the card), ``lr`` and ``stats``."""
+                     finite_guard: bool = True, guard=None, log=print):
+    """One epoch's burst loop from ``state.epoch_it``; each logged burst is
+    a ``step`` row. A triggered SIGTERM ``guard`` stops it at the next
+    burst boundary with ``state.epoch_it`` set to the steps taken."""
     from ..resil import check_finite
 
-    it = 0
+    emitter = get_emitter()
+    it, state.epoch_it = state.epoch_it, 0
     end = time.time()
     while it < ep_iter:
+        trainer.profile.tick(state.step)
         k = min(trainer.scan_steps, ep_iter - it)
-        state, stats = trainer.multi_step(state, bank[0], bank[1], k)
+        t_dispatch = time.perf_counter()
+        with annotate("train/step_dispatch"):
+            state, stats = trainer.multi_step(state, bank[0], bank[1], k)
+        dispatch_s = time.perf_counter() - t_dispatch
         # multi_step may clamp a burst at the warmup boundary
         k = trainer.last_burst_steps
         should_log = (
@@ -596,56 +630,64 @@ def _ngp_epoch_steps(trainer: NGPTrainer, state: NGPState, bank, recorder,
             or it + k >= ep_iter
         )
         if should_log:
+            t_block = time.perf_counter()
             stats_host = {kk: float(v) for kk, v in stats.items()}
+            block_s = time.perf_counter() - t_block
             if finite_guard:
-                check_finite(stats_host, state.step)
+                stats_host = check_finite(stats_host, state.step)
             recorder.update_loss_stats(stats_host)
         recorder.step = state.step
-        step_time = (time.time() - end) / k
-        recorder.batch_time.update(step_time)
+        recorder.batch_time.update((time.time() - end) / k)
         recorder.data_time.update(0.0)
         end = time.time()
         if should_log:
             lr = float(state.schedule(state.step))
+            mem = _device_mem_mb(bank[0].device)
             log(recorder.console_line(
-                epoch, min(it + k - 1, ep_iter - 1), ep_iter, lr,
-                _device_mem_mb(bank[0].device)))
+                epoch, min(it + k - 1, ep_iter - 1), ep_iter, lr, mem))
             recorder.record("train")
-            if emit is not None:
-                emit({"step": state.step, "epoch": epoch, "k": k,
-                      "warm": trainer.last_burst_warm,
-                      "step_time_s": step_time, "lr": lr,
-                      "stats": stats_host})
+            emitter.emit(
+                "step", step=state.step, epoch=epoch, k=k,
+                step_time_s=recorder.batch_time.median,
+                step_time_avg_s=recorder.batch_time.avg,
+                data_time_s=recorder.data_time.avg,
+                dispatch_s=dispatch_s / k, block_s=block_s / k, lr=lr,
+                max_mem_mb=mem,
+                stats={**stats_host, "warm": trainer.last_burst_warm})
         it += k
+        if guard is not None and guard.triggered:
+            state.epoch_it = it % ep_iter
+            break
+    trainer.profile.tick(state.step)
     return state
 
 
-def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
+def fit_ngp(cfg, network=None, log=print, device="cuda"):
     """Epoch-loop entry for ``task_arg.ngp_training: true`` (what
     ``trainer.fit`` routes to): resume (weights, optimizer, grid EMA and the
-    phase sidecar), the epoch loop with its save/eval cadence on one card.
-    Returns the final :class:`NGPState`."""
+    phase sidecar) or a ``pretrain`` warm start, the epoch loop with its
+    save/eval cadence on one card, telemetry, the profiler window, the
+    divergence rollback and the SIGTERM flush. Returns the final
+    :class:`NGPState`."""
     from ..compile import registry_from_cfg
     from ..datasets import make_dataset
     from ..evaluators import make_evaluator
-    from ..resil import DivergenceError
+    from ..obs import init_run
+    from ..resil import DivergenceError, PreemptionGuard
     from ..utils.platform import resolve_device
+    from ..utils.setup import configure_runtime
     from .checkpoint import (
         load_model,
         load_phase_state,
-        save_model,
+        load_pretrain,
+        save_model_with_retry,
         save_trained_config,
     )
     from .recorder import make_recorder
 
     _check_single_card(cfg)
-    if cfg.get("pretrain", ""):
-        raise NotImplementedError(
-            "pretrain warm starts read the JAX package's Orbax checkpoints, "
-            "which the port does not")
-    if int(cfg.train.get("profile", {}).get("start_step", -1)) >= 0:
-        raise _later_slice("train.profile (the profiler window)", 10)
     dev = resolve_device(device)
+    configure_runtime(cfg)
     if network is None:
         from ..models import make_network
 
@@ -653,6 +695,8 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
     trainer = NGPTrainer(cfg, network)
     evaluator = None if cfg.get("skip_eval", False) else make_evaluator(cfg)
     recorder = make_recorder(cfg)
+    # telemetry opens AFTER the recorder (a fresh run wipes record_dir)
+    emitter = init_run(cfg, component="train_ngp")
     state = trainer.make_state(dev)
 
     begin_epoch = 0
@@ -665,13 +709,15 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
         # in multi_step when the sidecar is absent or torn)
         trainer.restore_phase(load_phase_state(cfg.trained_model_dir),
                               expect_step=state.step)
+    if begin_epoch == 0 and state.epoch_it == 0 and cfg.get("pretrain", ""):
+        load_pretrain(str(cfg.pretrain), state.network)
     save_trained_config(cfg)
 
     train_ds = make_dataset(cfg, "train")
     bank = tuple(torch.from_numpy(a).to(dev) for a in train_ds.ray_bank())
     # CUDA graphs: both phase variants and the eval render captured before
     # the loop (compile.aot; a disabled registry on the CPU)
-    trainer.aot = registry_from_cfg(cfg, dev)
+    trainer.aot = registry_from_cfg(cfg, dev, tracker=trainer.tracker)
     trainer.aot_register_steps(state, bank)
     test_ds = make_dataset(cfg, "test")
     epochs = int(cfg.train.epoch)
@@ -686,25 +732,61 @@ def fit_ngp(cfg, network=None, log=print, device="cuda", emit=None):
     if trainer.aot is not None and trainer.aot.names():
         log("compile: " + json.dumps(trainer.aot.status()))
     log_interval = int(cfg.get("log_interval", 20))
-    finite_guard = bool(cfg.get("resil", {}).get("finite_guard", True))
-    for epoch in range(begin_epoch, epochs):
-        recorder.epoch = epoch
-        try:
-            state = _ngp_epoch_steps(trainer, state, bank, recorder, epoch,
-                                     ep_iter, log_interval, finite_guard,
-                                     log=log, emit=emit)
-        except DivergenceError as err:
-            if int(cfg.get("resil", {}).get("max_rollbacks", 2)) > 0:
-                raise _later_slice("rolling back to the last checkpoint "
-                                   "after a non-finite loss", 10) from err
-            raise
-        for latest, every in ((False, save_ep), (True, save_latest_ep)):
-            if (epoch + 1) % every == 0:
-                save_model(cfg.trained_model_dir, state, epoch,
-                           recorder.state_dict(), latest=latest,
-                           phase_state=trainer.phase_state())
-        if (epoch + 1) % eval_ep == 0 and evaluator is not None:
-            result = trainer.val(state, test_ds, evaluator, log=log)
-            if result:
-                recorder.record("val", step=epoch, stats=result)
+    rcfg = cfg.get("resil", {})
+    finite_guard = bool(rcfg.get("finite_guard", True))
+    max_rollbacks = int(rcfg.get("max_rollbacks", 2))
+    guard = (PreemptionGuard.install()
+             if bool(rcfg.get("preempt_sigterm", True)) else None)
+    rollbacks = 0
+    t_fit_start = time.time()
+    try:
+        epoch = begin_epoch
+        while epoch < epochs:
+            recorder.epoch = epoch
+            t_epoch = time.time()
+            step_before = state.step
+            try:
+                state = _ngp_epoch_steps(trainer, state, bank, recorder,
+                                         epoch, ep_iter, log_interval,
+                                         finite_guard, guard=guard, log=log)
+            except DivergenceError as err:
+                epoch = _roll_back(cfg, state, recorder, err, rollbacks,
+                                   max_rollbacks, log)
+                rollbacks += 1
+                # re-sync the warm/carve phase to the RESTORED state (the
+                # diverged run's host counters are stale)
+                trainer._host_step = None
+                trainer.restore_phase(
+                    load_phase_state(cfg.trained_model_dir),
+                    expect_step=state.step)
+                continue
+            if state.epoch_it:
+                _flush_preempted(cfg, state, epoch, recorder, log,
+                                 phase_state=trainer.phase_state())
+                break
+            _epoch_rows(emitter, epoch, state.step, state.step - step_before,
+                        time.time() - t_epoch, time.time() - t_fit_start)
+            for latest, every in ((False, save_ep), (True, save_latest_ep)):
+                if (epoch + 1) % every == 0:
+                    save_model_with_retry(
+                        cfg, cfg.trained_model_dir, state, epoch,
+                        recorder.state_dict(), latest=latest, log=log,
+                        phase_state=trainer.phase_state())
+            if (epoch + 1) % eval_ep == 0 and evaluator is not None:
+                result = trainer.val(state, test_ds, evaluator, log=log)
+                if result:
+                    recorder.record("val", step=epoch, stats=result)
+            if guard is not None and guard.triggered:
+                save_model_with_retry(
+                    cfg, cfg.trained_model_dir, state, epoch,
+                    recorder.state_dict(), latest=True, log=log,
+                    phase_state=trainer.phase_state())
+                log("SIGTERM: latest checkpoint flushed; exiting")
+                break
+            epoch += 1
+    finally:
+        if guard is not None:
+            guard.uninstall()
+        trainer.profile.stop()
+        emitter.close()
     return state

@@ -9,7 +9,8 @@ writes (the port trains on one card).
 The scalar writer is made on first use, as in the JAX package: a TensorBoard
 ``SummaryWriter`` from ``tensorboardX`` or ``torch.utils.tensorboard``, and
 where neither imports, ``scalars.jsonl`` in ``record_dir`` with one
-``{"tag", "value", "step"}`` object per line.
+``{"tag", "value", "step"}`` object per line. A record other than ``train``
+(validation, test) is also one ``eval`` telemetry row.
 """
 
 from __future__ import annotations
@@ -129,6 +130,15 @@ class Recorder:
             for k, v in stats.items():
                 v = v.median if isinstance(v, SmoothedValue) else float(v)
                 self.writer.add_scalar(pattern.format(k), v, step)
+        # eval-cadence summaries are one typed row each; the train cadence's
+        # rows come from the trainer's loop, which has the timings
+        if stats is not None and prefix != "train":
+            from ..obs import get_emitter
+
+            get_emitter().emit(
+                "eval", prefix=prefix, step=int(step),
+                metrics={k: float(v.median if isinstance(v, SmoothedValue)
+                                  else v) for k, v in stats.items()})
 
     def state_dict(self) -> dict:
         return {

@@ -32,11 +32,30 @@ optimizer step whose lr is the schedule at the step count (optax's order).
 ``task_arg.ngp_training`` routes :func:`fit` to ``ngp.fit_ngp`` (the
 occupancy-accelerated trainer with a live grid), as the JAX package does.
 
-Not in the port yet, each raising ``NotImplementedError`` where a run asks
-for it: a mesh of several cards (slice 7), ``pretrain`` warm starts, the
-profiler window ``train.profile`` and the divergence rollback (slice 10) — a
-non-finite loss stops the run. The SIGTERM checkpoint flush (slice 10) is
-not installed.
+The ops layers (``obs/``, ``resil/``), as in the JAX ``fit``:
+
+* Telemetry: :func:`fit` opens ``<record_dir>/telemetry.jsonl``
+  (``obs.init_run``) after the recorder; the loop emits a ``step`` row per
+  logged burst (with its dispatch/block split), the epoch cadence
+  ``epoch`` / ``memory`` / ``heartbeat`` rows, validation ``eval`` and
+  ``sample`` rows, and every capture is a ``compile`` row.
+  In-process readers subscribe with ``obs.add_row_tap``.
+* ``train.profile: {start_step, num_steps, dir}``: a ``torch.profiler``
+  window over those steps (``obs.ProfileWindow``), ticked every burst.
+* A non-finite loss (``resil.check_finite`` on the stats the log cadence
+  reads anyway) rolls back to the last checkpoint, up to
+  ``resil.max_rollbacks`` times, with a ``fault`` row; with no checkpoint
+  it re-raises. The restore copies into the tensors the captured step
+  reads (``checkpoint.load_model``), so the replays go on from it.
+* ``resil.preempt_sigterm`` (default on): SIGTERM stops the loop at the
+  next burst boundary, flushes ``latest.pt`` with the steps of the epoch
+  already taken (``epoch_it``), and ``fit`` returns; a resumed run takes
+  the rest of that epoch and ends where an uninterrupted run ends.
+* ``pretrain``: a fresh run (begin epoch 0) warm-starts its parameters
+  from a port checkpoint (``checkpoint.load_pretrain``).
+
+Not in the port yet: a mesh of several cards (slice 7), which raises
+``NotImplementedError`` where a run asks for it.
 """
 
 from __future__ import annotations
@@ -50,8 +69,22 @@ import numpy as np
 import torch
 
 from ..datasets.sampling import reseed
-from ..resil import DivergenceError, check_finite
-from .checkpoint import load_model, save_model, save_trained_config
+from ..obs import (
+    CompileTracker,
+    ProfileWindow,
+    annotate,
+    get_emitter,
+    init_run,
+    sample_memory,
+)
+from ..resil import DivergenceError, PreemptionGuard, check_finite, report
+from .checkpoint import (
+    has_checkpoint,
+    load_model,
+    load_pretrain,
+    save_model_with_retry,
+    save_trained_config,
+)
 from .optim import capturable, make_optimizer, optimizer_step, set_lr
 from .recorder import Recorder
 from .step_core import sampled_grad_step
@@ -60,12 +93,15 @@ from .step_core import sampled_grad_step
 @dataclass
 class TrainState:
     """What the JAX ``TrainState`` holds: the network (parameters), the
-    optimizer (its moments) with its lr schedule, and the step count."""
+    optimizer (its moments) with its lr schedule, and the step count;
+    ``epoch_it``: the steps of the current epoch already taken when a run
+    stopped mid-epoch (a SIGTERM flush), 0 otherwise."""
 
     network: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: object
     step: int = 0
+    epoch_it: int = 0
 
 
 def make_train_state(cfg, network, device) -> TrainState:
@@ -162,6 +198,11 @@ class Trainer:
         self.scan_steps = max(1, int(cfg.task_arg.get("scan_steps", 1)))
         self.grad_accum = max(1, int(cfg.task_arg.get("grad_accum", 1)))
         self.finite_guard = bool(cfg.get("resil", {}).get("finite_guard", True))
+        # compile rows of the captures, the profiler window, and the SIGTERM
+        # guard fit() installs (polled at burst boundaries)
+        self.tracker = CompileTracker()
+        self.profile = ProfileWindow.from_cfg(cfg)
+        self.preempt: PreemptionGuard | None = None
         self._val_render = None
         self.aot = None  # compile.AOTRegistry, or None: eager steps
         # the step stream's generator and, on the card, the step count the
@@ -263,29 +304,35 @@ class Trainer:
         return state, stats
 
     def train_epoch(self, state: TrainState, epoch: int, bank,
-                    recorder: Recorder, index_pool=None, log=print,
-                    emit=None):
-        """One epoch of steps. ``emit(row)``, when given, receives one dict
-        per logged burst — ``step``, ``epoch``, ``k``, ``step_time_s`` (host
-        wall time per step, the burst ending in the stats read that
-        synchronises with the card) and ``stats`` — the fields of the JAX
-        package's telemetry ``step`` row."""
+                    recorder: Recorder, index_pool=None, log=print):
+        """One epoch of steps, from ``state.epoch_it`` (a resumed mid-epoch
+        flush) to ``epoch_iters``; each logged burst is a ``step`` row. A
+        triggered SIGTERM guard stops it at the next burst boundary with
+        ``state.epoch_it`` set to the steps taken."""
         bank_rays, bank_rgbs, pool = bank[0], bank[1], index_pool
         max_iter = self.epoch_iters(int(bank_rays.shape[0]))
         end = time.time()
         log_interval = int(self.cfg.get("log_interval", 20))
+        emitter = get_emitter()
         stats = None
-        it = 0
+        it, state.epoch_it = state.epoch_it, 0
         while it < max_iter:
+            # the window opens BEFORE the burst that first overlaps it
+            self.profile.tick(state.step)
             data_time = time.time() - end
             use_pool = pool is not None and state.step < self.precrop_iters
-            if use_pool or self.scan_steps <= 1:
-                k = 1
-                state, stats = self.step(state, bank_rays, bank_rgbs,
-                                         index_pool=pool if use_pool else None)
-            else:
-                k = min(self.scan_steps, max_iter - it)
-                state, stats = self.multi_step(state, bank_rays, bank_rgbs, k)
+            t_dispatch = time.perf_counter()
+            with annotate("train/step_dispatch"):
+                if use_pool or self.scan_steps <= 1:
+                    k = 1
+                    state, stats = self.step(
+                        state, bank_rays, bank_rgbs,
+                        index_pool=pool if use_pool else None)
+                else:
+                    k = min(self.scan_steps, max_iter - it)
+                    state, stats = self.multi_step(state, bank_rays,
+                                                   bank_rgbs, k)
+            dispatch_s = time.perf_counter() - t_dispatch
             # log when a burst crosses a log_interval boundary (k = 1: the
             # reference cadence)
             should_log = (
@@ -294,26 +341,36 @@ class Trainer:
                 or it + k >= max_iter
             )
             if should_log:
+                # the stats read is the sync with the card: timed, so the
+                # step row splits host dispatch from device wait
+                t_block = time.perf_counter()
                 stats_host = {kk: float(v) for kk, v in stats.items()}
+                block_s = time.perf_counter() - t_block
                 if self.finite_guard:
-                    check_finite(stats_host, state.step)
+                    stats_host = check_finite(stats_host, state.step)
                 recorder.update_loss_stats(stats_host)
             recorder.step = state.step
-            step_time = (time.time() - end) / k
-            recorder.batch_time.update(step_time)
+            recorder.batch_time.update((time.time() - end) / k)
             recorder.data_time.update(data_time)
             end = time.time()
             if should_log:
                 lr = float(state.schedule(state.step))
+                mem = _device_mem_mb(bank_rays.device)
                 log(recorder.console_line(
-                    epoch, min(it + k - 1, max_iter - 1), max_iter, lr,
-                    _device_mem_mb(bank_rays.device)))
+                    epoch, min(it + k - 1, max_iter - 1), max_iter, lr, mem))
                 recorder.record("train")
-                if emit is not None:
-                    emit({"step": state.step, "epoch": epoch, "k": k,
-                          "step_time_s": step_time, "lr": lr,
-                          "stats": stats_host})
+                emitter.emit(
+                    "step", step=state.step, epoch=epoch, k=k,
+                    step_time_s=recorder.batch_time.median,
+                    step_time_avg_s=recorder.batch_time.avg,
+                    data_time_s=recorder.data_time.avg,
+                    dispatch_s=dispatch_s / k, block_s=block_s / k, lr=lr,
+                    max_mem_mb=mem, stats=stats_host)
             it += k
+            if self.preempt is not None and self.preempt.triggered:
+                state.epoch_it = it % max_iter
+                break
+        self.profile.tick(state.step)
         return state, stats
 
     def val(self, state: TrainState, epoch: int, test_dataset,
@@ -333,16 +390,17 @@ class Trainer:
         n = len(test_dataset)
         if max_images is not None:
             n = min(n, max_images)
-        for i in range(n):
-            batch = test_dataset.image_batch(i)
-            out = self._val_render[1]({
-                "rays": torch.from_numpy(batch["rays"]).to(device),
-                "near": float(batch["near"]),
-                "far": float(batch["far"]),
-            })
-            if self.evaluator is not None:
-                self.evaluator.evaluate(
-                    {k: v.cpu().numpy() for k, v in out.items()}, batch)
+        with annotate("train/validation"):
+            for i in range(n):
+                batch = test_dataset.image_batch(i)
+                out = self._val_render[1]({
+                    "rays": torch.from_numpy(batch["rays"]).to(device),
+                    "near": float(batch["near"]),
+                    "far": float(batch["far"]),
+                })
+                if self.evaluator is not None:
+                    self.evaluator.evaluate(
+                        {k: v.cpu().numpy() for k, v in out.items()}, batch)
         result = {}
         if self.evaluator is not None:
             result = self.evaluator.summarize()
@@ -352,6 +410,18 @@ class Trainer:
                 log(f"val epoch {epoch}: " + "  ".join(
                     f"{k}: {v:.4f}" for k, v in result.items()
                 ))
+        # one sample row per validation pass: the fine-MLP evaluations a
+        # ray costs beside the quality they bought
+        renderer = getattr(self.loss, "renderer", None)
+        if renderer is not None and hasattr(renderer, "sampling_stats"):
+            ss = renderer.sampling_stats()
+            row = {"mode": ss["mode"],
+                   "fine_evals_per_ray": ss["fine_evals_per_ray_eval"],
+                   "n_proposal": ss["n_proposal"], "n_fine": ss["n_fine"],
+                   "surface": "val", "step": int(state.step)}
+            if "psnr" in result:
+                row["psnr"] = float(result["psnr"])
+            get_emitter().emit("sample", **row)
         return result
 
 
@@ -373,16 +443,18 @@ def _check_single_card(cfg) -> None:
         raise _later_slice("parallel.data_axis/model_axis > 1 (a mesh)", 7)
 
 
-def fit(cfg, network=None, log=print, device="cuda", emit=None):
+def fit(cfg, network=None, log=print, device="cuda"):
     """Full training entry: build everything from cfg, resume if a
-    checkpoint is there, run the epoch loop with the save/eval cadence on
-    one card (``device``). ``emit`` receives the per-step rows of
-    :meth:`Trainer.train_epoch`. Returns the final :class:`TrainState`."""
+    checkpoint is there (or warm-start from ``pretrain``), run the epoch
+    loop with the save/eval cadence on one card (``device``), with
+    telemetry, the profiler window, the divergence rollback and the
+    SIGTERM flush. Returns the final :class:`TrainState`."""
     from ..compile import registry_from_cfg
     from ..datasets import make_dataset
     from ..evaluators import make_evaluator
     from ..registry import load_attr
     from ..utils.platform import resolve_device
+    from ..utils.setup import configure_runtime
     from .recorder import make_recorder
 
     if bool(cfg.task_arg.get("ngp_training", False)):
@@ -390,17 +462,10 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
         # EMA) and march; same entry contract, its own epoch loop
         from .ngp import fit_ngp
 
-        return fit_ngp(cfg, network=network, log=log, device=device,
-                       emit=emit)
+        return fit_ngp(cfg, network=network, log=log, device=device)
     _check_single_card(cfg)
-    if cfg.get("pretrain", ""):
-        raise NotImplementedError(
-            "pretrain warm starts read the JAX package's Orbax checkpoints, "
-            "which the port does not"
-        )
-    if int(cfg.train.get("profile", {}).get("start_step", -1)) >= 0:
-        raise _later_slice("train.profile (the profiler window)", 10)
     dev = resolve_device(device)
+    configure_runtime(cfg)
 
     if network is None:
         from ..models import make_network
@@ -412,6 +477,8 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
 
     trainer = Trainer(cfg, network, loss, evaluator)
     recorder = make_recorder(cfg)
+    # telemetry opens AFTER the recorder (a fresh run wipes record_dir)
+    emitter = init_run(cfg, component="train")
     state = make_train_state(cfg, network, dev)
 
     begin_epoch = 0
@@ -420,6 +487,8 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
                                                    state)
         if rec_state:
             recorder.load_state_dict(rec_state)
+    if begin_epoch == 0 and state.epoch_it == 0 and cfg.get("pretrain", ""):
+        load_pretrain(str(cfg.pretrain), state.network)
     save_trained_config(cfg)
 
     train_ds = make_dataset(cfg, "train")
@@ -431,7 +500,7 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
             np.asarray(train_ds.precrop_index_pool(frac))).to(dev)
     # CUDA graphs: every step of this run and the validation render
     # captured before the loop (compile.aot; a disabled registry on the CPU)
-    trainer.aot = registry_from_cfg(cfg, dev)
+    trainer.aot = registry_from_cfg(cfg, dev, tracker=trainer.tracker)
     trainer.aot_register_steps(state, bank, pool=pool)
     test_ds = make_dataset(cfg, "test")
     epochs = int(cfg.train.epoch)
@@ -442,24 +511,91 @@ def fit(cfg, network=None, log=print, device="cuda", emit=None):
         trainer.aot_register_val(test_ds)
     if trainer.aot is not None and trainer.aot.names():
         log("compile: " + json.dumps(trainer.aot.status()))
-    for epoch in range(begin_epoch, epochs):
-        recorder.epoch = epoch
-        try:
-            state, _ = trainer.train_epoch(state, epoch, bank, recorder,
-                                           index_pool=pool, log=log,
-                                           emit=emit)
-        except DivergenceError as err:
-            if int(cfg.get("resil", {}).get("max_rollbacks", 2)) > 0:
-                raise _later_slice("rolling back to the last checkpoint "
-                                   "after a non-finite loss", 10) from err
-            raise
-        if (epoch + 1) % save_ep == 0:
-            save_model(cfg.trained_model_dir, state, epoch,
-                       recorder.state_dict(), latest=False)
-        if (epoch + 1) % save_latest_ep == 0:
-            save_model(cfg.trained_model_dir, state, epoch,
-                       recorder.state_dict(), latest=True)
-        if (epoch + 1) % eval_ep == 0 and evaluator is not None:
-            trainer.val(state, epoch, test_ds, recorder, log=log)
+
+    rcfg = cfg.get("resil", {})
+    max_rollbacks = int(rcfg.get("max_rollbacks", 2))
+    guard = (PreemptionGuard.install()
+             if bool(rcfg.get("preempt_sigterm", True)) else None)
+    trainer.preempt = guard
+    rollbacks = 0
+    t_fit_start = time.time()
+    try:
+        epoch = begin_epoch
+        while epoch < epochs:
+            recorder.epoch = epoch
+            t_epoch = time.time()
+            step_before = state.step
+            try:
+                state, _ = trainer.train_epoch(state, epoch, bank, recorder,
+                                               index_pool=pool, log=log)
+            except DivergenceError as err:
+                epoch = _roll_back(cfg, state, recorder, err, rollbacks,
+                                   max_rollbacks, log)
+                rollbacks += 1
+                continue
+            if state.epoch_it:
+                # SIGTERM mid-epoch: flush what this epoch has taken
+                _flush_preempted(cfg, state, epoch, recorder, log)
+                break
+            _epoch_rows(emitter, epoch, state.step, state.step - step_before,
+                        time.time() - t_epoch, time.time() - t_fit_start)
+            for latest, every in ((False, save_ep), (True, save_latest_ep)):
+                if (epoch + 1) % every == 0:
+                    save_model_with_retry(cfg, cfg.trained_model_dir, state,
+                                          epoch, recorder.state_dict(),
+                                          latest=latest, log=log)
+            if (epoch + 1) % eval_ep == 0 and evaluator is not None:
+                trainer.val(state, epoch, test_ds, recorder, log=log)
+            if guard is not None and guard.triggered:
+                # SIGTERM at the epoch's end: one latest flush, then stop
+                save_model_with_retry(cfg, cfg.trained_model_dir, state,
+                                      epoch, recorder.state_dict(),
+                                      latest=True, log=log)
+                log("SIGTERM: latest checkpoint flushed; exiting")
+                break
+            epoch += 1
+    finally:
+        if guard is not None:
+            guard.uninstall()
+        # a window still open at exit must be closed to write its trace
+        trainer.profile.stop()
+        emitter.close()
     return state
 
+
+def _roll_back(cfg, state, recorder, err, rollbacks: int,
+               max_rollbacks: int, log) -> int:
+    """Answer a :class:`DivergenceError`: restore the last checkpoint into
+    ``state`` in place (the tensors the captured steps read) and return
+    the epoch to go on from; re-raise when the budget is spent or there is
+    no checkpoint."""
+    if rollbacks >= max_rollbacks or not has_checkpoint(
+            cfg.trained_model_dir):
+        raise err
+    report("train.loss", "rollback", step=err.step,
+           detail=f"rollback {rollbacks + 1}/{max_rollbacks}")
+    log(f"non-finite loss at step {err.step}: rolling back to the last "
+        f"good checkpoint ({rollbacks + 1}/{max_rollbacks})")
+    _, epoch, rec_state = load_model(cfg.trained_model_dir, state)
+    if rec_state:
+        recorder.load_state_dict(rec_state)
+    return epoch
+
+
+def _flush_preempted(cfg, state, epoch: int, recorder, log,
+                     phase_state=None) -> None:
+    """The SIGTERM flush in the middle of ``epoch``: ``latest.pt`` with the
+    last whole epoch (``epoch - 1``) and the steps of this one taken."""
+    save_model_with_retry(cfg, cfg.trained_model_dir, state, epoch - 1,
+                          recorder.state_dict(), latest=True, log=log,
+                          epoch_it=state.epoch_it, phase_state=phase_state)
+    log("SIGTERM: latest checkpoint flushed; exiting")
+
+
+def _epoch_rows(emitter, epoch: int, step: int, steps: int, wall_s: float,
+                since_start_s: float) -> None:
+    """The epoch cadence's rows: throughput, memory, liveness."""
+    emitter.emit("epoch", epoch=epoch, steps=steps, wall_s=wall_s,
+                 steps_per_sec=steps / max(wall_s, 1e-9))
+    sample_memory(step=step, epoch=epoch)
+    emitter.emit("heartbeat", wall_s=since_start_s, step=step, epoch=epoch)

@@ -47,6 +47,7 @@ norm of a float64 reference (float32 atomics add in another order each
 launch) and dx within 1e-5 of max|dx|. A few NGP steps on the card
 (per-ray and packed march) launch both."""
 
+import contextlib
 import os
 import sys
 
@@ -75,6 +76,24 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def _step_rows():
+    """The ``step`` telemetry rows emitted inside the block (a row tap)."""
+    from nerf_replication_tpu_torch.obs import add_row_tap, remove_row_tap
+
+    rows = []
+
+    def tap(row):
+        if row["kind"] == "step":
+            rows.append(row)
+
+    add_row_tap(tap)
+    try:
+        yield rows
+    finally:
+        remove_row_tap(tap)
 
 
 def _rays(n, seed, n_zero=0):
@@ -369,9 +388,9 @@ def test_fused_train_steps_are_finite(dev, tmp_path):
         "eval_ep", "100", "save_ep", "100", "save_latest_ep", "100",
         "trained_model_dir", out + "/trained", "record_dir", out + "/record",
         "result_dir", out + "/result", "trained_config_dir", out + "/cfg"])
-    rows = []
     fmlp.reset_launch_counts()
-    fit(cfg, device="cuda", emit=rows.append, log=lambda s: None)
+    with _step_rows() as rows:
+        fit(cfg, device="cuda", log=lambda s: None)
     losses = [r["stats"]["loss"] for r in rows]
     assert len(losses) == 2 and all(np.isfinite(losses)), losses
     assert fmlp.LAUNCHES["fused_mlp_fwd"] > 0
@@ -473,12 +492,12 @@ def test_ngp_train_steps_launch_k6_k6b(dev, tmp_path):
             "record_dir", os.path.join(out, "record"),
             "result_dir", os.path.join(out, "result"),
             "trained_config_dir", os.path.join(out, "config")])
-        rows = []
         he.reset_launch_counts()
-        state = fit(cfg, device="cuda", emit=rows.append, log=lambda s: None)
+        with _step_rows() as rows:
+            state = fit(cfg, device="cuda", log=lambda s: None)
         torch.cuda.synchronize()
         assert state.step == 4
-        assert [r["warm"] for r in rows] == [True, True, False, False]
+        assert [r["stats"]["warm"] for r in rows] == [True, True, False, False]
         assert all(np.isfinite(r["stats"]["loss"]) for r in rows)
         assert he.LAUNCHES["hash_encode_fwd"] > 0
         assert he.LAUNCHES["hash_encode_bwd"] > 0

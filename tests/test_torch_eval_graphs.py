@@ -385,18 +385,3 @@ def test_run_evaluate_captures_the_route_it_renders(scene, tmp_path,
     assert graphed["used_grid"] and graphed["n_images"] == 2
     for k in ("psnr", "ssim", "n_truncated", "march"):
         assert graphed[k] == eager[k], k
-
-
-@pytest.mark.parametrize("config", ["lego", "lego_hash_ngp"])
-def test_fit_refuses_train_profile(config, tmp_path):
-    """The profiler window is ported with the obs/ slice: both trainers
-    raise on ``train.profile.start_step >= 0`` instead of training without
-    the trace."""
-    from nerf_replication_tpu_torch.train.trainer import fit
-
-    opts = ["train.profile.start_step", "0",
-            "trained_model_dir", str(tmp_path / "m")]
-    cfg = make_cfg(LEGO, opts) if config == "lego" else make_cfg(
-        LEGO_HASH, opts + ["task_arg.ngp_training", "true"])
-    with pytest.raises(NotImplementedError, match="train.profile"):
-        fit(cfg, device="cpu", log=lambda s: None)

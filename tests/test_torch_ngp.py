@@ -339,11 +339,22 @@ def scene(tmp_path_factory):
 
 
 def _fit(root, out, extra):
+    """A CPU fit and its ``step`` telemetry rows (read through a row tap)."""
+    from nerf_replication_tpu_torch.obs import add_row_tap, remove_row_tap
     from nerf_replication_tpu_torch.train.trainer import fit
 
     rows = []
+
+    def tap(row):
+        if row["kind"] == "step":
+            rows.append(row)
+
     cfg = make_cfg(LEGO_HASH, _ngp_opts(root, out, extra))
-    state = fit(cfg, device="cpu", emit=rows.append, log=lambda s: None)
+    add_row_tap(tap)
+    try:
+        state = fit(cfg, device="cpu", log=lambda s: None)
+    finally:
+        remove_row_tap(tap)
     return cfg, state, rows
 
 
@@ -361,10 +372,10 @@ def test_resume_equals_uninterrupted(scene, tmp_path, packed):
                          extra + ["train.epoch", "1"])
     cfg, resumed, rows_b2 = _fit(scene, str(tmp_path / "b"),
                                  extra + ["train.epoch", "2"])
-    assert [r["warm"] for r in rows_a] == [True] * 4 + [False] * 6
-    assert [(r["step"], r["warm"], r["stats"]["loss"])
+    assert [r["stats"]["warm"] for r in rows_a] == [True] * 4 + [False] * 6
+    assert [(r["step"], r["stats"]["warm"], r["stats"]["loss"])
             for r in rows_b1 + rows_b2] == \
-        [(r["step"], r["warm"], r["stats"]["loss"]) for r in rows_a]
+        [(r["step"], r["stats"]["warm"], r["stats"]["loss"]) for r in rows_a]
     assert torch.equal(whole.grid_ema, resumed.grid_ema)
     for (k, a), b in zip(whole.network.state_dict().items(),
                          resumed.network.state_dict().values()):
@@ -491,10 +502,8 @@ def test_eval_render_cap_derivation_escalation_and_refusals(scene, tmp_path):
     names slice 7; load_trained_network defaults to the card and refuses
     silently serving from the CPU."""
     from nerf_replication_tpu_torch.datasets import make_dataset
-    from nerf_replication_tpu_torch.train.checkpoint import (
-        load_trained_network,
-    )
     from nerf_replication_tpu_torch.train.ngp import NGPTrainer, fit_ngp
+    from nerf_replication_tpu_torch.utils.setup import load_trained_network
 
     cfg = make_cfg(LEGO_HASH, _ngp_opts(scene, str(tmp_path), [
         "task_arg.ngp_packed_march", "true",

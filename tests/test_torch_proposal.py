@@ -477,11 +477,22 @@ def test_fit_resume_and_serve_a_proposal_checkpoint(tmp_path):
     root = str(tmp_path / "scene")
     generate_scene(root, "procedural", H=16, W=16, n_train=3, n_test=1)
 
+    from nerf_replication_tpu_torch.obs import add_row_tap, remove_row_tap
+
     def run(out, epochs):
         rows = []
+
+        def tap(row):
+            if row["kind"] == "step":
+                rows.append(row)
+
         cfg = make_cfg(PROP, _fit_opts(root, str(tmp_path / out),
                                        ["train.epoch", str(epochs)]))
-        state = fit(cfg, device="cpu", emit=rows.append, log=lambda s: None)
+        add_row_tap(tap)
+        try:
+            state = fit(cfg, device="cpu", log=lambda s: None)
+        finally:
+            remove_row_tap(tap)
         return cfg, state, rows
 
     cfg, whole, rows_a = run("a", 2)

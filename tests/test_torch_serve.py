@@ -305,7 +305,8 @@ def test_guards_refuse_silent_fallbacks(weights, tmp_path, monkeypatch,
 
 def test_http_entry_answers_render(weights, tmp_path):
     """``python -m nerf_replication_tpu_torch.serve --device cpu --port 0``
-    answers POST /render, GET /stats and GET /healthz."""
+    answers POST /render, GET /stats and GET /healthz; SIGTERM dumps
+    ``flight_sigterm.json`` into the record dir and exits 0."""
     _, _, pnet = weights
     opts = _scene(tmp_path, pnet)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -348,3 +349,7 @@ def test_http_entry_answers_render(weights, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+    assert proc.returncode == 0
+    dumps = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path)
+             for f in fs if f == "flight_sigterm.json"]
+    assert len(dumps) == 1

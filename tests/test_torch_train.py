@@ -216,11 +216,21 @@ def scene(tmp_path_factory):
 
 
 def _fit(root, out, exp, extra=()):
+    from nerf_replication_tpu_torch.obs import add_row_tap, remove_row_tap
     from nerf_replication_tpu_torch.train.trainer import fit
 
     rows = []
+
+    def tap(row):
+        if row["kind"] == "step":
+            rows.append(row)
+
     cfg = make_cfg(LEGO, _tiny_opts(root, out, exp, extra))
-    state = fit(cfg, device="cpu", emit=rows.append, log=lambda s: None)
+    add_row_tap(tap)
+    try:
+        state = fit(cfg, device="cpu", log=lambda s: None)
+    finally:
+        remove_row_tap(tap)
     return cfg, state, rows
 
 
