@@ -164,6 +164,34 @@ imports nothing of JAX. Phases, each fatal on failure:
    text) and ``/healthz`` (its ``slo`` block); (g) ``run --type evaluate``
    writes ``run_meta`` and ``eval`` rows. One line with all of it.
 
+17. the model zoo (phase 17), its K1/K2/K5/K6/K6b launch counts reset
+   right before each run and read right after (the kernel-vs-plain checks
+   left out): (a) ``configs/light_stage/dynamic.yaml`` at its width (W 64,
+   D 3, ``cuda_hashgrid_latent`` 16 x 2 levels, 2^19 rows, finest 1024,
+   1024 rays, 64 + 128 samples) through ``python -m
+   nerf_replication_tpu_torch.train`` (a driver around its ``main`` that
+   writes the subprocess's K6/K6b counts) on a procedural PNG capture of 4
+   cameras x 8 frames at 256 x 256, 100 graphed steps: the loss falling,
+   max|latent_t| > 1e-4, both test views finite through the captured
+   chunked ``Trainer.val``, no capture after warm-up, its step ms;
+   (b) the tri-plane (on the 200 x 200 scene) and ``cuda_hashgrid_4d``,
+   ``_coef``, ``dnerf``, ``cuda_motion2d``, ``cuda_dnerf_ngp_tensorf`` (on
+   a 2 x 4 capture at 128 x 128) at dynamic.yaml's hash geometry, 20 graphed
+   steps each, finite losses; one eager step's K6/K6b calls recorded and
+   held to the plain versions on their own inputs (phase 10's gates: D = 2
+   and 4, dx wherever an encoder asks for it), with kernel ms and bytes
+   bounds; (c) img_fit at ``lego_view0.yaml``'s width (W 128, D 4, freq
+   10, 8,192 pixels) on the 200 x 200 scene, ``test_dataset.input_ratio
+   0.5``, 200 steps: validation PSNR above flat gray's, ``metrics.json``
+   and ``vis/res.png``; (d) the scene as one ``transforms.json``:
+   ``capture.yaml`` with the fused trunk (K1/K2) and the native ray bank,
+   ``capture_ndc.yaml``, 20 steps each; (e) ``run --type mesh`` of phase
+   5's checkpoint at resolution 128 (level: the grid bake's σ cut), faces
+   > 0, its seconds and peak memory; (f) the same checkpoint's 360° video
+   through its baked grid on the ``full`` route (K5), 24 frames: the AVI
+   bitwise the engine's renders of the same poses, no capture after
+   warm-up, its fps.
+
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
 as a subprocess; its JSON line is printed before the kernels line.
@@ -184,7 +212,8 @@ one product at the CUDA cores' float32 peak (the earlier chain's).
 Prints a ``{"kernels": [...]}`` line (with launches by path: K1, K2 and
 K3a on the proposal path, K1 and K3a on the graphed eval, K6 on the graphed
 NGP val and on hash serving, K4 on hash serving's ``gather`` route, K1, K2,
-K5, K6 and K6b on the ops phase), the
+K5, K6 and K6b on the ops phase and on the model zoo; K6 and K6b also
+carry their ms and bound at D = 2 and 4), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -3270,6 +3299,519 @@ def _ops_serving(torch, np, tmp, data, out):
     return row
 
 
+# -- phase 17: the model zoo ---------------------------------------------------
+
+# (a)'s light-stage capture (cameras, frames, H = W) and steps; (b)'s smaller
+# capture for the other time-conditioned encoders, and its steps
+ZOO_CAPTURE = (4, 8, 256)
+ZOO_STEPS = 100
+ZOO_SMALL_CAPTURE = (2, 4, 128)
+ZOO_ENC_STEPS = 20
+ZOO_ENCODERS = ("triplane", "cuda_hashgrid_4d", "cuda_hashgrid_coef",
+                "dnerf", "cuda_motion2d", "cuda_dnerf_ngp_tensorf")
+# the hash geometry of configs/light_stage/dynamic.yaml, given to every (b)
+# encoder (the tri-plane's planes too)
+ZOO_HASH = ["num_levels", "16", "level_dim", "2", "base_resolution", "16",
+            "log2_hashmap_size", "19", "desired_resolution", "1024"]
+# opts appended to every fit of the phase: empty on the card (the stated
+# widths); a CPU rehearsal of the phase shrinks the fits through it
+ZOO_OPTS: list = []
+IMG_FIT_STEPS = 200
+REAL_STEPS = 20
+MESH_RES = 128
+VIDEO_FRAMES = 24
+_ZOO_DRIVER = """
+import json, sys
+sys.path.insert(0, {repo!r})
+from nerf_replication_tpu_torch.ops import hash_encode as he
+from nerf_replication_tpu_torch.train.__main__ import main
+rc = main(sys.argv[1:])
+with open({out!r}, "w") as f:
+    json.dump(dict(he.LAUNCHES), f)
+sys.exit(rc)
+"""
+
+
+def _zoo_paths(out, exp):
+    return ["exp_name", exp,
+            "trained_model_dir", os.path.join(out, "trained"),
+            "trained_config_dir", os.path.join(out, "config"),
+            "record_dir", os.path.join(out, "record"),
+            "result_dir", os.path.join(out, "result"), "log_interval", "1"]
+
+
+def _zoo_fit(torch, np, cfg_path, opts, label):
+    """An in-process fit of ``opts`` (graphed on the card): its step rows'
+    losses (finite), median step ms and registry line."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.train.trainer import fit
+
+    cfg = make_cfg(cfg_path, list(opts) + ZOO_OPTS)
+    logs = []
+    with _Rows() as tapped:
+        state = fit(cfg, device=DEVICE, log=logs.append)
+    rows = tapped.of("step")
+    losses = [r["stats"]["loss"] for r in rows]
+    require(len(rows) == state.step > 0 and all(np.isfinite(losses)),
+            f"zoo {label}: {len(rows)} step rows, losses {losses[-3:]}")
+    st = _compile_status(logs, label) if DEVICE == "cuda" else None
+    med = float(np.median(_step_times(rows)[2:])) * 1e3
+    return {"cfg": cfg, "state": state, "losses": losses, "step_ms": med,
+            "logs": logs, "compile": st}
+
+
+def _record_hash_calls(torch, fn):
+    """``fn()`` with every K6 / K6b wrapper call's inputs recorded (the
+    kernels still run); the calls as dicts."""
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+
+    calls = []
+    fwd, bwd = he.hash_encode_fwd, he.hash_encode_bwd
+
+    def rec_fwd(x, table, geometry):
+        calls.append({"x": x.detach().clone(), "table": table.detach().clone(),
+                      "geo": geometry, "kind": "fwd"})
+        return fwd(x, table, geometry)
+
+    def rec_bwd(x, g, table, geometry, want_dx=False):
+        calls.append({"x": x.detach().clone(), "g": g.detach().clone(),
+                      "table": table.detach().clone(), "geo": geometry,
+                      "kind": "bwd", "want_dx": want_dx})
+        return bwd(x, g, table, geometry, want_dx)
+
+    he.hash_encode_fwd, he.hash_encode_bwd = rec_fwd, rec_bwd
+    try:
+        fn()
+    finally:
+        he.hash_encode_fwd, he.hash_encode_bwd = fwd, bwd
+    return calls
+
+
+def _one_step_calls(torch, np, run):
+    """One eager loss + backward of a fit's final network on 1024 rays of
+    its bank, with the K6/K6b calls recorded (uncounted: a check)."""
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.train.loss import NeRFLoss
+
+    cfg, net = run["cfg"], run["state"].network
+    rays, rgbs = make_dataset(cfg, "train").ray_bank()
+    idx = np.random.default_rng(SEED).integers(0, len(rays), 1024)
+    batch = {"rays": torch.from_numpy(rays[idx]).to(DEVICE),
+             "rgbs": torch.from_numpy(rgbs[idx]).to(DEVICE),
+             "near": float(cfg.task_arg.near), "far": float(cfg.task_arg.far)}
+    loss = NeRFLoss(cfg, net)
+
+    def step():
+        net.zero_grad()
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        _, value, _ = loss(batch, gen=gen, train=True)
+        value.backward()
+
+    return _uncounted(_record_hash_calls, torch, step)
+
+
+def _bare_ms(torch, he, call, iters: int = 20) -> float:
+    """Device ms of one K6 or K6b launch on a recorded call's inputs:
+    CUDA events around back-to-back library calls into buffers made once
+    (K6b adds into one zeroed dtable), so neither the wrapper's output
+    allocation nor its memset of dtable is timed. (Traced by
+    torch.profiler after phase 16's profiler window, K6b lost kernel
+    events: 0.031 ms on the calls these time at 0.103.)"""
+    import ctypes
+
+    from nerf_replication_tpu_torch.ops import kernels
+
+    x, table, geo = call["x"].contiguous(), call["table"].contiguous(), \
+        call["geo"]
+    lib = kernels.load("hash_encode")
+    desc = ctypes.byref(he._desc(geo))
+    n, d, c = x.shape[0], x.shape[1], table.shape[1]
+    stream = kernels._stream(x.device)
+    if call["kind"] == "fwd":
+        out = torch.empty((n, len(geo[1]) * c), device=x.device)
+
+        def launch():
+            return lib.nrt_hash_encode_fwd(kernels._ptr(x), n, d,
+                                           kernels._ptr(table), c, desc,
+                                           kernels._ptr(out), stream)
+    else:
+        g = call["g"].contiguous()
+        dt = torch.zeros_like(table)
+        dx = torch.empty_like(x) if call["want_dx"] else None
+
+        def launch():
+            return lib.nrt_hash_encode_bwd(
+                kernels._ptr(x), n, d, kernels._ptr(table), c, desc,
+                kernels._ptr(g), kernels._ptr(dt), kernels._ptr(dx), stream)
+
+    require(launch() == 0, "a bare hash-kernel launch failed")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _hash_call_check(torch, he, call, label):
+    """K6 (forward call) or K6b (backward call, dx when it was asked for)
+    against the plain versions on the call's own inputs, phase 10's gates;
+    the kernel's ms and bound."""
+    x, table, geo = call["x"], call["table"], call["geo"]
+    n, d = x.shape
+    c = table.shape[1]
+    n_levels = len(geo[1])
+    rows = he.touched_rows(x, geo)
+    ops = n * n_levels * (3 * d + (1 << d) * (d + 2 * c))
+    with torch.no_grad():
+        if call["kind"] == "fwd":
+            out = he.hash_encode_fwd(x, table, geo)
+            ref = he.forward_plain(x, table, geo)
+            err = {"fwd_rel": _rel(out, ref),
+                   "fwd_abs": float((out - ref).abs().max())}
+            require(err["fwd_rel"] <= TOL_K6, f"K6 {label}: {err}")
+            ms = _bare_ms(torch, he, call)
+            nbytes = x.numel() * 4 + out.numel() * 4 + rows * c * 4
+        else:
+            g, want_dx = call["g"], call["want_dx"]
+            dt, dx = he.hash_encode_bwd(x, g, table, geo, want_dx=want_dx)
+            ref_dt, _ = he.backward_plain(x, g, table, geo, want_dx=False,
+                                          accum=torch.float64)
+            err = {"dtable_fro": _fro(dt.double(), ref_dt),
+                   "dtable_abs": float((dt.double() - ref_dt).abs().max())}
+            require(err["dtable_fro"] <= TOL_K6B_FRO, f"K6b {label}: {err}")
+            if want_dx:
+                _, ref_dx = he.backward_plain(x, g, table, geo)
+                err["dx_rel"] = _rel(dx, ref_dx)
+                require(err["dx_rel"] <= TOL_K6B_DX, f"K6b dx {label}: {err}")
+            ms = _bare_ms(torch, he, call)
+            nbytes = (x.numel() * 4 + g.numel() * 4 + 2 * rows * c * 4
+                      + (x.numel() * 4 if want_dx else 0))
+    bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
+    by = "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32 else "operations"
+    return {"label": label, "n": n, "d": d, "rows": rows, "errs": err,
+            "ms": ms, "bound_ms": bound, "bound_by": by,
+            "want_dx": call.get("want_dx", False)}
+
+
+def phase_zoo(torch, np, tmp, data):
+    """Phase 17: the model zoo (cwd: tmp, where phase 6 saved lego's grid):
+    (a) light-stage dynamic.yaml through the train CLI, (b) the other
+    encoders with K6/K6b held to their plain versions at D = 2 and 4 (and
+    dx), (c) img_fit, (d) the real captures, (e) the mesh and (f) the
+    video of phase 5's checkpoint."""
+    from nerf_replication_tpu_torch import native
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.datasets.img_fit import Dataset as ImgDs
+    from nerf_replication_tpu_torch.datasets.procedural import (
+        generate_light_stage_capture,
+        write_real_capture,
+    )
+    from nerf_replication_tpu_torch.ops import fused_march as fm
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.utils.setup import load_trained_network
+
+    t_phase = time.perf_counter()
+    on_card = DEVICE == "cuda"  # else a CPU rehearsal of the phase
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    dyn = os.path.join(REPO, "configs", "light_stage", "dynamic.yaml")
+    out = os.path.join(tmp, "out_zoo")
+    report = {"card": smi_line()}
+    zoo = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K6b": 0}
+
+    # (a) dynamic.yaml at its width through the train CLI
+    cams, frames, hw = ZOO_CAPTURE
+    cap = os.path.join(tmp, "zoo_capture")
+    t0 = time.perf_counter()
+    generate_light_stage_capture(cap, n_cams=cams, n_frames=frames, H=hw,
+                                 W=hw)
+    gen_s = time.perf_counter() - t0
+    half = ZOO_STEPS // 2
+    opts_a = ["train_dataset.data_root", cap, "test_dataset.data_root", cap,
+              "network.xyz_encoder.num_frames", str(frames),
+              "test_dataset.frames", f"[0, -1, {frames // 2}]",
+              "ep_iter", str(half), "train.epoch", "2", "eval_ep", "2",
+              "save_ep", "2", "save_latest_ep", "2",
+              *_zoo_paths(out, "zoo_a"), *ZOO_OPTS]
+    counts_file = os.path.join(tmp, "zoo_a_launches.json")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c",
+         _ZOO_DRIVER.format(repo=REPO, out=counts_file),
+         "--cfg_file", dyn, "--device", DEVICE, *opts_a],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    require(res.returncode == 0, f"zoo (a): the train CLI failed (rc "
+            f"{res.returncode}): {res.stderr[-2000:]}")
+    wall_a = time.perf_counter() - t0
+    cfg_a = make_cfg(dyn, opts_a)
+    rows = _telemetry(cfg_a)
+    steps = [r for r in rows if r["kind"] == "step"]
+    require(len(steps) == ZOO_STEPS, f"zoo (a): {len(steps)} step rows")
+    losses = [r["stats"]["loss"] for r in steps]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    require(all(np.isfinite(losses)) and last < first, f"zoo (a): loss "
+            f"first 10 mean {first}, last 10 mean {last}")
+    kinds = [r["kind"] for r in rows]
+    late = [r["name"] for r in rows[kinds.index("step"):]
+            if r["kind"] == "compile"]
+    require(not late, f"zoo (a): captures after warm-up: {late}")
+    st_a = None
+    if on_card:
+        st_a = _compile_status(res.stdout.splitlines(), "zoo (a)")
+        require(st_a["entries"] == 2, f"zoo (a): the step and the "
+                f"validation view should be captured: {st_a}")
+    with open(os.path.join(cfg_a.result_dir, "summary.json")) as f:
+        val = json.load(f)
+    require(val["per_image_psnr"] and all(
+        np.isfinite(val["per_image_psnr"])), f"zoo (a): validation {val}")
+    net_a, _ = load_trained_network(cfg_a, DEVICE, verbose=False)
+    latent = float(net_a.xyz_encoder.latent_t.detach().abs().max())
+    require(latent > 1e-4, f"zoo (a): max|latent_t| {latent} stayed in its "
+            "init range")
+    with open(counts_file) as f:
+        launches_a = json.load(f)
+    require(not on_card or (launches_a["hash_encode_fwd"] > 0
+                            and launches_a["hash_encode_bwd"] > 0),
+            f"zoo (a): hash launches {launches_a}")
+    zoo["K6"] += launches_a["hash_encode_fwd"]
+    zoo["K6b"] += launches_a["hash_encode_bwd"]
+    step_a = float(np.median(_step_times(steps)[2:])) * 1e3
+    report["a"] = {"capture": f"{cams} cams x {frames} frames at {hw}x{hw}",
+                   "generate_s": round(gen_s, 1), "wall_s": round(wall_a, 1),
+                   "step_ms": round(step_a, 3), "loss_first10": first,
+                   "loss_last10": last, "max_abs_latent": latent,
+                   "val_psnr": val["psnr"], "launches": launches_a,
+                   "compile": st_a}
+    print(f"zoo (a): dynamic.yaml through the train CLI, {ZOO_STEPS} "
+          f"graphed steps, step {step_a:.3f} ms, loss {first:.4f} -> "
+          f"{last:.4f}, max|latent_t| {latent:.3g}, val PSNR "
+          f"{val['psnr']:.2f} over {len(val['per_image_psnr'])} views, "
+          f"K6/K6b launches {launches_a}")
+
+    # (b) every other encoder at its full geometry, 20 graphed steps each
+    scams, sframes, shw = ZOO_SMALL_CAPTURE
+    small = os.path.join(tmp, "zoo_capture_small")
+    generate_light_stage_capture(small, n_cams=scams, n_frames=sframes,
+                                 H=shw, W=shw)
+    steps_b = ["ep_iter", str(ZOO_ENC_STEPS), "train.epoch", "1",
+               "eval_ep", "100", "save_ep", "100", "save_latest_ep", "100"]
+    checks, report["b"] = [], {}
+    for enc in ZOO_ENCODERS:
+        keys = [f"network.xyz_encoder.{k}" if i % 2 == 0 else k
+                for i, k in enumerate(ZOO_HASH)]
+        if enc == "triplane":  # a static encoder: 6-column rays
+            cfg_path = lego
+            opts = _train_opts(data, out, f"zoo_{enc}") + [
+                "network.nerf.fused_trunk", "false",
+                "network.nerf.W", "64", "network.nerf.D", "3",
+                "network.nerf.skips", "[1]", "task_arg.precrop_iters", "0",
+                "network.xyz_encoder.type", enc, *keys,
+                "network.xyz_encoder.bbox",
+                "[[-1.5,-1.5,-1.5],[1.5,1.5,1.5]]", *steps_b]
+        else:
+            cfg_path = dyn
+            opts = ["train_dataset.data_root", small,
+                    "test_dataset.data_root", small,
+                    "network.xyz_encoder.type", enc,
+                    "network.xyz_encoder.num_frames", str(sframes),
+                    *steps_b, *_zoo_paths(out, f"zoo_{enc}")]
+        he.reset_launch_counts()
+        run = _zoo_fit(torch, np, cfg_path, opts, f"zoo (b) {enc}")
+        zoo["K6"] += he.LAUNCHES["hash_encode_fwd"]
+        zoo["K6b"] += he.LAUNCHES["hash_encode_bwd"]
+        require(he.LAUNCHES["hash_encode_fwd"] > 0 or not on_card,
+                f"zoo (b) {enc}: K6 never launched")
+        calls = _one_step_calls(torch, np, run)
+        seen = set()
+        for call in calls:
+            d = call["x"].shape[1]
+            key = (call["kind"], d, call.get("want_dx", False))
+            if key in seen or (d == 3 and not key[2]):
+                continue  # phase 10 holds D = 3 without dx
+            seen.add(key)
+            if on_card:
+                checks.append(_uncounted(
+                    _hash_call_check, torch, he, call,
+                    f"{enc} {call['kind']} D={d}"
+                    + (" dx" if key[2] else "")))
+        report["b"][enc] = {"step_ms": round(run["step_ms"], 3),
+                            "loss": [run["losses"][0], run["losses"][-1]],
+                            "hash_calls": sorted(seen)}
+        print(f"zoo (b) {enc}: {ZOO_ENC_STEPS} steps at {run['step_ms']:.3f}"
+              f" ms, loss {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f};"
+              f" hash calls {sorted(seen)}")
+    by_kind = {}
+    for c in checks:
+        print(f"zoo (b) K6/K6b vs plain [{c['label']}, N={c['n']}]: "
+              + json.dumps({k: float(f"{v:.4g}") for k, v in
+                            c["errs"].items()})
+              + f"; {c['rows']} rows touched; kernel {c['ms']:.4f} ms, "
+              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+        by_kind.setdefault((c["label"].split()[1], c["d"]), c)
+    if on_card:
+        for kind, d in (("fwd", 2), ("fwd", 4), ("bwd", 2), ("bwd", 4)):
+            require((kind, d) in by_kind, f"zoo (b): no {kind} call at "
+                    f"D={d} checked")
+        require(any(c["want_dx"] for c in checks),
+                "zoo (b): no dx was checked")
+    report["b_kernels"] = [{k: c[k] for k in ("label", "n", "rows", "ms",
+                                              "bound_ms", "bound_by")}
+                           for c in checks]
+
+    # (c) img_fit at lego_view0.yaml's width on the procedural scene
+    img_cfg = os.path.join(REPO, "configs", "img_fit", "lego_view0.yaml")
+    ep = IMG_FIT_STEPS // 2
+    opts_c = ["scene", "procedural", "train_dataset.data_root", data,
+              "test_dataset.data_root", data,
+              "test_dataset.input_ratio", "0.5", "ep_iter", str(ep),
+              "train.epoch", "2", "eval_ep", "2", "save_ep", "100",
+              "save_latest_ep", "100", *_zoo_paths(out, "zoo_img_fit")]
+    run_c = _zoo_fit(torch, np, img_cfg, opts_c, "zoo (c) img_fit")
+    val_c = [line for line in run_c["logs"] if line.startswith("val epoch")]
+    require(val_c, "zoo (c): no validation")
+    psnr_c = float(val_c[-1].split("psnr:")[1].split()[0])
+    gt = ImgDs(data, "procedural", split="test", input_ratio=0.5).img
+    flat = float(-10 * np.log10(np.mean((gt - 0.5) ** 2)))
+    require(psnr_c > flat, f"zoo (c): PSNR {psnr_c} <= flat gray {flat}")
+    rdir = run_c["cfg"].result_dir
+    for name in ("metrics.json", os.path.join("vis", "res.png")):
+        require(os.path.exists(os.path.join(rdir, name)),
+                f"zoo (c): no {name}")
+    report["c"] = {"step_ms": round(run_c["step_ms"], 3), "psnr": psnr_c,
+                   "flat_gray_psnr": flat, "compile": run_c["compile"]}
+    print(f"zoo (c): img_fit {IMG_FIT_STEPS} steps at "
+          f"{run_c['step_ms']:.3f} ms, val PSNR {psnr_c:.2f} (flat gray "
+          f"{flat:.2f}) at input_ratio 0.5")
+
+    # (d) the procedural scene as one real capture: capture.yaml with the
+    # fused trunk (K1/K2) and capture_ndc.yaml
+    write_real_capture(os.path.join(data, "procedural"))
+    base_d = ["scene", "procedural", "train_dataset.data_root", data,
+              "test_dataset.data_root", data, "ep_iter", str(REAL_STEPS),
+              "train.epoch", "1", "eval_ep", "100", "save_ep", "100",
+              "save_latest_ep", "100"]
+    real_cfg = os.path.join(REPO, "configs", "real", "capture.yaml")
+    opts_d = base_d + ["network.nerf.fused_trunk", "true",
+                       "network.nerf.fused_tile", "512",
+                       *_zoo_paths(out, "zoo_real")]
+    bank = make_dataset(make_cfg(real_cfg, opts_d + ZOO_OPTS), "train")
+    require(bank.bank_builder == "native" and native.native_available(),
+            f"zoo (d): the real capture's bank took {bank.bank_builder}")
+    fmlp.reset_launch_counts()
+    run_d = _zoo_fit(torch, np, real_cfg, opts_d, "zoo (d) capture")
+    k1k2 = dict(fmlp.LAUNCHES)
+    require(not on_card or (k1k2["fused_mlp_fwd"] > 0
+                            and k1k2["fused_mlp_bwd"] > 0),
+            f"zoo (d): K1/K2 launches {k1k2}")
+    zoo["K1"] += k1k2["fused_mlp_fwd"]
+    zoo["K2"] += k1k2["fused_mlp_bwd"]
+    ndc_cfg = os.path.join(REPO, "configs", "real", "capture_ndc.yaml")
+    run_ndc = _zoo_fit(torch, np, ndc_cfg,
+                       base_d + _zoo_paths(out, "zoo_real_ndc"),
+                       "zoo (d) capture_ndc")
+    report["d"] = {"capture_step_ms": round(run_d["step_ms"], 3),
+                   "ndc_step_ms": round(run_ndc["step_ms"], 3),
+                   "bank_builder": bank.bank_builder, "k1k2": k1k2}
+    print(f"zoo (d): capture.yaml (fused trunk, native bank) "
+          f"{REAL_STEPS} steps at {run_d['step_ms']:.3f} ms, loss "
+          f"{run_d['losses'][0]:.4f} -> {run_d['losses'][-1]:.4f}, K1/K2 "
+          f"{k1k2['fused_mlp_fwd']}/{k1k2['fused_mlp_bwd']}; capture_ndc "
+          f"{run_ndc['step_ms']:.3f} ms, loss {run_ndc['losses'][0]:.4f} -> "
+          f"{run_ndc['losses'][-1]:.4f}")
+
+    # (e) the mesh of phase 5's checkpoint (level: the grid bake's σ cut)
+    from nerf_replication_tpu_torch import run as run_cli
+    from nerf_replication_tpu_torch.utils.mesh import read_ply
+
+    level = str(make_cfg(lego).task_arg.occupancy_grid_threshold)
+    opts_e = _train_opts(data, os.path.join(tmp, "out"), "f32") + [
+        "resolution", str(MESH_RES), "level", level,
+        "result_dir", os.path.join(out, "mesh")]
+    base = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run_cli.main(["--type", "mesh", "--cfg_file", lego, "--device", DEVICE,
+                  *opts_e])
+    mesh_s = time.perf_counter() - t0
+    # the sweep's own peak: above what earlier phases left allocated
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if on_card \
+        else None
+    verts, faces = read_ply(os.path.join(make_cfg(lego, opts_e).result_dir,
+                                         "mesh.ply"))
+    require(len(faces) > 0 and np.isfinite(verts).all(),
+            f"zoo (e): {len(faces)} faces")
+    report["e"] = {"resolution": MESH_RES, "level": float(level),
+                   "seconds": round(mesh_s, 2), "faces": len(faces),
+                   "vertices": len(verts), "peak_mb_above_base": peak,
+                   "base_mb": base / 2**20}
+    print(f"zoo (e): run --type mesh at resolution {MESH_RES}, level "
+          f"{level}: {len(faces)} faces, {len(verts)} vertices in "
+          f"{mesh_s:.2f} s, peak device memory {peak} MB above the "
+          f"{base / 2**20:.1f} MB allocated before it")
+
+    # (f) the 360° video of the same checkpoint through its baked grid (K5)
+    from nerf_replication_tpu_torch.render_video import (
+        render_360_video,
+        spiral_poses,
+        video_engine,
+    )
+    from nerf_replication_tpu_torch.tools.slice_inputs import SLICE_OPTS
+    from nerf_replication_tpu_torch.utils.video import read_avi
+
+    opts_f = _train_opts(data, os.path.join(tmp, "out"), "f32") + \
+        SLICE_OPTS + ["task_arg.video_frames", str(VIDEO_FRAMES),
+                      "result_dir", os.path.join(out, "video"),
+                      "record_dir", os.path.join(out, "video_record")]
+    cfg_f = make_cfg(lego, opts_f)
+    engine, cam = video_engine(cfg_f, lego, device=DEVICE)
+    require(engine.use_grid, "zoo (f): the baked grid did not load")
+    captures = engine.stats()["captures"]
+    fm.reset_launch_counts()
+    with _Rows() as tapped:
+        path = render_360_video(cfg_f, device=DEVICE, engine=(engine, cam))
+    zoo["K5"] += fm.LAUNCHES["fused_march_full"]
+    require(not on_card or fm.LAUNCHES["fused_march_full"] > 0,
+            "zoo (f): the video never launched K5")
+    require(engine.stats()["captures"] == captures,
+            "zoo (f): a capture after warm-up")
+    (row,) = tapped.of("eval")
+    video, fps = read_avi(path)
+    require(len(video) == VIDEO_FRAMES, f"zoo (f): {len(video)} frames")
+    engine.cache.clear()
+
+    def replay():
+        return [engine.render_view(c2w, int(cam.H), int(cam.W),
+                                   float(cam.focal))[0]
+                for c2w in spiral_poses(VIDEO_FRAMES)]
+
+    for i, (a, b) in enumerate(zip(video, _uncounted(replay))):
+        require(np.array_equal(a, b), f"zoo (f): frame {i} differs from "
+                "the engine's render of its pose")
+    report["f"] = {"frames": len(video), "fps": row["fps"],
+                   "route": engine.stats()["route"],
+                   "k5_launches": fm.LAUNCHES["fused_march_full"]}
+    print(f"zoo (f): {len(video)}-frame spiral through the full route at "
+          f"{row['fps']:.2f} fps, the AVI bitwise the engine's renders, no "
+          "capture after warm-up")
+
+    for k, v in zoo.items():
+        require(v > 0 or not on_card, f"zoo: {k} never launched")
+    report["launches"] = zoo
+    report["seconds"] = round(time.perf_counter() - t_phase, 1)
+    print("zoo: " + json.dumps(report, default=str))
+    print(f"phase 17 (the model zoo) took {report['seconds']} s")
+    return zoo, by_kind
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -3341,6 +3883,7 @@ def main() -> int:
             ops_counts = phase_ops(
                 torch, np, tmp, data,
                 profiles["f32_fused"]["graphed"]["step_ms"])
+            zoo_counts, zoo_hash = phase_zoo(torch, np, tmp, data)
         finally:
             os.chdir(cwd)
     run_bench()
@@ -3378,6 +3921,19 @@ def main() -> int:
         # (K6, K6b) and the traced serving engine (K5)
         if kernel in ops_counts:
             paths["ops"] = ops_counts[kernel]
+        # the model zoo (phase 17): the real capture's fused trunk (K1,
+        # K2), the video (K5) and the hash encoders at D = 2, 3, 4 (K6,
+        # K6b), whose times at D = 2 and 4 stand beside phase 10's D = 3
+        if kernel in zoo_counts:
+            paths["zoo"] = zoo_counts[kernel]
+        if kernel in ("K6", "K6b"):
+            kind = "fwd" if kernel == "K6" else "bwd"
+            for d in (2, 4):
+                c = zoo_hash[(kind, d)]
+                row[f"ms_d{d}"] = c["ms"]
+                row[f"bound_ms_d{d}"] = c["bound_ms"]
+                row[f"bound_by_d{d}"] = c["bound_by"]
+                row[f"n_d{d}"] = c["n"]
         if paths:
             row["launches_by_path"] = {"earlier_phases": counts[key],
                                        **paths}

@@ -11,7 +11,13 @@ maps onto the port's ``Network`` state dict: kernels are transposed to the
 input columns split at ``c1`` exactly where the Flax module splits its rows.
 A parametric encoder's table, ``{"xyz_encoder": {"embeddings": [T, C]}}`` (or
 the cell-packed ``[buckets, 2^D·C]``), is carried as it is, without a
-transpose, to ``xyz_encoder.embeddings``.
+transpose, to ``xyz_encoder.embeddings``. Nested encoder trees map the same
+way, one dotted level per subtree: ``xyz_encoder/hash/embeddings``,
+``latent_t``, ``basis_i``, ``coefs``, ``plane_xy|yz|xz`` (``plane_01`` /
+``plane_12`` / ``plane_02``), ``feat`` as they are; the Dense layers
+``coef_hidden``, ``coef_out``, ``warp/linear_i``, ``warp/delta``,
+``mlp_i``, ``mlp_out`` and the img_fit network's ``backbone_i`` / ``rgb``
+transposed.
 """
 
 from __future__ import annotations
@@ -21,21 +27,30 @@ import torch
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves) → port state dict (float32)."""
+    """JAX parameter tree (numpy leaves) → port state dict (float32).
+
+    Nested subtrees become dotted names. A Dense leaf pair ``{kernel,
+    bias}`` becomes ``weight`` (transposed) and ``bias``; any other leaf (a
+    hash table's ``embeddings``, ``latent_t``, ``feat``) is carried as it
+    is."""
     inner = tree["params"] if set(tree.keys()) == {"params"} else tree
     state: dict[str, torch.Tensor] = {}
-    for branch, layers in inner.items():
-        if "embeddings" in layers:  # an encoder table: no transpose
-            state[f"{branch}.embeddings"] = torch.from_numpy(
-                np.asarray(layers["embeddings"], np.float32).copy())
-            continue
-        for name, leaf in layers.items():
-            kernel = np.asarray(leaf["kernel"], np.float32)
-            bias = np.asarray(leaf["bias"], np.float32)
-            state[f"{branch}.{name}.weight"] = torch.from_numpy(
-                kernel.T.copy()
-            )
-            state[f"{branch}.{name}.bias"] = torch.from_numpy(bias.copy())
+
+    def leaf(x) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(x, np.float32).copy())
+
+    def walk(prefix: str, node: dict) -> None:
+        if set(node.keys()) == {"kernel", "bias"}:
+            state[prefix + "weight"] = leaf(np.asarray(node["kernel"]).T)
+            state[prefix + "bias"] = leaf(node["bias"])
+            return
+        for name, child in node.items():
+            if isinstance(child, dict):
+                walk(f"{prefix}{name}.", child)
+            else:
+                state[prefix + name] = leaf(child)
+
+    walk("", inner)
     return state
 
 

@@ -5,10 +5,10 @@ materializes the full ray bank of a split as flat numpy arrays — ``rays
 [N, 6]`` and ``rgbs [N, 3]`` — which the trainer moves to the device once and
 draws every batch from there, plus the test-time ``image_batch`` contract
 (:class:`~.bank.RayBankDataset`). Frames are decoded by the port's PNG codec
-(``utils/image.py``) and normalized to uint8 RGBA as the JAX package does.
-
-``input_ratio != 1`` raises ``NotImplementedError``: the JAX package resizes
-with OpenCV's ``INTER_AREA``, which the port has no exact counterpart of.
+(``utils/image.py``) and normalized to uint8 RGBA as the JAX package does;
+``input_ratio != 1`` downscales each uint8 frame to ``int(H·ratio)`` x
+``int(W·ratio)`` with ``utils.image.resize_area`` (OpenCV's INTER_AREA,
+bitwise) and scales the focal by the ratio.
 
 :class:`Camera` is the camera metadata alone (H/W/focal/near/far from the
 config and ``camera_angle_x``), which serving needs and which reads no image.
@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..utils.image import read_png
+from ..utils.image import read_png, resize_area
 from .bank import RayBankDataset
 from .rays import focal_from_fov
 
@@ -115,12 +115,6 @@ class Dataset(RayBankDataset):
     n_images: int = field(init=False)
 
     def __post_init__(self):
-        if self.input_ratio != 1.0:
-            raise NotImplementedError(
-                f"input_ratio={self.input_ratio}: the JAX package downscales "
-                "frames with OpenCV's INTER_AREA resize, which the port does "
-                "not carry; use input_ratio 1 with H/W at the capture size"
-            )
         path = os.path.join(self.data_root, self.scene,
                             f"transforms_{self.split}.json")
         with open(path, "r") as f:
@@ -135,22 +129,30 @@ class Dataset(RayBankDataset):
         if not frames:
             raise ValueError(f"cams={self.cams} selected no frames from {path}")
 
-        self.focal = focal_from_fov(self.W, float(meta["camera_angle_x"]))
+        H_orig, W_orig = self.H, self.W
+        self.H = int(H_orig * self.input_ratio)
+        self.W = int(W_orig * self.input_ratio)
+        self.focal = focal_from_fov(W_orig, float(meta["camera_angle_x"])) * (
+            self.input_ratio
+        )
         raw_images, pose_list = [], []
         for frame in frames:
             img_path = os.path.join(
                 self.data_root, self.scene, frame["file_path"] + ".png"
             )
             img = _to_rgba_uint8(read_png(img_path))
-            if img.shape[:2] != (self.H, self.W):
+            if img.shape[:2] != (H_orig, W_orig):
                 # a mismatched capture would build rays with the wrong focal
                 # and slicing: fail loudly, as the JAX package does
                 raise ValueError(
                     f"{img_path}: image is {img.shape[1]}x{img.shape[0]} but "
-                    f"the config expects {self.W}x{self.H} "
+                    f"the config expects {W_orig}x{H_orig} "
                     f"(train/test_dataset.H/W) — set H/W to the capture "
                     "resolution"
                 )
+            if self.input_ratio != 1.0:
+                # a uint8 INTER_AREA downscale before the float conversion
+                img = resize_area(img, self.W, self.H)
             raw_images.append(img)
             pose_list.append(
                 np.asarray(frame["transform_matrix"], dtype=np.float32)

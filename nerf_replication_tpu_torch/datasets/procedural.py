@@ -1,6 +1,8 @@
 """Procedural Blender-format scene generator (port of
 ``nerf_replication_tpu/datasets/procedural.py``: ``render_view``,
-``generate_scene``, ``ensure_scene``).
+``generate_scene``, ``ensure_scene``, ``generate_light_stage_capture``), and
+:func:`write_real_capture`, which lays a generated scene out as one
+real-capture ``transforms.json``.
 
 It writes a *valid* Blender-format scene (transforms_{split}.json + RGBA
 PNGs) by analytically ray-tracing a small solid scene — a normal-colored
@@ -223,6 +225,117 @@ def generate_scene(
         ) as f:
             json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, f)
     return scene_dir
+
+
+def generate_light_stage_capture(
+    root: str,
+    n_cams: int = 4,
+    n_frames: int = 3,
+    H: int = 48,
+    W: int = 48,
+    rig_radius: float = 3.0,
+    seed: int = 0,
+) -> str:
+    """Write a synthetic light-stage capture (the JAX package's generator,
+    ZJU-MoCap's ``annots.npy`` schema): per-camera K/D/R/T (T in
+    millimetres), per-frame image lists, ``images/`` + ``mask/`` trees and
+    per-frame ``new_vertices/{f}.npy`` samples of a sphere drifting over
+    time. The frames are PNG (the JAX package writes JPEG through Pillow,
+    which the card's machine lacks), so the pixels are exactly the arrays
+    the JAX generator encodes. Returns ``root``."""
+    del seed  # the capture is deterministic (the JAX signature keeps it)
+    os.makedirs(os.path.join(root, "new_vertices"), exist_ok=True)
+
+    focal = 1.2 * W
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float64)
+
+    # ring of inward-looking cameras (world→camera R, T)
+    cams = {"K": [], "D": [], "R": [], "T": []}
+    exts = []
+    for c in range(n_cams):
+        ang = 2 * np.pi * c / n_cams
+        center = np.array(
+            [rig_radius * np.cos(ang), rig_radius * np.sin(ang), 0.3]
+        )
+        fwd = -center / np.linalg.norm(center)          # camera +z looks in
+        right = np.cross(np.array([0.0, 0.0, 1.0]), fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R = np.stack([right, down, fwd])                 # rows: cam axes
+        T = (-R @ center).reshape(3, 1)
+        cams["K"].append(K.tolist())
+        cams["D"].append(np.zeros((5, 1)).tolist())
+        cams["R"].append(R.tolist())
+        cams["T"].append((T * 1000.0).tolist())          # millimetres
+        exts.append((R, T.reshape(3)))
+
+    sphere_r = 0.5
+    ims = []
+    for f in range(n_frames):
+        center = np.array([0.3 * np.sin(f), 0.3 * np.cos(f), 0.1 * f])
+        # fibonacci-sphere surface samples as the frame's "SMPL vertices"
+        i = np.arange(256, dtype=np.float64)
+        phi = np.arccos(1 - 2 * (i + 0.5) / 256)
+        theta = np.pi * (1 + 5**0.5) * i
+        verts = center + sphere_r * np.stack(
+            [np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+             np.cos(phi)], -1
+        )
+        np.save(os.path.join(root, "new_vertices", f"{f}.npy"), verts)
+
+        frame_paths = []
+        for c, (R, T) in enumerate(exts):
+            ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+            d_cam = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(K).T
+            d = d_cam @ R        # R^T from the right
+            d /= np.linalg.norm(d, axis=-1, keepdims=True)
+            o = (-R.T @ T).reshape(1, 1, 3)
+            t = _intersect_sphere(
+                o.reshape(-1, 3).repeat(H * W, 0).reshape(H, W, 3), d,
+                center, sphere_r,
+            )
+            hit = np.isfinite(t)
+            p = o + np.where(hit, t, 0.0)[..., None] * d
+            n = (p - center) / sphere_r
+            rgb = np.where(hit[..., None], 0.5 * (n + 1.0), 0.0)
+            img_rel = os.path.join("images", f"cam{c}", f"{f:04d}.png")
+            msk_rel = os.path.join("mask", f"cam{c}", f"{f:04d}.png")
+            write_png(os.path.join(root, img_rel),
+                      (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+            write_png(os.path.join(root, msk_rel),
+                      (hit * 255).astype(np.uint8))
+            frame_paths.append(img_rel)
+        ims.append({"ims": frame_paths})
+
+    np.save(
+        os.path.join(root, "annots.npy"),
+        np.array({"cams": cams, "ims": ims}, dtype=object),
+    )
+    return root
+
+
+def write_real_capture(scene_dir: str, out: str = "transforms.json") -> str:
+    """Re-express a Blender-format scene (``generate_scene``'s) as one
+    real-capture ``transforms.json`` (``datasets/real.py``): every train and
+    test frame in one list, calibrated intrinsics ``fl_x/fl_y/cx/cy`` and
+    ``w/h`` at the top level, file paths with their ``.png``. Returns the
+    file's path."""
+    frames = []
+    for split in ("train", "test"):
+        with open(os.path.join(scene_dir, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        for fr in meta["frames"]:
+            rel = fr["file_path"]
+            rel = rel[2:] if rel.startswith("./") else rel
+            frames.append({"file_path": rel + ".png",
+                           "transform_matrix": fr["transform_matrix"]})
+    W, H = png_size(os.path.join(scene_dir, frames[0]["file_path"]))
+    focal = 0.5 * W / float(np.tan(0.5 * meta["camera_angle_x"]))
+    path = os.path.join(scene_dir, out)
+    with open(path, "w") as f:
+        json.dump({"w": W, "h": H, "fl_x": focal, "fl_y": focal,
+                   "cx": 0.5 * W, "cy": 0.5 * H, "frames": frames}, f)
+    return path
 
 
 def ensure_scene(root: str, scene: str = "procedural", H: int = 64,

@@ -1,7 +1,7 @@
 """Pinhole-camera ray generation and camera-path helpers (NumPy).
 
-The port's copy of ``nerf_replication_tpu/datasets/rays.py`` (the serving
-subset): ``get_rays_np``, ``pose_spherical`` and ``focal_from_fov``. Convention
+The port's copy of ``nerf_replication_tpu/datasets/rays.py``: ``get_rays_np``,
+``ndc_rays_np``, ``pose_spherical`` and ``focal_from_fov``. Convention
 is the Blender/NeRF one: camera looks down -z, x right, y up; ``c2w`` is a 3x4
 or 4x4 camera-to-world matrix.
 """
@@ -44,6 +44,33 @@ def get_rays_np(
     rays_d = dirs @ c2w[:3, :3].T
     rays_o = np.broadcast_to(c2w[:3, 3], rays_d.shape).copy()
     return rays_o.astype(np.float32), rays_d.astype(np.float32)
+
+
+def ndc_rays_np(
+    H: int, W: int, focal: float, near: float,
+    rays_o: np.ndarray, rays_d: np.ndarray,
+    fl_y: float | None = None,
+):
+    """Shift rays into normalized device coordinates (forward-facing
+    scenes, the original NeRF's LLFF treatment): origins moved to the
+    z = -near plane, then the perspective projection maps the frustum to
+    the [-1, 1] cube, so sampling t ∈ [0, 1] sweeps near → infinity. In
+    float64, returned as float32; ``fl_y`` for anisotropic pixels."""
+    fl_y = focal if fl_y is None else fl_y
+    o, d = rays_o.astype(np.float64), rays_d.astype(np.float64)
+    t = -(near + o[..., 2]) / d[..., 2]
+    o = o + t[..., None] * d
+
+    o0 = -focal / (0.5 * W) * o[..., 0] / o[..., 2]
+    o1 = -fl_y / (0.5 * H) * o[..., 1] / o[..., 2]
+    o2 = 1.0 + 2.0 * near / o[..., 2]
+    d0 = -focal / (0.5 * W) * (d[..., 0] / d[..., 2] - o[..., 0] / o[..., 2])
+    d1 = -fl_y / (0.5 * H) * (d[..., 1] / d[..., 2] - o[..., 1] / o[..., 2])
+    d2 = -2.0 * near / o[..., 2]
+
+    rays_o = np.stack([o0, o1, o2], axis=-1).astype(np.float32)
+    rays_d = np.stack([d0, d1, d2], axis=-1).astype(np.float32)
+    return rays_o, rays_d
 
 
 def trans_t(t: float) -> np.ndarray:

@@ -27,6 +27,11 @@
   through ``ops.hash_encode.HashEncodeFunction``: kernel K6 forward and K6b
   backward on the card, the plain versions on the CPU. ``custom_bwd`` (the
   JAX package's choice between two XLA backwards) selects nothing here.
+* Every clip is :func:`clip`, ``minimum(maximum(x, lo), hi)`` as
+  ``jnp.clip`` is spelled: at a tie (``x == lo`` or ``x == hi``) both
+  libraries hand half the gradient through, where ``torch.clamp`` hands
+  all of it. The values are the same either way; the gradient with respect
+  to a point (the deformation encoders' warped points) is the JAX one.
 """
 
 from __future__ import annotations
@@ -40,6 +45,17 @@ _PRIMES = (1, 19349663, 83492791, 25165843, 6291469, 12582917, 3145739)
 _U32 = 0xFFFFFFFF
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient at a
+    tie is 0.5 (``torch.clamp`` passes 1). ``lo``/``hi``: tensors, or
+    Python floats (made on ``x``'s device by a fill)."""
+    if not torch.is_tensor(lo):
+        lo = x.new_full((), float(lo))
+    if not torch.is_tensor(hi):
+        hi = x.new_full((), float(hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def normalize_bbox(x: torch.Tensor, bbox) -> torch.Tensor:
     """Clip to world bounds and scale into [0, 1] by the LARGEST extent
     (the one convention every encoder in the family shares). The division
@@ -47,7 +63,7 @@ def normalize_bbox(x: torch.Tensor, bbox) -> torch.Tensor:
     XLA evaluates it inside the jitted JAX step."""
     lo = torch.as_tensor(bbox[0], dtype=x.dtype, device=x.device)
     hi = torch.as_tensor(bbox[1], dtype=x.dtype, device=x.device)
-    return (torch.clamp(x, lo, hi) - lo) * _inv_extent(lo, hi)
+    return (clip(x, lo, hi) - lo) * _inv_extent(lo, hi)
 
 
 def _inv_extent(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -191,9 +207,9 @@ def normalize_points(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     pre-normalized, and a clip keeps out-of-range coords from wrapping
     through uint32 into scrambled table indices."""
     if module.has_bbox:
-        return (torch.clamp(x, module.bbox_lo, module.bbox_hi)
+        return (clip(x, module.bbox_lo, module.bbox_hi)
                 - module.bbox_lo) * module.bbox_inv
-    return torch.clamp(x, 0.0, 1.0)
+    return clip(x, 0.0, 1.0)
 
 
 class HashGridEncoder(nn.Module):

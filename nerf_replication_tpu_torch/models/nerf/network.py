@@ -236,7 +236,7 @@ def make_network(cfg) -> Network:
     )
 
 
-def _lecun_init(mlp: nn.Module, generator: torch.Generator) -> None:
+def lecun_init(mlp: nn.Module, generator: torch.Generator) -> None:
     for module in mlp.modules():
         if isinstance(module, (Dense, SplitDense)):
             fan_in = module.weight.shape[1]
@@ -264,12 +264,12 @@ def init_params(network: Network, generator: torch.Generator) -> Network:
     draws differ from ``jax.random``'s; tests carry JAX weights over with
     ``convert.params_from_jax`` instead."""
     for mlp in (network.coarse, network.fine):
-        _lecun_init(mlp, generator)
+        lecun_init(mlp, generator)
     for enc in (network.xyz_encoder, network.dir_encoder):
         if isinstance(enc, nn.Module):
             enc.reset_parameters(generator)
     if network.proposal is not None:
         stream = torch.Generator().manual_seed(
             generator.initial_seed() ^ _PROPOSAL_STREAM)
-        _lecun_init(network.proposal, stream)
+        lecun_init(network.proposal, stream)
     return network

@@ -443,14 +443,16 @@ class Renderer:
     # -- CUDA graphs ---------------------------------------------------------
 
     def aot_register_eval(self, registry, n_rays: int, near: float,
-                          far: float, chunked: bool = True) -> list[str]:
+                          far: float, chunked: bool = True,
+                          width: int = 6) -> list[str]:
         """Register the whole-image eval renders of ``n_rays`` rays at these
         bounds with ``registry`` (JAX ``Renderer.aot_register_eval``): the
         chunked render ``eval_chunked_{n_chunks}x{chunk}`` (unless
         ``chunked`` is False: a caller that renders through the grid only)
         and, with a grid loaded, the march ``eval_march_{n_chunks}x{chunk}``
         — not for the ``gather`` route. Each entry renders the padded image
-        from one static ``[n_chunks·chunk, 6]`` ray tensor. Call
+        from one static ``[n_chunks·chunk, width]`` ray tensor (``width`` 7:
+        rays with a time column). Call
         :meth:`aot_install` after ``registry.compile_all()``. Returns the
         registered names."""
         near, far = float(near), float(far)
@@ -460,8 +462,8 @@ class Renderer:
         def register(name, kind, route, chunk_size, key):
             chunk, n_chunks = chunk_layout(int(n_rays), chunk_size)
             name = f"{name}_{n_chunks}x{chunk}"
-            rays = torch.zeros((n_chunks * chunk, 6), dtype=torch.float32,
-                               device=dev)
+            rays = torch.zeros((n_chunks * chunk, width),
+                               dtype=torch.float32, device=dev)
             registry.register(name, eval_entry(lambda: route, chunk), (rays,))
             self._aot_names[name] = (kind, (n_chunks, chunk, near, far, *key))
             names.append(name)

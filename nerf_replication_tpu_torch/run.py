@@ -5,6 +5,7 @@
         --cfg_file configs/nerf/lego.yaml --device cuda [key value ...]
     python -m nerf_replication_tpu_torch.run --type network  --cfg_file ...
     python -m nerf_replication_tpu_torch.run --type dataset  --cfg_file ...
+    python -m nerf_replication_tpu_torch.run --type mesh     --cfg_file ...
 
 * ``dataset``: iterates the train split's host loader
   (``datasets.make_data_loader``: sampler → ``__getitem__`` → collate →
@@ -26,7 +27,8 @@ net_time all the same (the reference does so). ``--device cpu`` runs the
 plain PyTorch path on the CPU. ``network`` and ``evaluate`` append a
 ``run_meta`` and an ``eval`` row to ``<record_dir>/telemetry.jsonl``, as the
 JAX CLI does, so quality and fps are diffable by ``scripts/tlm_report.py``.
-``--type mesh`` comes with slice 6.
+``--type mesh`` writes the trained network's density iso-surface as
+``<result_dir>/mesh.ply`` (``utils/mesh.py``).
 """
 
 from __future__ import annotations
@@ -189,10 +191,19 @@ def _capture_eval(cfg, renderer, test_ds, dev, use_grid: bool):
     return registry
 
 
-def run_mesh(cfg, args=None):
-    raise NotImplementedError(
-        "--type mesh (density iso-surface to PLY) comes with port slice 6"
-    )
+def run_mesh(cfg, args=None) -> str:
+    """The trained network's density iso-surface as a PLY mesh
+    (``utils/mesh.extract_mesh``: ``cfg.resolution``, ``cfg.level``, the
+    train split's ``scene_bbox``) in ``<result_dir>/mesh.ply``; returns its
+    path."""
+    from .utils.mesh import extract_mesh
+    from .utils.platform import resolve_device
+    from .utils.setup import load_trained_network
+
+    network, _ = load_trained_network(cfg, resolve_device(_device_of(args)))
+    path = extract_mesh(network, cfg)
+    print(f"mesh saved to {path}")
+    return path
 
 
 def main(argv=None) -> int:

@@ -78,6 +78,11 @@ class PoseCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def clear(self) -> None:
+        """Drop every entry (the counters stay)."""
+        with self._lock:
+            self._entries.clear()
+
     def stats(self) -> dict:
         total = self.hits + self.misses
         return {

@@ -288,7 +288,8 @@ class Trainer:
         batch = test_dataset.image_batch(0)
         renderer = self.loss.renderer
         renderer.aot_register_eval(self.aot, batch["rays"].shape[0],
-                                   batch["near"], batch["far"])
+                                   batch["near"], batch["far"],
+                                   width=batch["rays"].shape[1])
         self.aot.compile_all()
         renderer.aot_install(self.aot)
 

@@ -189,6 +189,21 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
+def read_image(path: str) -> np.ndarray:
+    """uint8 ``[H, W]`` or ``[H, W, C]`` pixels of an image file: PNG by the
+    port's codec, anything else by Pillow when it is importable."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(
+            f"{path}: no decoder for this format (the port decodes PNG; "
+            "other formats need Pillow, which is not installed)") from None
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
 def png_size(path: str) -> tuple[int, int]:
     """(width, height) from the header alone."""
     with open(path, "rb") as f:
@@ -205,3 +220,158 @@ def write_png(path: str, img: np.ndarray):
         img = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+# -- resizing (OpenCV's INTER_AREA and INTER_NEAREST) ----------------------------
+
+
+def _area_tab(ssize: int, dsize: int, scale: float):
+    """OpenCV's ``computeResizeAreaTab``: per destination index, the
+    source indices and float32 weights of its cell, in OpenCV's order
+    (``[dsize, slots]``, zero-weight padding)."""
+    rows = []
+    for d in range(dsize):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, ssize - fs1)
+        s1, s2 = int(np.ceil(fs1)), int(np.floor(fs2))
+        s2 = min(s2, ssize - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - fs1 > 1e-3:
+            taps.append((s1 - 1, (s1 - fs1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            taps.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    slots = max(len(t) for t in rows)
+    idx = np.zeros((dsize, slots), np.int64)
+    w = np.zeros((dsize, slots), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], w[d, j] = s, np.float32(a)
+    return idx, w
+
+
+def _saturate(x: np.ndarray, dtype) -> np.ndarray:
+    if dtype == np.uint8:
+        # cvRound: round half to even, then clamp
+        return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+    return x.astype(dtype)
+
+
+def _inv_scales(w, h, W, H, fx, fy):
+    """OpenCV's source pixels per destination pixel: ``1 / fx`` when a
+    factor is given, else ``1 / (W / w)``."""
+    return (1.0 / (fx if fx else W / w)), (1.0 / (fy if fy else H / h))
+
+
+def resize_area(img: np.ndarray, W: int, H: int, fx: float | None = None,
+                fy: float | None = None) -> np.ndarray:
+    """``cv2.resize(img, (W, H), interpolation=cv2.INTER_AREA)`` for a
+    downscale (or the same size) of a uint8 or float32 image ``[h, w]`` or
+    ``[h, w, c]``, in OpenCV's arithmetic: an integer ratio averages each
+    block (``resizeAreaFast``: the block's sum in source order, times the
+    float32 reciprocal of its area; uint8 sums in integers and rounds), any
+    other ratio weights each source pixel by its overlap with the
+    destination cell (``resizeArea``: float32 products and sums, row by row
+    in OpenCV's order). ``fx``/``fy``: the factors of a ``cv2.resize(img,
+    None, fx=..., fy=...)`` call, which set OpenCV's ratio (``W``/``H`` are
+    then ``round(w·fx)``/``round(h·fy)``). An upscale raises ``ValueError``
+    (OpenCV then interpolates bilinearly)."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"resize_area takes uint8 or float32, got {img.dtype}")
+    h, w = img.shape[:2]
+    if (H, W) == (h, w):
+        return img.copy()
+    sx, sy = _inv_scales(w, h, W, H, fx, fy)
+    if sx < 1 or sy < 1:
+        raise ValueError(f"resize_area downscales only: {w}x{h} -> {W}x{H}")
+    gray = img.ndim == 2
+    src = img[..., None] if gray else img
+    ix, iy = int(round(sx)), int(round(sy))
+    if abs(sx - ix) < np.finfo(np.float64).eps and \
+            abs(sy - iy) < np.finfo(np.float64).eps:
+        out = _area_fast(src, W, H, ix, iy)
+    else:
+        out = _area_general(src, W, H, sx, sy)
+    return out[..., 0] if gray else out
+
+
+def _area_fast(src, W, H, ix, iy):
+    """``resizeAreaFast``: block sums of ``iy x ix`` pixels (rows, then
+    columns within a row, in groups of four as OpenCV adds them). A block
+    cut by the image's right or bottom edge is the mean of its pixels
+    inside (summed in order, divided by their count)."""
+    h, w = src.shape[:2]
+    h1, w1 = min(H, h // iy), min(W, w // ix)
+    out = np.zeros((H, W, src.shape[2]), src.dtype)
+    blk = src[:h1 * iy, :w1 * ix].reshape(h1, iy, w1, ix, -1)
+    taps = [blk[:, r, :, c] for r in range(iy) for c in range(ix)]
+    if src.dtype == np.uint8:
+        total = sum(t.astype(np.int64) for t in taps)
+        if ix == 2 and iy == 2:
+            out[:h1, :w1] = ((total + 2) >> 2).astype(np.uint8)
+        else:
+            out[:h1, :w1] = _saturate(total.astype(np.float32)
+                                      * np.float32(1.0 / (ix * iy)),
+                                      np.uint8)
+    elif ix == 2 and iy == 2 and src.shape[2] in (1, 4):
+        # the vector path of 1- and 4-channel images adds by rows
+        out[:h1, :w1] = ((taps[0] + taps[1]) + (taps[2] + taps[3])) \
+            * np.float32(0.25)
+    else:
+        total = np.zeros(taps[0].shape, np.float32)
+        k = 0
+        while k + 4 <= len(taps):
+            total = total + (((taps[k] + taps[k + 1]) + taps[k + 2])
+                             + taps[k + 3])
+            k += 4
+        for t in taps[k:]:
+            total = total + t
+        out[:h1, :w1] = total * np.float32(1.0 / (ix * iy))
+    acc = np.int64 if src.dtype == np.uint8 else np.float32
+    for dy in range(H):
+        for dx in range(W):
+            if dy < h1 and dx < w1:
+                continue
+            sy0, sx0 = dy * iy, dx * ix
+            if sy0 >= h or sx0 >= w:
+                continue  # zero
+            cell = src[sy0:sy0 + iy, sx0:sx0 + ix].reshape(-1, src.shape[2])
+            total = np.zeros(src.shape[2], acc)
+            for row in cell:
+                total = total + row.astype(acc)
+            mean = total.astype(np.float32) / np.float32(len(cell))
+            out[dy, dx] = _saturate(mean, src.dtype)
+    return out
+
+
+def _area_general(src, W, H, sx, sy):
+    """``resizeArea``: each source row's weighted taps summed into a
+    float32 row buffer, the buffers of a destination row summed with their
+    float32 row weights."""
+    xi, xw = _area_tab(src.shape[1], W, sx)
+    yi, yw = _area_tab(src.shape[0], H, sy)
+    f = src.astype(np.float32)
+    buf = np.zeros((src.shape[0], W, src.shape[2]), np.float32)
+    for j in range(xi.shape[1]):
+        buf = buf + f[:, xi[:, j]] * xw[None, :, j, None]
+    acc = np.zeros((H, W, src.shape[2]), np.float32)
+    for j in range(yi.shape[1]):
+        acc = acc + buf[yi[:, j]] * yw[:, j, None, None]
+    return _saturate(acc, src.dtype)
+
+
+def resize_nearest(img: np.ndarray, W: int, H: int, fx: float | None = None,
+                   fy: float | None = None) -> np.ndarray:
+    """``cv2.resize(img, (W, H), interpolation=cv2.INTER_NEAREST)``: the
+    source pixel ``floor(d · ratio)`` (float64), clipped to the edge
+    (``fx``/``fy`` as for :func:`resize_area`)."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    sx, sy = _inv_scales(w, h, W, H, fx, fy)
+    xs = np.minimum(np.floor(np.arange(W) * sx).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(H) * sy).astype(np.int64), h - 1)
+    return img[ys[:, None], xs[None, :]]

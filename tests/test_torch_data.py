@@ -185,8 +185,12 @@ def test_dataset_factory_camera_and_checks(jax_scene):
     assert (cam.H, cam.W, cam.focal) == (20, 24, ds.focal)
     with pytest.raises(ValueError, match="config expects"):
         Dataset(jax_scene, "procedural", H=21, W=24)
-    with pytest.raises(NotImplementedError, match="INTER_AREA"):
-        Dataset(jax_scene, "procedural", H=20, W=24, input_ratio=0.5)
+    # input_ratio resizes each uint8 frame with INTER_AREA, as JAX does
+    half = Dataset(jax_scene, "procedural", H=20, W=24, input_ratio=0.5)
+    ref = JaxDataset(jax_scene, "procedural", H=20, W=24, input_ratio=0.5)
+    assert (half.H, half.W, half.focal) == (ref.H, ref.W, ref.focal)
+    np.testing.assert_allclose(half.rays, ref.rays, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(half.rgbs, ref.rgbs, rtol=0, atol=1e-7)
 
 
 def test_step_generator_draws_are_resumable():

@@ -362,16 +362,18 @@ def test_params_from_jax_carries_the_table(enc_type):
 
 def test_dispatch_refusals_and_kernel_checks():
     """A hash grid without bbox is refused; the triplane and dynamic
-    encoders name their slice; the wrappers check shapes before any kernel
+    encoders build; the wrappers check shapes before any kernel
     (the kernels take D ≤ 4, C ≤ 8, L ≤ 32 — checked for CUDA tensors
     only, the plain version takes any)."""
     _, pcfg = both_cfgs(["network.xyz_encoder.type", "hashgrid"])
     with pytest.raises(ValueError, match="bbox"):
         get_encoder(pcfg.network.xyz_encoder)
-    for typ in ("triplane", "dnerf"):
-        _, pcfg = both_cfgs(["network.xyz_encoder.type", typ])
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            get_encoder(pcfg.network.xyz_encoder)
+    for typ, cls in (("triplane", "TriPlaneEncoder"),
+                     ("dnerf", "DNeRFEncoder")):
+        _, pcfg = both_cfgs(["network.xyz_encoder.type", typ,
+                             "network.xyz_encoder.log2_hashmap_size", "10",
+                             "network.xyz_encoder.num_levels", "2"])
+        assert type(get_encoder(pcfg.network.xyz_encoder)[0]).__name__ == cls
     geo, table, x = _inputs(CASES[0], n=8)
     with pytest.raises(ValueError, match="rows"):
         he.hash_encode_fwd(torch.from_numpy(x), torch.zeros(5, 2), geo)

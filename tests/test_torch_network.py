@@ -164,7 +164,7 @@ def test_forward_tile_matches_jax(small, lego, which, dtype, atol):
 def test_fused_spec_gate_refuses_unsupported(small):
     """Same family gate as the JAX package: one skip, viewdirs, frequency
     encoders (a learnable hash grid is refused with a ValueError, as the
-    JAX gate refuses it); an encoder of a later slice raises naming it."""
+    JAX gate refuses it, and so is the tri-plane)."""
     from test_torch_helpers import both_cfgs
 
     from nerf_replication_tpu_torch.models import make_network
@@ -182,6 +182,9 @@ def test_fused_spec_gate_refuses_unsupported(small):
                          "network.xyz_encoder.num_levels", "2"])
     with pytest.raises(ValueError, match="learnable encoder"):
         fused_spec_for(make_network(pcfg))
-    _, pcfg = both_cfgs(["network.xyz_encoder.type", "triplane"])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_network(pcfg)
+    # the tri-plane encoder is learnable too
+    _, pcfg = both_cfgs(["network.xyz_encoder.type", "triplane",
+                         "network.xyz_encoder.log2_hashmap_size", "10",
+                         "network.xyz_encoder.num_levels", "2"])
+    with pytest.raises(ValueError, match="learnable encoder"):
+        fused_spec_for(make_network(pcfg))
