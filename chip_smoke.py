@@ -192,6 +192,30 @@ imports nothing of JAX. Phases, each fatal on failure:
    bitwise the engine's renders of the same poses, no capture after
    warm-up, its fps.
 
+18. data-parallel training and sequence-parallel eval (``parallel/``),
+   each part in ``python -m torch.distributed.run`` subprocesses running
+   this script's ``--dp-worker`` mode (this process never holds a process
+   group; NCCL refuses two ranks on one card, so more than one rank shares
+   the card over gloo): (a) NCCL at world size 1: ``build_dp_step``'s
+   captured segments around the all-reduce against the single-card
+   ``Trainer.step``, lego f32, 3 steps from one seeded state on one bank:
+   parameters, Adam's moments and stats bitwise, one all-reduce a step, no
+   capture after warm-up; (b) lego f32 (fused trunk, 1024 global rays, 512
+   a rank) on 2 ranks through ``train.__main__.main`` for 100 graphed
+   steps, each rank's K1/K2 launch counts reset right before and read right
+   after: one DP step first held bitwise to its one-process emulation
+   (both ranks' draws, ``(g0 + g1) / 2``, clip + Adam), the loss falling,
+   both ranks' parameters and moments bitwise equal at the end, step ms and
+   all-reduce ms per rank, the flat buffer's bytes; (c) lego_hash NGP f32
+   per-ray the same way (K6/K6b; one step within 1e-5 relative Frobenius
+   of its emulation: K6b's atomics; the grid EMA's MAX-merge leaves the
+   ranks' grids bitwise equal); (d) ``run --type evaluate`` with
+   ``eval.sharded`` on 2 ranks on (b)'s checkpoint, through the chunked
+   render and through a grid the chief bakes from it (each rank's slice
+   captured; K1): maps within 1e-6 of max|map| of this process's
+   one-process render of the same views (measured bitwise, printed) and
+   the same PSNR (rtol 1e-4). One line with all of it and the card.
+
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
 as a subprocess; its JSON line is printed before the kernels line.
@@ -212,13 +236,16 @@ one product at the CUDA cores' float32 peak (the earlier chain's).
 Prints a ``{"kernels": [...]}`` line (with launches by path: K1, K2 and
 K3a on the proposal path, K1 and K3a on the graphed eval, K6 on the graphed
 NGP val and on hash serving, K4 on hash serving's ``gather`` route, K1, K2,
-K5, K6 and K6b on the ops phase and on the model zoo; K6 and K6b also
+K5, K6 and K6b on the ops phase and on the model zoo, K1, K2, K6 and K6b on
+the ``parallel`` path of phase 18, summed over its ranks; K6 and K6b also
 carry their ms and bound at D = 2 and 4), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -3812,6 +3839,601 @@ def phase_zoo(torch, np, tmp, data):
     return zoo, by_kind
 
 
+# -- phase 18: data-parallel training and sequence-parallel eval ------------
+
+DP_WORLD = 2  # ranks sharing the card over gloo in (b)-(d)
+DP_OPTS = ["ep_iter", "50", "train.epoch", "2", "eval_ep", "100",
+           "save_ep", "2", "save_latest_ep", "2"]
+# the NGP run: phase 11 (a)'s schedule (30 warm + 70 march steps)
+DP_NGP_OPTS = ["task_arg.ngp_training", "true", "task_arg.ngp_warmup_steps",
+               "30", "task_arg.ngp_warmup_max", "30",
+               "task_arg.ngp_grid_decay", "0.1"]
+TOL_DP_NGP_FRO = 1e-5  # K6b's float32 atomics (phase 13's rule)
+TOL_SEQ_MAPS = 1e-6  # of max|map|: measured bitwise
+DP_EXTRA: list = []  # appended to every phase-18 config (a CPU rehearsal)
+
+
+def _dp_launch(torch, n_proc, spec, tmp, timeout):
+    """``chip_smoke.py --dp-worker`` under torchrun with ``n_proc`` ranks on
+    this card (each rank writes its JSON result); the ranks' results."""
+    os.makedirs(spec["out"], exist_ok=True)
+    path = os.path.join(spec["out"], f"spec_{spec['job']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n_proc), os.path.abspath(__file__),
+           "--dp-worker", path]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout, cwd=tmp)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-6000:])
+        print(res.stderr[-6000:], file=sys.stderr)
+    require(res.returncode == 0, f"parallel {spec['job']}: torchrun exited "
+            f"{res.returncode}")
+    for line in res.stdout.splitlines():
+        if line.startswith("[multihost_init]") or line.startswith("dp "):
+            print("  " + line)
+    out = []
+    for r in range(n_proc):
+        with open(os.path.join(spec["out"],
+                               f"dp_{spec['job']}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    print(f"parallel {spec['job']}: {n_proc} rank(s) in {wall:.1f} s")
+    return out, wall
+
+
+def _dp_digest(torch, tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _dp_state_tensors(state):
+    """Parameters, Adam's moments (and an NGP grid) in a fixed order."""
+    out = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for p in list(out):
+        st = state.optimizer.state.get(p, {})
+        out += [st[k] for k in sorted(st) if hasattr(st[k], "shape")]
+    grid = getattr(state, "grid_ema", None)
+    return out + ([grid] if grid is not None else [])
+
+
+def _rank_of(rank, size):
+    """Rank ``rank`` of a ``size``-rank mesh without a group, for the
+    one-process emulations (``shard_bank`` and the pool read only the rank
+    and the size)."""
+    from nerf_replication_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(None, rank, size, DEVICE, "gloo")
+
+
+def _lego_parts(torch, cfg, mesh):
+    """A seeded lego trainer's pieces: (network, loss, trainer, state)."""
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.registry import load_attr
+    from nerf_replication_tpu_torch.train.trainer import (
+        Trainer,
+        make_train_state,
+    )
+
+    net = make_network(cfg)
+    loss = load_attr(cfg.loss_module, "make_loss", "NetworkWrapper")(cfg, net)
+    trainer = Trainer(cfg, net, loss, None, mesh=mesh)
+    return net, loss, trainer, make_train_state(cfg, net, DEVICE)
+
+
+def _dp_nccl1(torch, np, spec):
+    """(a): ``build_dp_step`` over a one-rank NCCL mesh against the
+    single-card ``Trainer.step``, lego f32, 3 graphed steps each from one
+    seeded state on the same bank: bitwise, one all-reduce a step, no
+    capture after warm-up."""
+    from nerf_replication_tpu_torch.compile import AOTRegistry
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.parallel import collectives
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    cfg = make_cfg(lego, _train_opts(spec["data"], spec["out"], "nccl1")
+                   + ["task_arg.precrop_iters", "0"] + spec["extra"])
+    mesh = make_mesh(device=DEVICE)
+    bank = tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in make_dataset(cfg, "train").ray_bank())
+    runs = {}
+    for label, m in (("single", None), ("dp", mesh)):
+        _, _, trainer, state = _lego_parts(torch, cfg, m)
+        trainer.aot = AOTRegistry(torch.device(DEVICE),
+                                  enabled=DEVICE == "cuda")
+        trainer.aot_register_steps(state, bank)
+        st = trainer.aot.status()
+        require(DEVICE != "cuda" or (not st["errors"]
+                                     and st["captures"] == st["entries"] > 0),
+                f"parallel (a) {label}: captures {st}")
+        captures = trainer.aot.captures
+        collectives.reset_counts()
+        stats = []
+        for _ in range(3):
+            state, st = trainer.step(state, bank[0], bank[1])
+            stats.append({k: float(v) for k, v in st.items()})
+        require(trainer.aot.captures == captures,
+                f"parallel (a) {label}: captured after warm-up")
+        runs[label] = (state, stats, dict(collectives.COUNTS),
+                       trainer.aot.status())
+    (s1, st1, c1, _), (s2, st2, c2, reg) = runs["single"], runs["dp"]
+    bad = [i for i, (a, b) in enumerate(zip(_dp_state_tensors(s1),
+                                            _dp_state_tensors(s2)))
+           if not torch.equal(a, b)]
+    require(not bad and st1 == st2, f"parallel (a): the NCCL world-1 step "
+            f"differs from the single-card step (tensors {bad[:4]})")
+    require(c2["all_reduce"] == 3 and c1["all_reduce"] == 0,
+            f"parallel (a): all-reduces {c2} (dp) / {c1} (single)")
+    return {"bitwise": True, "all_reduces": c2["all_reduce"],
+            "registry": {k: reg[k] for k in ("entries", "captures")},
+            "loss": [s["loss"] for s in st2]}
+
+
+def _kept_state():
+    """Wrap ``trainer.fit`` to keep the state it returns."""
+    from nerf_replication_tpu_torch.train import trainer as tr
+
+    orig = tr.fit
+    kept = {}
+
+    def fit(*a, **k):
+        kept["state"] = orig(*a, **k)
+        return kept["state"]
+
+    tr.fit = fit
+    return kept, lambda: setattr(tr, "fit", orig)
+
+
+def _cli_fit(torch, np, cfg_file, opts, label, step_cls, step_name):
+    """The train CLI (``train.__main__.main``) on this rank, its kernel
+    launch counts reset right before and read right after: the final state,
+    step ms, losses, launches and the all-reduce ms of its DP steps."""
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.parallel import collectives
+    from nerf_replication_tpu_torch.parallel import step as pstep
+    from nerf_replication_tpu_torch.train.__main__ import main as train_main
+
+    # each step's loss and the host clock after it (reading the loss waits
+    # for the card)
+    losses, stamps = [], []
+    orig = getattr(step_cls, step_name)
+
+    def record(self, *a, **k):
+        out = orig(self, *a, **k)
+        st = out[1] if isinstance(out, tuple) else out
+        losses.append(float(st["loss"]))
+        stamps.append(time.perf_counter())
+        return out
+
+    setattr(step_cls, step_name, record)
+    kept, restore_fit = _kept_state()
+    pstep.TIME_REDUCE, pstep.REDUCE_MS[:] = True, []
+    fmlp.reset_launch_counts()
+    he.reset_launch_counts()
+    collectives.reset_counts()
+    logs = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(logs):
+            rc = train_main(["--cfg_file", cfg_file, "--device", DEVICE,
+                             *opts])
+    finally:
+        setattr(step_cls, step_name, orig)
+        restore_fit()
+        pstep.TIME_REDUCE = False
+    launches = {"K1": fmlp.LAUNCHES["fused_mlp_fwd"],
+                "K2": fmlp.LAUNCHES["fused_mlp_bwd"],
+                "K6": he.LAUNCHES["hash_encode_fwd"],
+                "K6b": he.LAUNCHES["hash_encode_bwd"]}
+    require(rc == 0, f"parallel {label}: the train CLI returned {rc}")
+    graphs = (_compile_status(logs.getvalue().splitlines(), label)
+              if DEVICE == "cuda" else None)
+    state = kept["state"]
+    dt = np.diff(np.asarray(stamps)) * 1e3
+    return {"state": state, "losses": losses,
+            "step_ms": float(np.median(dt[3:])),
+            "reduce_ms": float(np.median(pstep.REDUCE_MS[3:]))
+            if DEVICE == "cuda" else None,
+            "launches": launches, "collectives": dict(collectives.COUNTS),
+            "collective_bytes": dict(collectives.BYTES),
+            "digest": _dp_digest(torch, _dp_state_tensors(state)),
+            "steps": int(state.step), "graphs": graphs}
+
+
+def _dp_lego(torch, np, spec):
+    """(b) on this rank: one DP step against its one-process emulation
+    (rank 0: both ranks' draws, ``(g0 + g1) / 2``, Adam; bitwise), then the
+    train CLI for 100 steps."""
+    import torch.distributed as dist
+
+    from nerf_replication_tpu_torch.compile import registry_from_cfg
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.datasets.sampling import step_generator
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+    from nerf_replication_tpu_torch.train.optim import (
+        optimizer_step,
+        set_lr,
+    )
+    from nerf_replication_tpu_torch.train.step_core import sampled_grad_step
+    from nerf_replication_tpu_torch.train.trainer import Trainer, shard_inputs
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    opts = _train_opts(spec["data"], os.path.join(spec["out"], "lego"),
+                       "dp_lego") + DP_OPTS + spec["extra"]
+    cfg = make_cfg(lego, opts)
+    mesh = make_mesh(device=DEVICE)
+    train_ds = make_dataset(cfg, "train")
+    _, _, trainer, state = _lego_parts(torch, cfg, mesh)
+    bank, pool = shard_inputs(cfg, train_ds, mesh, DEVICE, True)
+    trainer.aot = registry_from_cfg(cfg, DEVICE)
+    trainer.aot_register_steps(state, bank, pool=pool)
+    state, _ = trainer.step(state, bank[0], bank[1], index_pool=pool)
+    flat_bytes = trainer._dp.flat.nbytes
+    one = {"flat_bytes": flat_bytes}
+    if mesh.rank == 0:
+        def emulate():
+            net, loss, _, st = _lego_parts(torch, cfg, None)
+            params = [p for p in net.parameters()]
+            grads = []
+            for r in range(mesh.size):
+                b, pl = shard_inputs(cfg, train_ds,
+                                     _rank_of(r, mesh.size),
+                                     DEVICE, True)
+                gen = step_generator(int(cfg.seed), 0, DEVICE, r)
+                sampled_grad_step(loss, params, b[0], b[1],
+                                  trainer._dp.n_local, trainer.near,
+                                  trainer.far, gen, index_pool=pl)
+                grads.append([None if p.grad is None else p.grad.clone()
+                              for p in params])
+            for p, g0, g1 in zip(params, *grads):
+                p.grad = None if g0 is None else (g0 + g1) / 2
+            set_lr(st.optimizer, st.schedule, 0)
+            optimizer_step(st.optimizer)
+            return st
+
+        emu = _uncounted(emulate)
+        bad = [i for i, (a, b) in enumerate(zip(_dp_state_tensors(state),
+                                                _dp_state_tensors(emu)))
+               if not torch.equal(a, b)]
+        require(not bad, f"parallel (b): the DP step differs from its "
+                f"emulation in tensors {bad[:6]}")
+        one["emulation_bitwise"] = True
+    dist.barrier()
+    del trainer, state
+    run = _cli_fit(torch, np, lego, opts, "(b) lego", Trainer, "step")
+    first, last = np.mean(run["losses"][:10]), np.mean(run["losses"][-10:])
+    require(run["steps"] == 100 and last < first,
+            f"parallel (b): {run['steps']} steps, loss {first} -> {last}")
+    run.pop("state")
+    return {**run, **one, "loss_first10": float(first),
+            "loss_last10": float(last)}
+
+
+def _dp_ngp(torch, np, spec):
+    """(c) on this rank: one NGP DP step (warm) against its one-process
+    emulation (rank 0; within TOL_DP_NGP_FRO: K6b's atomics), then the
+    train CLI for 100 steps."""
+    import torch.distributed as dist
+
+    from nerf_replication_tpu_torch.compile import registry_from_cfg
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.datasets.sampling import step_generator
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+    from nerf_replication_tpu_torch.train.ngp import NGPTrainer
+    from nerf_replication_tpu_torch.train.optim import (
+        optimizer_step,
+        set_lr,
+    )
+    from nerf_replication_tpu_torch.train.trainer import shard_inputs
+
+    cfg_file = os.path.join(REPO, "configs", "nerf", "lego_hash.yaml")
+    opts = _hash_opts(spec["data"], os.path.join(spec["out"], "ngp"),
+                      "dp_ngp", DP_NGP_OPTS) + DP_OPTS + spec["extra"]
+    cfg = make_cfg(cfg_file, opts)
+    mesh = make_mesh(device=DEVICE)
+    train_ds = make_dataset(cfg, "train")
+    trainer = NGPTrainer(cfg, make_network(cfg), mesh=mesh)
+    state = trainer.make_state(DEVICE)
+    bank, _ = shard_inputs(cfg, train_ds, mesh, DEVICE, False)
+    trainer.aot = registry_from_cfg(cfg, DEVICE)
+    trainer.aot_register_steps(state, bank)
+    trainer.multi_step(state, bank[0], bank[1], 1)
+    one = {"flat_bytes": trainer._flats[True].nbytes}
+    if mesh.rank == 0:
+        def emulate():
+            emu = NGPTrainer(cfg, make_network(cfg))
+            emu.n_local = trainer.n_local
+            st = emu.make_state(DEVICE)
+            params = list(st.network.parameters())
+            grads, outs, gens = [], [], []
+            for r in range(mesh.size):
+                b, _ = shard_inputs(cfg, train_ds,
+                                    _rank_of(r, mesh.size),
+                                    DEVICE, False)
+                emu._gen = step_generator(int(cfg.seed), 0, DEVICE, r)
+                _, out = emu._grad_part(st, b[0], b[1], True,
+                                        lambda i: None)
+                grads.append([None if p.grad is None else p.grad.clone()
+                              for p in params])
+                outs.append({k: v.detach().clone() for k, v in out.items()})
+                gens.append(emu._gen)
+            for p, g0, g1 in zip(params, *grads):
+                p.grad = None if g0 is None else (g0 + g1) / 2
+            set_lr(st.optimizer, st.schedule, 0)
+            optimizer_step(st.optimizer)
+            base = st.grid_ema.clone()
+            cands = []
+            for r in range(mesh.size):
+                st.grid_ema.copy_(base)
+                emu._gen = gens[r]
+                emu._grid_part(st, outs[r])
+                cands.append(st.grid_ema.clone())
+            st.grid_ema.copy_(torch.maximum(*cands))
+            return st
+
+        emu = _uncounted(emulate)
+        worst = max(_fro_rel([a], [b]) for a, b in
+                    zip(_dp_state_tensors(state), _dp_state_tensors(emu)))
+        require(worst <= TOL_DP_NGP_FRO, f"parallel (c): the NGP DP step is "
+                f"{worst:.3g} (relative Frobenius) from its emulation")
+        one["emulation_fro"] = worst
+    dist.barrier()
+    del trainer, state
+    run = _cli_fit(torch, np, cfg_file, opts, "(c) NGP", NGPTrainer,
+                   "_one_step")
+    first, last = np.mean(run["losses"][:10]), np.mean(run["losses"][-10:])
+    require(run["steps"] == 100 and last < first,
+            f"parallel (c): {run['steps']} steps, loss {first} -> {last}")
+    run["grid_digest"] = _dp_digest(torch, [run["state"].grid_ema])
+    run.pop("state")
+    return {**run, **one, "loss_first10": float(first),
+            "loss_last10": float(last)}
+
+
+def _gate_maps(fn):
+    """``fn()`` with every render of the render gate recorded (per-ray maps
+    as numpy, in call order)."""
+    from nerf_replication_tpu_torch.renderer import gate
+
+    orig = gate.full_image_render_fn
+    maps = []
+
+    def factory(*a, **k):
+        render = orig(*a, **k)
+
+        def wrapped(batch):
+            out = render(batch)
+            maps.append({k: v.detach().cpu().numpy() for k, v in out.items()
+                         if v.dim()})
+            return out
+
+        for attr in ("mesh", "surface"):
+            setattr(wrapped, attr, getattr(render, attr, None))
+        return wrapped
+
+    gate.full_image_render_fn = factory
+    try:
+        return fn(), maps
+    finally:
+        gate.full_image_render_fn = orig
+
+
+def _dp_eval_cfg(spec, grid: bool, sharded: bool):
+    from nerf_replication_tpu_torch.config import make_cfg
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    opts = _train_opts(spec["data"], os.path.join(spec["out"], "lego"),
+                       "dp_lego") + DP_OPTS + spec["extra"] + [
+        "test_dataset.cams", "[0, -1, 1]", "eval.sharded",
+        str(sharded).lower(), "task_arg.accelerated_renderer",
+        str(grid).lower(),
+        "result_dir", os.path.join(spec["out"], "eval",
+                                   f"{'grid' if grid else 'nogrid'}_"
+                                   f"{'sharded' if sharded else 'one'}")]
+    return lego, make_cfg(lego, opts)
+
+
+def _run_eval(torch, spec, grid, sharded):
+    """``run --type evaluate`` of (b)'s checkpoint (cwd: the grid's
+    ``logs/lego/``): its result, the gate's maps and K1 launches."""
+    from types import SimpleNamespace
+
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.run import run_evaluate
+
+    lego, cfg = _dp_eval_cfg(spec, grid, sharded)
+    fmlp.reset_launch_counts()
+    res, maps = _gate_maps(lambda: run_evaluate(
+        cfg, SimpleNamespace(cfg_file=lego, device=DEVICE)))
+    return res, maps, fmlp.LAUNCHES["fused_mlp_fwd"]
+
+
+def _dp_eval(torch, np, spec):
+    """(d) on this rank: ``run --type evaluate`` with ``eval.sharded`` on
+    (b)'s checkpoint through the chunked render and through a grid the
+    chief bakes from it; rank 0 keeps the gathered maps."""
+    import torch.distributed as dist
+
+    from nerf_replication_tpu_torch.parallel.mesh import is_chief
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        bake_occupancy_grid,
+        save_occupancy_grid,
+    )
+    from nerf_replication_tpu_torch.utils.setup import load_trained_network
+
+    if is_chief():
+        _, cfg = _dp_eval_cfg(spec, True, True)
+        net, _ = load_trained_network(cfg, DEVICE, verbose=False)
+        grid = _uncounted(bake_occupancy_grid, net, cfg, DEVICE)
+        save_occupancy_grid(os.path.join("logs", "lego",
+                                         "occupancy_grid.npz"),
+                            grid, cfg.train_dataset.scene_bbox,
+                            float(cfg.task_arg.occupancy_grid_threshold))
+    dist.barrier()
+    out = {}
+    for grid in (False, True):
+        res, maps, k1 = _run_eval(torch, spec, grid, True)
+        label = "grid" if grid else "nogrid"
+        st = res["compile"]
+        require(DEVICE != "cuda" or (
+            st is not None and not st["errors"]
+            and st["captures"] == st["entries"] == 1),
+            f"parallel (d) {label}: the rank's slice was not captured: {st}")
+        require(res["used_grid"] == grid, f"parallel (d) {label}: used_grid "
+                f"{res['used_grid']}")
+        out[label] = {"psnr": res.get("psnr"), "k1": k1,
+                      "net_time_s": res["mean_net_time_s"]}
+        if is_chief():
+            np.savez(os.path.join(spec["out"], f"maps_{label}.npz"),
+                     **{f"{i}_{k}": v for i, m in enumerate(maps)
+                        for k, v in m.items()})
+    return out
+
+
+def _dp_worker(spec_path):
+    """A rank of phase 18 under torchrun (``--dp-worker <spec.json>``): its
+    results in ``dp_<job>_rank<r>.json`` beside the spec."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nerf_replication_tpu_torch.parallel.mesh import multihost_init
+    from nerf_replication_tpu_torch.utils.platform import resolve_device
+
+    global DEVICE, TRAIN_HW
+    with open(spec_path) as f:
+        spec = json.load(f)
+    DEVICE, TRAIN_HW = spec["device"], spec["hw"]
+    multihost_init(None, DEVICE)  # makes this rank's card current
+    resolve_device(DEVICE)
+    rank = dist.get_rank()
+    res = {"rank": rank, "world": dist.get_world_size(),
+           "backend": str(dist.get_backend())}
+    try:
+        if spec["job"] == "nccl1":
+            res["a"] = _dp_nccl1(torch, np, spec)
+        else:
+            for part, fn in (("b", _dp_lego), ("c", _dp_ngp)):
+                res[part] = fn(torch, np, spec)
+                print(f"dp rank {rank} ({part}): " + json.dumps(
+                    {k: v for k, v in res[part].items() if k != "losses"}))
+            res["d"] = _dp_eval(torch, np, spec)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(spec["out"],
+                           f"dp_{spec['job']}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _one_process_eval(torch, np, spec):
+    """(d)'s reference: the same views rendered in this process (no process
+    group: the gate's one-card routes)."""
+    ref = {}
+    for grid in (False, True):
+        res, maps, _ = _uncounted(_run_eval, torch, spec, grid, False)
+        ref["grid" if grid else "nogrid"] = (res, maps)
+    return ref
+
+
+def phase_parallel(torch, np, tmp, data):
+    """Phase 18: data-parallel training (lego K1/K2, NGP K6/K6b) and
+    sequence-parallel eval (K1) on torch.distributed, each run in torchrun
+    subprocesses (this process never holds a process group); cwd: tmp."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "dp")
+    os.makedirs(work, exist_ok=True)
+    spec = {"data": data, "out": work, "device": DEVICE, "extra": DP_EXTRA,
+            "hw": TRAIN_HW}
+    report = {}
+    if DEVICE == "cuda":
+        a, a_wall = _dp_launch(torch, 1, {**spec, "job": "nccl1"}, work, 300)
+        require(a[0]["backend"] == "nccl", f"parallel (a): backend "
+                f"{a[0]['backend']}")
+        report["a"] = {**a[0]["a"], "wall_s": round(a_wall, 1)}
+    ranks, wall = _dp_launch(torch, DP_WORLD, {**spec, "job": "gloo2"},
+                             work, 900)
+    require(all(r["backend"] == "gloo" for r in ranks),
+            "parallel: two ranks on one card did not choose gloo")
+    for part, label in (("b", "lego"), ("c", "NGP")):
+        digests = {r[part]["digest"] for r in ranks}
+        require(len(digests) == 1, f"parallel ({part}): the ranks' {label} "
+                f"states differ after {ranks[0][part]['steps']} steps")
+        for r in ranks:
+            for k in (("K1", "K2") if part == "b" else ("K6", "K6b")):
+                require(DEVICE != "cuda" or r[part]["launches"][k] > 0,
+                        f"parallel ({part}): rank {r['rank']} never "
+                        f"launched {k}")
+    require(len({r["c"]["grid_digest"] for r in ranks}) == 1,
+            "parallel (c): the ranks' grids differ")
+    require(ranks[0]["b"].get("emulation_bitwise"), "parallel (b): no "
+            "emulation check")
+    # (d) against the one-process render of the same views (cwd: the grid's
+    # logs/lego/ under work, as the ranks had it)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        ref = _one_process_eval(torch, np, spec)
+    finally:
+        os.chdir(cwd)
+    d = {}
+    for label, (res, maps) in ref.items():
+        got = np.load(os.path.join(work, f"maps_{label}.npz"))
+        worst = 0.0
+        for i, m in enumerate(maps):
+            for k, v in m.items():
+                g = got[f"{i}_{k}"]
+                require(g.shape == v.shape, f"parallel (d) {label}: {k} "
+                        f"shape {g.shape} vs {v.shape}")
+                scale = max(float(np.abs(v).max()), 1e-30)
+                worst = max(worst, float(np.abs(g - v).max()) / scale)
+        psnr_sharded = ranks[0]["d"][label]["psnr"]
+        require(worst <= TOL_SEQ_MAPS, f"parallel (d) {label}: maps "
+                f"{worst:.3g} of max|map| from the one-process render")
+        require(abs(psnr_sharded - res["psnr"]) <= 1e-4 * abs(res["psnr"]),
+                f"parallel (d) {label}: psnr {psnr_sharded} vs {res['psnr']}")
+        d[label] = {"maps_rel": worst, "bitwise": worst == 0.0,
+                    "psnr_sharded": psnr_sharded, "psnr_one": res["psnr"],
+                    "net_time_ms_sharded": [round(r["d"][label]["net_time_s"]
+                                                  * 1e3, 3) for r in ranks],
+                    "net_time_ms_one": round(res["mean_net_time_s"] * 1e3, 3),
+                    "k1_per_rank": [r["d"][label]["k1"] for r in ranks]}
+    report["d"] = d
+    for part in ("b", "c"):
+        report[part] = {
+            "step_ms_per_rank": [round(r[part]["step_ms"], 3)
+                                 for r in ranks],
+            "allreduce_ms_per_rank": [r[part]["reduce_ms"] for r in ranks],
+            "flat_bytes": ranks[0][part]["flat_bytes"],
+            "loss_first10_last10": [ranks[0][part]["loss_first10"],
+                                    ranks[0][part]["loss_last10"]],
+            "launches_per_rank": [r[part]["launches"] for r in ranks],
+            "collectives_rank0": ranks[0][part]["collectives"],
+            "digest": ranks[0][part]["digest"]}
+    report["c"]["emulation_fro"] = ranks[0]["c"]["emulation_fro"]
+    report["smi"] = smi_line()
+    report["wall_s"] = round(time.perf_counter() - t0, 1)
+    print("parallel phase: " + json.dumps(report))
+    counts = {
+        "K1": sum(r["b"]["launches"]["K1"] + sum(
+            r["d"][g]["k1"] for g in ("grid", "nogrid")) for r in ranks),
+        "K2": sum(r["b"]["launches"]["K2"] for r in ranks),
+        "K6": sum(r["c"]["launches"]["K6"] for r in ranks),
+        "K6b": sum(r["c"]["launches"]["K6b"] for r in ranks)}
+    return counts, report
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -3835,6 +4457,8 @@ def run_bench():
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--dp-worker":
+        return _dp_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -3884,6 +4508,7 @@ def main() -> int:
                 torch, np, tmp, data,
                 profiles["f32_fused"]["graphed"]["step_ms"])
             zoo_counts, zoo_hash = phase_zoo(torch, np, tmp, data)
+            par_counts, _ = phase_parallel(torch, np, tmp, data)
         finally:
             os.chdir(cwd)
     run_bench()
@@ -3926,6 +4551,11 @@ def main() -> int:
         # K6b), whose times at D = 2 and 4 stand beside phase 10's D = 3
         if kernel in zoo_counts:
             paths["zoo"] = zoo_counts[kernel]
+        # data-parallel training and sequence-parallel eval (phase 18):
+        # K1/K2 on the lego ranks (K1 also on the sharded eval), K6/K6b on
+        # the NGP ranks, summed over the ranks
+        if kernel in par_counts:
+            paths["parallel"] = par_counts[kernel]
         if kernel in ("K6", "K6b"):
             kind = "fwd" if kernel == "K6" else "bwd"
             for d in (2, 4):

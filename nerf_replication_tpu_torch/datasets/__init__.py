@@ -85,28 +85,38 @@ class DataLoader:
 
 def make_data_loader(cfg, split: str = "train", is_distributed: bool = False,
                      max_iter: int = -1):
-    """The JAX package's loader factory. ``is_distributed`` needs a process
-    group, which comes with port slice 7 (multi-device): it raises."""
+    """The JAX package's loader factory. ``is_distributed`` gives each
+    process its slice of the images (``DistributedSampler``), with the rank
+    and world of the process group, or (0, 1) without one, as JAX's
+    ``process_index()`` / ``process_count()``."""
+    from ..parallel.collectives import process_count
+    from ..parallel.mesh import is_initialized
     from .collate import make_collator
     from .samplers import (
         BatchSampler,
+        DistributedSampler,
         ImageSizeBatchSampler,
         IterationBasedBatchSampler,
         RandomSampler,
         SequentialSampler,
     )
 
-    if is_distributed:
-        raise NotImplementedError(
-            "make_data_loader(is_distributed=True) shards the images over "
-            "processes: multi-device comes with port slice 7")
     dataset = make_dataset(cfg, split)
     node = cfg.train if split == "train" else cfg.test
     n = dataset.n_images if hasattr(dataset, "n_images") else len(dataset)
 
     shuffle = bool(node.get("shuffle", split == "train"))
     seed = int(cfg.get("seed", 0))
-    sampler = RandomSampler(n, seed=seed) if shuffle else SequentialSampler(n)
+    if is_distributed:
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if is_initialized() else 0
+        sampler = DistributedSampler(n, rank, process_count(), seed=seed,
+                                     shuffle=shuffle)
+    elif shuffle:
+        sampler = RandomSampler(n, seed=seed)
+    else:
+        sampler = SequentialSampler(n)
 
     batch_size = int(node.get("batch_size", 1))
     kind = str(node.get("batch_sampler", "default"))

@@ -163,12 +163,11 @@ def config_hash(cfg) -> str:
 
 def is_chief() -> bool:
     """Rank 0 of ``torch.distributed`` when a process group exists, else
-    true: the one process that writes telemetry."""
-    import torch.distributed as dist
+    true: the one process that writes telemetry
+    (``parallel.mesh.is_chief``)."""
+    from ..parallel.mesh import is_chief as chief
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+    return chief()
 
 
 def _devices() -> tuple[str, int, str]:

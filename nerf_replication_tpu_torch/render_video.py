@@ -17,8 +17,12 @@ with the frames, mean seconds a frame and fps, as the JAX CLI does.
 
 The frames go to ``<result_dir>/video.avi``, an uncompressed RGB AVI
 (``utils/video.py``): the JAX CLI writes mp4 through OpenCV or a GIF through
-imageio, neither of which the card's machine has. ``eval.sharded`` (the
-sequence-parallel render over several cards) comes with port slice 7.
+imageio, neither of which the card's machine has. Under torchrun with
+``eval.sharded true`` the frames go through the render gate instead
+(:class:`GateSession`, as the root ``render_video.py`` does on a pod): each
+frame's rays over the ranks (the sequence-parallel renderer, or the per-ray
+march with the baked grid), every rank rendering, the chief writing the
+AVI.
 """
 
 from __future__ import annotations
@@ -90,19 +94,75 @@ def video_engine(cfg, cfg_file: str | None = None, device="cuda"):
     return engine, cam
 
 
+class GateSession:
+    """``render_view`` / ``stats`` of an engine session, through the render
+    gate over the ranks of the process group (``renderer/gate.py``)."""
+
+    def __init__(self, cfg, cfg_file: str | None, device="cuda"):
+        import torch
+
+        from .renderer.gate import full_image_render_fn
+        from .renderer.occupancy import default_grid_path
+        from .renderer.volume import make_renderer
+        from .parallel.mesh import rank_device
+        from .utils.platform import resolve_device
+        from .utils.setup import load_trained_network
+
+        self.dev = resolve_device(rank_device(device))
+        network, _ = load_trained_network(cfg, self.dev)
+        self.renderer = make_renderer(cfg, network)
+        use_grid = (bool(cfg.task_arg.get("accelerated_renderer", False))
+                    and bool(cfg_file) and self.renderer.load_occupancy_grid(
+                        default_grid_path(cfg_file)))
+        self.cam = _camera(cfg)
+        self.route = "sharded_march" if use_grid else "sharded_chunked"
+        self.render = full_image_render_fn(cfg, network, self.renderer,
+                                           self.cam, use_grid=use_grid)
+        self._torch = torch
+
+    def render_view(self, c2w, H: int, W: int, focal: float):
+        from .datasets.rays import get_rays_np
+
+        rays_o, rays_d = get_rays_np(H, W, float(focal), np.asarray(c2w))
+        rays = np.concatenate([rays_o, rays_d], -1).reshape(-1, 6)
+        out = self.render({
+            "rays": self._torch.from_numpy(
+                np.ascontiguousarray(rays, np.float32)).to(self.dev),
+            "near": float(self.cam.near), "far": float(self.cam.far)})
+        key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
+        rgb = np.clip(out[key].cpu().numpy().reshape(H, W, 3), 0.0, 1.0)
+        return (rgb * 255).astype(np.uint8), {"tier": "full"}
+
+    def stats(self) -> dict:
+        return {"route": self.route, "captures": 0,
+                "n_truncated": self.renderer.report_truncation(
+                    log=lambda s: None)}
+
+
+def _sharded(cfg, device) -> bool:
+    """``eval.sharded`` in a process group of several ranks (started here
+    when a launcher asked for one)."""
+    from .parallel.collectives import process_count
+    from .parallel.mesh import multihost_init
+
+    if not bool(cfg.get("eval", {}).get("sharded", False)):
+        return False
+    return multihost_init(cfg, device) and process_count() > 1
+
+
 def render_360_video(cfg, args=None, device="cuda", engine=None) -> str:
     """Render the spiral, emit the ``eval`` row, write the AVI; returns its
     path. ``engine``: an engine (and camera) from :func:`video_engine`
     instead of a fresh one."""
     from .obs import init_run
+    from .parallel.mesh import is_chief
     from .utils.video import write_avi
 
-    if bool(cfg.get("eval", {}).get("sharded", False)):
-        raise NotImplementedError(
-            "eval.sharded: the sequence-parallel video render over several "
-            "cards comes with port slice 7")
     # the stream opens before warm-up, so its captures are on the record
     emitter = init_run(cfg, component="render_video")
+    if engine is None and _sharded(cfg, device):
+        session = GateSession(cfg, getattr(args, "cfg_file", None), device)
+        engine = (session, session.cam)
     if engine is None:
         engine = video_engine(cfg, getattr(args, "cfg_file", None), device)
     engine, cam = engine
@@ -120,9 +180,10 @@ def render_360_video(cfg, args=None, device="cuda", engine=None) -> str:
                  mean_net_time_s=wall / len(frames) if frames else 0.0,
                  fps=fps)
     emitter.close()
-    out_path = write_avi(os.path.join(cfg.result_dir, "video.avi"), frames,
-                         FPS)
-    print(f"video saved to {out_path}")
+    out_path = os.path.join(cfg.result_dir, "video.avi")
+    if is_chief():
+        write_avi(out_path, frames, FPS)
+        print(f"video saved to {out_path}")
     return out_path
 
 

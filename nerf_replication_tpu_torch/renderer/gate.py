@@ -2,11 +2,17 @@
 ``nerf_replication_tpu/renderer/gate.py``).
 
 ``full_image_render_fn`` is the one factory every whole-image surface uses
-(in-training validation, eval). The port has the single-device branches:
-the renderer's chunked render, and with ``use_grid`` its occupancy-
-accelerated march (``Renderer.render_accelerated``, a grid already loaded).
-The sequence-parallel branch (``eval.sharded`` on several cards) comes with
-port slice 7 and raises.
+(in-training validation, eval, the sharded video). One process: the
+renderer's chunked render, and with ``use_grid`` its occupancy-accelerated
+march (``Renderer.render_accelerated``, a grid already loaded), both
+honouring each batch's near/far. ``eval.sharded`` in a process group of
+several ranks: the sequence-parallel renderer or per-ray march
+(``parallel/sequence.py``) over the ranks, every rank rendering its slice of
+each image and all-gathering the result; their near/far are baked from the
+test set, so a batch with other bounds raises :class:`BakedBoundsError`.
+The returned ``render`` carries ``mesh`` (None: one process) and, sharded,
+``surface`` (what ``parallel.sequence.aot_register_sequence_renderer`` /
+``_march`` capture).
 """
 
 from __future__ import annotations
@@ -38,18 +44,48 @@ def full_image_render_fn(cfg, network, renderer, test_ds, use_grid=False):
     selects the occupancy-accelerated march."""
     import torch
 
-    if bool(cfg.get("eval", {}).get("sharded", False)) and \
-            torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "eval.sharded: sequence-parallel rendering over several cards "
-            "comes with port slice 7"
-        )
+    from ..parallel.mesh import make_mesh_from_cfg
 
-    whole = renderer.render_accelerated if use_grid else \
-        renderer.render_chunked
+    mesh = None
+    if bool(cfg.get("eval", {}).get("sharded", False)):
+        mesh = make_mesh_from_cfg(cfg, device=renderer._device())
+    if mesh is None:
+        whole = renderer.render_accelerated if use_grid else \
+            renderer.render_chunked
 
-    def render(batch):
-        with torch.no_grad():
-            return whole(batch)
+        def render(batch):
+            with torch.no_grad():
+                return whole(batch)
 
+        render.mesh = None
+        return render
+
+    from ..parallel.sequence import (
+        build_sequence_parallel_march,
+        build_sequence_parallel_renderer,
+    )
+
+    near, far = float(test_ds.near), float(test_ds.far)
+    apply_fn = renderer._apply_fn()
+    if use_grid:
+        options = renderer.march_options
+        surface = build_sequence_parallel_march(
+            mesh, apply_fn, options, near, far, chunk_size=options.chunk_size)
+
+        def render(batch):
+            check_baked_bounds(near, far, batch["near"], batch["far"])
+            out = surface(batch["rays"], renderer.occupancy_grid,
+                          renderer.grid_bbox)
+            renderer.accumulate_truncated(out.pop("n_truncated"))
+            return out
+    else:
+        options = renderer.eval_options
+        surface = build_sequence_parallel_renderer(
+            mesh, apply_fn, options, near, far, chunk_size=options.chunk_size)
+
+        def render(batch):
+            check_baked_bounds(near, far, batch["near"], batch["far"])
+            return surface(batch["rays"])
+
+    render.mesh, render.surface = mesh, surface
     return render

@@ -28,7 +28,10 @@ plain PyTorch path on the CPU. ``network`` and ``evaluate`` append a
 ``run_meta`` and an ``eval`` row to ``<record_dir>/telemetry.jsonl``, as the
 JAX CLI does, so quality and fps are diffable by ``scripts/tlm_report.py``.
 ``--type mesh`` writes the trained network's density iso-surface as
-``<result_dir>/mesh.ply`` (``utils/mesh.py``).
+``<result_dir>/mesh.ply`` (``utils/mesh.py``). Under torchrun with
+``eval.sharded true``, ``evaluate`` renders each view over the ranks (the
+sequence-parallel gate, each rank's slice captured as a CUDA graph); every
+rank renders, the chief scores and writes the metrics and images.
 """
 
 from __future__ import annotations
@@ -47,13 +50,17 @@ def _sync(device) -> None:
 
 
 def _load_eval_setup(cfg, device):
-    """(network from the trained checkpoint, renderer, test set, device)."""
+    """(network from the trained checkpoint, renderer, test set, device);
+    the process group started first when a launcher asked for one (this
+    rank's card)."""
     from .datasets import make_dataset
+    from .parallel.mesh import multihost_init, rank_device
     from .renderer.volume import make_renderer
     from .utils.setup import load_trained_network
     from .utils.platform import resolve_device
 
-    dev = resolve_device(device)
+    multihost_init(cfg, device)
+    dev = resolve_device(rank_device(device))
     network, _ = load_trained_network(cfg, dev)
     renderer = make_renderer(cfg, network)
     test_ds = make_dataset(cfg, "test")
@@ -128,11 +135,13 @@ def run_evaluate(cfg, args=None):
     per-chunk traversal stats averaged over the views (``march``), and the
     registry's status after the views (``compile``; None: eager)."""
     from .evaluators import make_evaluator
+    from .parallel.mesh import is_chief
     from .renderer.gate import full_image_render_fn
     from .renderer.occupancy import default_grid_path
 
     network, renderer, test_ds, dev = _load_eval_setup(cfg, _device_of(args))
-    evaluator = make_evaluator(cfg)
+    # every rank of a sharded eval renders; the chief scores and writes
+    evaluator = make_evaluator(cfg) if is_chief() else None
 
     grid_loaded = False
     if bool(cfg.task_arg.get("accelerated_renderer", False)):
@@ -140,7 +149,8 @@ def run_evaluate(cfg, args=None):
         grid_loaded = renderer.load_occupancy_grid(grid_path)
     render = full_image_render_fn(cfg, network, renderer, test_ds,
                                   use_grid=grid_loaded)
-    registry = _capture_eval(cfg, renderer, test_ds, dev, grid_loaded)
+    registry = _capture_eval(cfg, renderer, test_ds, dev, grid_loaded,
+                             render)
 
     net_times, march = [], {}
     for i in range(len(test_ds)):
@@ -154,10 +164,11 @@ def run_evaluate(cfg, args=None):
         for k, v in renderer.last_march_stats.items():
             if k != "sweep":
                 march.setdefault(k, []).append(v.float().mean().item())
-        evaluator.evaluate({k: v.cpu().numpy() for k, v in out.items()},
-                           host)
+        if evaluator is not None:
+            evaluator.evaluate({k: v.cpu().numpy() for k, v in out.items()},
+                               host)
 
-    result = evaluator.summarize()
+    result = evaluator.summarize() if evaluator is not None else {}
     n_truncated = renderer.report_truncation()
     mean = _mean_times(net_times)
     print(f"mean net_time: {mean:.4f}s  fps: {1.0 / mean:.3f}")
@@ -172,16 +183,30 @@ def run_evaluate(cfg, args=None):
             "compile": None if registry is None else registry.status()}
 
 
-def _capture_eval(cfg, renderer, test_ds, dev, use_grid: bool):
+def _capture_eval(cfg, renderer, test_ds, dev, use_grid: bool, render=None):
     """The view's render captured (``compile.aot`` on the card) and
-    installed in ``renderer``, and the registry's ``compile:`` line printed;
-    returns the registry (None: eager)."""
+    installed in ``renderer`` (a sharded gate's ``render``: this rank's
+    slice), and the registry's ``compile:`` line printed; returns the
+    registry (None: eager)."""
     from .compile import registry_from_cfg
 
     registry = registry_from_cfg(cfg, dev)
     if registry is None or not registry.enabled or not len(test_ds):
         return None
     first = test_ds.image_batch(0)
+    if render is not None and render.mesh is not None:
+        from .parallel import sequence
+
+        n = first["rays"].shape[0]
+        if use_grid:
+            sequence.aot_register_sequence_march(
+                registry, render.surface, n, renderer.occupancy_grid,
+                renderer.grid_bbox)
+        else:
+            sequence.aot_register_sequence_renderer(
+                registry, render.surface, n, width=first["rays"].shape[1])
+        print("compile: " + json.dumps(registry.status()))
+        return registry
     renderer.aot_register_eval(registry, first["rays"].shape[0],
                                first["near"], first["far"],
                                chunked=not use_grid)

@@ -10,6 +10,17 @@ loop with its save/eval cadence on one card. ``--device cpu`` runs the plain
 PyTorch path on the CPU (small configurations only). ``--test`` evaluates the
 trained model instead (``run.run_evaluate``: through the occupancy grid when
 one is baked).
+
+Data-parallel training runs the same entry under torchrun, one process a
+rank:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m nerf_replication_tpu_torch.train --cfg_file configs/nerf/lego.yaml \
+        network.nerf.fused_trunk true network.nerf.fused_tile 512
+
+(the process group's backend is NCCL when every rank has a card, gloo when
+ranks share one; ``task_arg.N_rays`` is the global batch). ``--test`` with
+``eval.sharded true`` under torchrun renders each view over the ranks.
 """
 
 from __future__ import annotations

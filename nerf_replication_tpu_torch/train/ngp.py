@@ -34,7 +34,19 @@ with the dispatch/block split, ``epoch``, ``memory``, ``heartbeat``,
 ``march`` row per packed eval view), the ``train.profile`` window, the
 divergence rollback (the grid EMA and the phase counters restored too),
 the SIGTERM flush with the phase sidecar, and ``pretrain`` warm starts.
-A mesh of cards (slice 7) raises where a config asks for it. Under
+
+Over a mesh (``parallel/``, started by :func:`fit_ngp` under torchrun) each
+rank draws ``N_rays / world`` rays from its slice of the globally permuted
+bank on its own stream (``step_seed(seed, step, rank)``); the step is two
+captured segments around the eager collectives: (1) draw, render, backward,
+gradients and stats packed into one buffer; an ``all_reduce(SUM)`` and a
+division by the world size; (2) unpack, clip + Adam, the grid update from
+this rank's samples and its own refresh cells and jitter; then an
+``all_reduce(MAX)`` of the grid EMA. All candidates start from the same
+replicated decayed grid, so the MAX is exactly the union of the ranks'
+scatter-max updates, and the grids stay bitwise replicated (JAX's
+``pmax``). The warm/march switch reads the replicated grid's occupancy.
+Under
 ``compile.aot`` (the JAX package's AOT registry) :func:`fit_ngp` captures
 both phase variants of the step as CUDA graphs before the loop
 (:meth:`NGPTrainer.aot_register_steps`); each step then reseeds the
@@ -75,12 +87,16 @@ from .loss import mse, mse_to_psnr
 from .optim import make_optimizer, optimizer_step, set_lr
 from ..obs import CompileTracker, ProfileWindow, annotate, get_emitter
 from .trainer import (
-    _check_single_card,
     _device_mem_mb,
     _epoch_rows,
     _flush_preempted,
     _roll_back,
+    agreed_stop,
     capture_steps,
+    chief_save,
+    setup_mesh,
+    shard_inputs,
+    sync_state,
     validates,
 )
 
@@ -100,14 +116,25 @@ class NGPState:
 
 
 class NGPTrainer:
-    """Occupancy-accelerated trainer on one card."""
+    """Occupancy-accelerated trainer on one card, or on each rank of
+    ``mesh``."""
 
-    def __init__(self, cfg, network):
+    def __init__(self, cfg, network, mesh=None):
         ta = cfg.task_arg
         self.cfg = cfg
         self.network = network
+        self.mesh = mesh
         self.seed = int(cfg.get("seed", 0))
         self.n_rays = int(ta.get("N_rays", 1024))
+        # the rays a step draws here: the global batch over the ranks
+        self.n_local = self.n_rays
+        if mesh is not None:
+            from ..parallel.step import FlatGrads, local_batch
+
+            self.n_local = local_batch(self.n_rays, mesh, "N_rays")
+            # per phase: gradients + stats and the samples the grid takes
+            self._flats = {True: FlatGrads(), False: FlatGrads()}
+            self._carry: dict = {True: {}, False: {}}
         self.near = float(ta.near)
         self.far = float(ta.far)
         self.bbox_np = np.asarray(cfg.train_dataset.scene_bbox, np.float32)
@@ -349,15 +376,26 @@ class NGPTrainer:
         boundaries of its four parts (render + loss, backward, optimizer,
         grid update): the profiler's hook."""
         mark = mark or (lambda i: None)
+        stats, out = self._grad_part(state, bank_rays, bank_rgbs, warm, mark)
+        optimizer_step(state.optimizer)
+        mark(3)
+        self._grid_part(state, out)
+        mark(4)
+        return stats
+
+    def _grad_part(self, state: NGPState, bank_rays, bank_rgbs, warm: bool,
+                   mark) -> tuple[dict, dict]:
+        """Draw ``n_local`` rays, render + loss, backward: ``(stats, the
+        march's samples)``."""
         dev = bank_rays.device
         gen = self._gen
         mark(0)
-        rays, rgbs = sample_rays(gen, bank_rays, bank_rgbs, self.n_rays)
+        rays, rgbs = sample_rays(gen, bank_rays, bank_rgbs, self.n_local)
         grid = state.grid_ema > self.threshold
         for p in state.network.parameters():
             p.grad = None
         if warm:
-            z = stratified_z_vals(gen, self.near, self.far, self.n_rays,
+            z = stratified_z_vals(gen, self.near, self.far, self.n_local,
                                   self.warm_samples, 1.0, device=dev)
             loss, out, stats = self.warm_loss(rays, rgbs, z, grid)
         else:
@@ -365,24 +403,76 @@ class NGPTrainer:
         mark(1)
         loss.backward()
         mark(2)
-        optimizer_step(state.optimizer)
-        mark(3)
+        return stats, out
+
+    def _grid_part(self, state: NGPState, out: dict) -> None:
+        """The refresh cells and jitter drawn after the update, and the grid
+        update in place (a captured step reads and writes the grid where it
+        lies)."""
+        dev = state.grid_ema.device
         idx = torch.randint(0, self.grid_res**3, (self.cells_per_step,),
-                            generator=gen, device=dev)
-        u = torch.rand((self.cells_per_step, 3), generator=gen,
+                            generator=self._gen, device=dev)
+        u = torch.rand((self.cells_per_step, 3), generator=self._gen,
                        dtype=torch.float32, device=dev)
-        # in place: a captured step reads and writes the grid where it lies
         state.grid_ema.copy_(self.grid_update(state.grid_ema, out, idx, u))
-        mark(4)
-        return stats
+
+    # -- the data-parallel step's segments (parallel/step.py) --------------
+    _SAMPLES = ("sample_flat", "sample_sigma", "sample_valid")
+
+    def _dp_grad(self, state: NGPState, bank_rays, bank_rgbs,
+                 warm: bool) -> None:
+        """Segment 1 (capturable): gradients and stats into the phase's flat
+        buffer, the samples into buffers of their own (made on the first,
+        eager call)."""
+        stats, out = self._grad_part(state, bank_rays, bank_rgbs, warm,
+                                     lambda i: None)
+        self._flats[warm].pack(state.network.parameters(), stats)
+        carry = self._carry[warm]
+        for k in self._SAMPLES:
+            if k not in carry:
+                carry[k] = torch.empty_like(out[k])
+            carry[k].copy_(out[k])
+
+    def _dp_update(self, state: NGPState, warm: bool) -> None:
+        """Segment 2 (capturable): the reduced gradients, clip + Adam, this
+        rank's grid candidate in ``state.grid_ema``."""
+        self._flats[warm].unpack_grads()
+        optimizer_step(state.optimizer)
+        self._grid_part(state, self._carry[warm])
+
+    def _dp_step(self, state: NGPState, bank_rays, bank_rgbs,
+                 warm: bool) -> dict:
+        from ..parallel.collectives import all_reduce_
+
+        phase = "warm" if warm else "march"
+        fn = (None if self.aot is None
+              else self.aot.take(f"ngp_dp_grad_{phase}"))
+        if fn is not None:
+            fn()
+        else:
+            self._dp_grad(state, bank_rays, bank_rgbs, warm)
+        self._flats[warm].reduce(self.mesh)
+        fn = (None if self.aot is None
+              else self.aot.take(f"ngp_dp_update_{phase}"))
+        if fn is not None:
+            fn()
+        else:
+            self._dp_update(state, warm)
+        all_reduce_(state.grid_ema, self.mesh, "max")
+        return self._flats[warm].stats()
 
     def _one_step(self, state: NGPState, bank_rays, bank_rgbs, warm: bool,
                   mark=None) -> dict:
         """One optimizer step and grid update: the host's part (the step's
         generator seed, the lr), then the captured step's replay when the
         registry has it, else :meth:`_step_body` eagerly."""
-        reseed(self._generator(bank_rays.device), self.seed, state.step)
+        reseed(self._generator(bank_rays.device), self.seed, state.step,
+               0 if self.mesh is None else self.mesh.rank)
         set_lr(state.optimizer, state.schedule, state.step)
+        if self.mesh is not None:
+            stats = self._dp_step(state, bank_rays, bank_rgbs, warm)
+            state.step += 1
+            return stats
         fn = None
         if self.aot is not None and mark is None:
             fn = self.aot.take(self._entry_name(warm))
@@ -405,11 +495,23 @@ class NGPTrainer:
         run goes on from the state it had."""
         if self.aot is None or not self.aot.enabled:
             return
-        reseed(self._generator(bank[0].device), self.seed, state.step)
+        reseed(self._generator(bank[0].device), self.seed, state.step,
+               0 if self.mesh is None else self.mesh.rank)
         set_lr(state.optimizer, state.schedule, state.step)
-        entries = {self._entry_name(w): (
-            lambda w=w: self._step_body(state, bank[0], bank[1], w))
-            for w in (True, False)}
+        if self.mesh is not None:
+            # each phase's two segments, segment 1 first (it makes the
+            # buffers segment 2 reads)
+            entries = {}
+            for w in (True, False):
+                phase = "warm" if w else "march"
+                entries[f"ngp_dp_grad_{phase}"] = (
+                    lambda w=w: self._dp_grad(state, bank[0], bank[1], w))
+                entries[f"ngp_dp_update_{phase}"] = (
+                    lambda w=w: self._dp_update(state, w))
+        else:
+            entries = {self._entry_name(w): (
+                lambda w=w: self._step_body(state, bank[0], bank[1], w))
+                for w in (True, False)}
         if not capture_steps(self, state, entries):
             self._gen = None
 
@@ -655,7 +757,7 @@ def _ngp_epoch_steps(trainer: NGPTrainer, state: NGPState, bank, recorder,
                 max_mem_mb=mem,
                 stats={**stats_host, "warm": trainer.last_burst_warm})
         it += k
-        if guard is not None and guard.triggered:
+        if agreed_stop(guard, trainer.mesh):
             state.epoch_it = it % ep_iter
             break
     trainer.profile.tick(state.step)
@@ -667,32 +769,31 @@ def fit_ngp(cfg, network=None, log=print, device="cuda"):
     ``trainer.fit`` routes to): resume (weights, optimizer, grid EMA and the
     phase sidecar) or a ``pretrain`` warm start, the epoch loop with its
     save/eval cadence on one card, telemetry, the profiler window, the
-    divergence rollback and the SIGTERM flush. Returns the final
+    divergence rollback and the SIGTERM flush; over a mesh of ranks when a
+    launcher started several (module docstring). Returns the final
     :class:`NGPState`."""
     from ..compile import registry_from_cfg
     from ..datasets import make_dataset
     from ..evaluators import make_evaluator
     from ..obs import init_run
+    from ..parallel.mesh import is_chief
     from ..resil import DivergenceError, PreemptionGuard
-    from ..utils.platform import resolve_device
     from ..utils.setup import configure_runtime
     from .checkpoint import (
         load_model,
         load_phase_state,
         load_pretrain,
-        save_model_with_retry,
         save_trained_config,
     )
     from .recorder import make_recorder
 
-    _check_single_card(cfg)
-    dev = resolve_device(device)
+    mesh, dev = setup_mesh(cfg, device, log)
     configure_runtime(cfg)
     if network is None:
         from ..models import make_network
 
         network = make_network(cfg)
-    trainer = NGPTrainer(cfg, network)
+    trainer = NGPTrainer(cfg, network, mesh=mesh)
     evaluator = None if cfg.get("skip_eval", False) else make_evaluator(cfg)
     recorder = make_recorder(cfg)
     # telemetry opens AFTER the recorder (a fresh run wipes record_dir)
@@ -711,10 +812,12 @@ def fit_ngp(cfg, network=None, log=print, device="cuda"):
                               expect_step=state.step)
     if begin_epoch == 0 and state.epoch_it == 0 and cfg.get("pretrain", ""):
         load_pretrain(str(cfg.pretrain), state.network)
-    save_trained_config(cfg)
+    sync_state(state, mesh, grid=state.grid_ema)
+    if is_chief():
+        save_trained_config(cfg)
 
     train_ds = make_dataset(cfg, "train")
-    bank = tuple(torch.from_numpy(a).to(dev) for a in train_ds.ray_bank())
+    bank, _ = shard_inputs(cfg, train_ds, mesh, dev, precrop=False)
     # CUDA graphs: both phase variants and the eval render captured before
     # the loop (compile.aot; a disabled registry on the CPU)
     trainer.aot = registry_from_cfg(cfg, dev, tracker=trainer.tracker)
@@ -723,10 +826,13 @@ def fit_ngp(cfg, network=None, log=print, device="cuda"):
     epochs = int(cfg.train.epoch)
     ep_iter = int(cfg.get("ep_iter", 500))
     if ep_iter <= 0:
-        ep_iter = max(1, int(bank[0].shape[0]) // trainer.n_rays)
+        world = 1 if mesh is None else mesh.size
+        ep_iter = max(1, int(bank[0].shape[0]) * world // trainer.n_rays)
     save_ep = int(cfg.get("save_ep", 40))
     save_latest_ep = int(cfg.get("save_latest_ep", 10))
     eval_ep = int(cfg.get("eval_ep", 10))
+    if not is_chief():
+        evaluator = None  # the chief validates (JAX: rank 0 only)
     if evaluator is not None and validates(begin_epoch, epochs, eval_ep):
         trainer.aot_register_render(state, int(test_ds.H) * int(test_ds.W))
     if trainer.aot is not None and trainer.aot.names():
@@ -762,25 +868,23 @@ def fit_ngp(cfg, network=None, log=print, device="cuda"):
                 continue
             if state.epoch_it:
                 _flush_preempted(cfg, state, epoch, recorder, log,
-                                 phase_state=trainer.phase_state())
+                                 phase_state=trainer.phase_state(),
+                                 mesh=mesh)
                 break
             _epoch_rows(emitter, epoch, state.step, state.step - step_before,
                         time.time() - t_epoch, time.time() - t_fit_start)
             for latest, every in ((False, save_ep), (True, save_latest_ep)):
                 if (epoch + 1) % every == 0:
-                    save_model_with_retry(
-                        cfg, cfg.trained_model_dir, state, epoch,
-                        recorder.state_dict(), latest=latest, log=log,
-                        phase_state=trainer.phase_state())
+                    chief_save(cfg, state, epoch, recorder, mesh, log=log,
+                               latest=latest,
+                               phase_state=trainer.phase_state())
             if (epoch + 1) % eval_ep == 0 and evaluator is not None:
                 result = trainer.val(state, test_ds, evaluator, log=log)
                 if result:
                     recorder.record("val", step=epoch, stats=result)
-            if guard is not None and guard.triggered:
-                save_model_with_retry(
-                    cfg, cfg.trained_model_dir, state, epoch,
-                    recorder.state_dict(), latest=True, log=log,
-                    phase_state=trainer.phase_state())
+            if agreed_stop(guard, mesh):
+                chief_save(cfg, state, epoch, recorder, mesh, log=log,
+                           latest=True, phase_state=trainer.phase_state())
                 log("SIGTERM: latest checkpoint flushed; exiting")
                 break
             epoch += 1

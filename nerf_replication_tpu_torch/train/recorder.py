@@ -3,8 +3,8 @@
 Port of ``nerf_replication_tpu/train/recorder.py``: ``SmoothedValue``
 (median/avg over a sliding window plus a global average), ``Recorder``
 (loss stats, scalar records, checkpointable state, the record dir wiped when
-a run starts fresh) and the reference trainer's console line. One process
-writes (the port trains on one card).
+a run starts fresh) and the reference trainer's console line. Under a
+process group only the chief writes (the reference's ``local_rank == 0``).
 
 The scalar writer is made on first use, as in the JAX package: a TensorBoard
 ``SummaryWriter`` from ``tensorboardX`` or ``torch.utils.tensorboard``, and
@@ -104,6 +104,12 @@ class Recorder:
         self.batch_time = SmoothedValue(window_size)
         self.data_time = SmoothedValue(window_size)
         self._writer = None
+        # only the chief of a process group writes (or wipes) record_dir
+        from ..parallel.mesh import is_chief
+
+        self.chief = is_chief()
+        if not self.chief:
+            return
         if not cfg.get("resume", True) and os.path.exists(self.record_dir):
             shutil.rmtree(self.record_dir, ignore_errors=True)
         os.makedirs(self.record_dir, exist_ok=True)
@@ -120,7 +126,10 @@ class Recorder:
 
     def record(self, prefix: str, step: int | None = None,
                stats: dict | None = None):
-        """Write window-median scalars (or the given stats)."""
+        """Write window-median scalars (or the given stats); the chief
+        only."""
+        if not self.chief:
+            return
         step = self.step if step is None else step
         pattern = prefix + "/{}"
         if stats is None:

@@ -54,8 +54,18 @@ The ops layers (``obs/``, ``resil/``), as in the JAX ``fit``:
 * ``pretrain``: a fresh run (begin epoch 0) warm-starts its parameters
   from a port checkpoint (``checkpoint.load_pretrain``).
 
-Not in the port yet: a mesh of several cards (slice 7), which raises
-``NotImplementedError`` where a run asks for it.
+Data parallelism (``parallel/``): under torchrun (or ``parallel.multihost``)
+:func:`fit` starts the process group, permutes the ray bank globally with the
+seed and gives each rank its slice (``parallel.shard_bank``; the precrop pool
+rebased per rank), broadcasts rank 0's state, and steps through
+``parallel.step.DPStep``: each rank draws ``N_rays / world`` rays from its
+slice on its own stream, the gradients and stats are all-reduced between two
+captured segments, and every rank applies the same update. Decisions the ranks
+must take alike read reduced values (the finite guard reads the reduced stats;
+a SIGTERM is agreed by a MAX over the ranks' flags at each burst boundary);
+only the chief writes checkpoints, the recorder's files and telemetry, with a
+barrier after each save. Validation renders on the chief, or on every rank
+through the sequence-parallel gate under ``eval.sharded``.
 """
 
 from __future__ import annotations
@@ -171,15 +181,24 @@ def capture_steps(trainer, state, entries: dict) -> bool:
     return True
 
 
-def _later_slice(what: str, slice_no: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with port slice {slice_no}")
+def agreed_stop(guard, mesh) -> bool:
+    """Whether the run stops here: the SIGTERM flag, agreed by a MAX over
+    the ranks (every rank must call this at the same boundary, or one of
+    them would wait alone in the next all-reduce)."""
+    if guard is None:
+        return False
+    if mesh is None:
+        return bool(guard.triggered)
+    from ..parallel.collectives import all_reduce_
+
+    flag = torch.full((1,), float(guard.triggered), device=mesh.device)
+    return bool(all_reduce_(flag, mesh, "max").item())
 
 
 class Trainer:
     def __init__(self, cfg, network, loss, evaluator=None, mesh=None):
-        if mesh is not None:
-            raise _later_slice("training over a mesh of cards", 7)
         self.cfg = cfg
+        self.mesh = mesh
         self.network = network
         self.loss = loss  # NeRFLoss: (batch, gen, train) -> (out, loss, stats)
         self.evaluator = evaluator
@@ -209,6 +228,14 @@ class Trainer:
         # proposal anneal reads (batch["step"]), both filled before a step
         self._gen: torch.Generator | None = None
         self._step_t: torch.Tensor | None = None
+        # the data-parallel step over a mesh (parallel/step.py)
+        self._dp = None
+        if mesh is not None:
+            from ..parallel.step import DPStep
+
+            self._dp = DPStep(mesh, loss, self.n_rays, self.near, self.far,
+                              seed=self.seed, k_steps=self.scan_steps,
+                              grad_accum=self.grad_accum)
 
     def epoch_iters(self, bank_size: int) -> int:
         """Steps per epoch; ep_iter=-1 means one pass over the bank."""
@@ -250,7 +277,11 @@ class Trainer:
     def step(self, state: TrainState, bank_rays, bank_rgbs, index_pool=None):
         """One optimization step: ``(state, stats)`` (stats stay tensors on
         the device; reading them is the caller's synchronisation). Replays
-        the captured step when the registry has it."""
+        the captured step when the registry has it; over a mesh, the
+        data-parallel step."""
+        if self._dp is not None:
+            stats = self._dp.one_step(state, bank_rays, bank_rgbs, index_pool)
+            return state, stats
         self._prepare(state, bank_rays.device)
         fn = (None if self.aot is None
               else self.aot.take(self._entry_name(index_pool is not None)))
@@ -270,6 +301,11 @@ class Trainer:
         after it, so the run goes on from the state it had."""
         if self.aot is None or not self.aot.enabled:
             return
+        if self._dp is not None:
+            self._dp.aot_register(
+                self.aot, state, bank,
+                pool if state.step < self.precrop_iters else None)
+            return
         self._prepare(state, bank[0].device)
         entries = {self._entry_name(False):
                    lambda: self._step_body(state, bank[0], bank[1])}
@@ -287,6 +323,14 @@ class Trainer:
             return
         batch = test_dataset.image_batch(0)
         renderer = self.loss.renderer
+        render = self._val_fn(test_dataset)
+        if render.mesh is not None:
+            from ..parallel.sequence import aot_register_sequence_renderer
+
+            aot_register_sequence_renderer(self.aot, render.surface,
+                                           batch["rays"].shape[0],
+                                           width=batch["rays"].shape[1])
+            return
         renderer.aot_register_eval(self.aot, batch["rays"].shape[0],
                                    batch["near"], batch["far"],
                                    width=batch["rays"].shape[1])
@@ -311,7 +355,9 @@ class Trainer:
         triggered SIGTERM guard stops it at the next burst boundary with
         ``state.epoch_it`` set to the steps taken."""
         bank_rays, bank_rgbs, pool = bank[0], bank[1], index_pool
-        max_iter = self.epoch_iters(int(bank_rays.shape[0]))
+        # the bank's global size (a rank holds 1/world of it)
+        world = 1 if self.mesh is None else self.mesh.size
+        max_iter = self.epoch_iters(int(bank_rays.shape[0]) * world)
         end = time.time()
         log_interval = int(self.cfg.get("log_interval", 20))
         emitter = get_emitter()
@@ -368,16 +414,14 @@ class Trainer:
                     dispatch_s=dispatch_s / k, block_s=block_s / k, lr=lr,
                     max_mem_mb=mem, stats=stats_host)
             it += k
-            if self.preempt is not None and self.preempt.triggered:
+            if agreed_stop(self.preempt, self.mesh):
                 state.epoch_it = it % max_iter
                 break
         self.profile.tick(state.step)
         return state, stats
 
-    def val(self, state: TrainState, epoch: int, test_dataset,
-            recorder: Recorder | None = None, max_images: int | None = None,
-            log=print):
-        """Render whole test images and run the evaluator on each."""
+    def _val_fn(self, test_dataset):
+        """The render gate of ``test_dataset``'s views (built once)."""
         if self._val_render is None or self._val_render[0] is not test_dataset:
             from ..renderer.gate import full_image_render_fn
 
@@ -387,6 +431,18 @@ class Trainer:
                                      self.loss.renderer, test_dataset,
                                      use_grid=False),
             )
+        return self._val_render[1]
+
+    def val(self, state: TrainState, epoch: int, test_dataset,
+            recorder: Recorder | None = None, max_images: int | None = None,
+            log=print):
+        """Render whole test images and run the evaluator on each (under
+        the sequence-parallel gate every rank renders, the chief
+        evaluates)."""
+        from ..parallel.mesh import is_chief
+
+        render = self._val_fn(test_dataset)
+        evaluator = self.evaluator if is_chief() else None
         device = next(state.network.parameters()).device
         n = len(test_dataset)
         if max_images is not None:
@@ -394,17 +450,17 @@ class Trainer:
         with annotate("train/validation"):
             for i in range(n):
                 batch = test_dataset.image_batch(i)
-                out = self._val_render[1]({
+                out = render({
                     "rays": torch.from_numpy(batch["rays"]).to(device),
                     "near": float(batch["near"]),
                     "far": float(batch["far"]),
                 })
-                if self.evaluator is not None:
-                    self.evaluator.evaluate(
+                if evaluator is not None:
+                    evaluator.evaluate(
                         {k: v.cpu().numpy() for k, v in out.items()}, batch)
         result = {}
-        if self.evaluator is not None:
-            result = self.evaluator.summarize()
+        if evaluator is not None:
+            result = evaluator.summarize()
             if recorder is not None and result:
                 recorder.record("val", step=epoch, stats=result)
             if result:
@@ -438,10 +494,84 @@ def validates(begin_epoch: int, epochs: int, eval_ep: int) -> bool:
     return any((e + 1) % eval_ep == 0 for e in range(begin_epoch, epochs))
 
 
-def _check_single_card(cfg) -> None:
-    par = cfg.get("parallel", {})
-    if int(par.get("model_axis", 1)) > 1 or int(par.get("data_axis", -1)) > 1:
-        raise _later_slice("parallel.data_axis/model_axis > 1 (a mesh)", 7)
+def setup_mesh(cfg, device, log=print):
+    """The run's process group and mesh: ``(mesh or None, this rank's
+    device)``. Starts the group when a launcher asked for one
+    (``parallel.multihost_init``); one process trains on one card;
+    ``parallel.model_axis > 1`` raises (``make_mesh_from_cfg``)."""
+    from ..parallel.mesh import make_mesh_from_cfg, multihost_init, \
+        rank_device
+    from ..utils.platform import resolve_device
+
+    multihost_init(cfg, device)
+    dev = resolve_device(rank_device(device))
+    mesh = make_mesh_from_cfg(cfg, device=dev)
+    if mesh is not None:
+        log(f"training over mesh {mesh.shape} ({mesh.backend}), rank "
+            f"{mesh.rank} on {dev}")
+    return mesh, dev
+
+
+def sync_state(state, mesh, grid=None) -> None:
+    """Rank 0's parameters, optimizer moments and step counts (and an NGP
+    state's grid EMA) on every rank, in place (after init, resume or a
+    ``pretrain`` warm start)."""
+    if mesh is None:
+        return
+    from ..parallel.collectives import broadcast_from_chief
+
+    opt = state.optimizer
+    tensors = [p.data for g in opt.param_groups for p in g["params"]]
+    for g in opt.param_groups:
+        for p in g["params"]:
+            st = opt.state.get(p, {})
+            tensors += [st[k] for k in sorted(st) if torch.is_tensor(st[k])]
+    if grid is not None:
+        tensors.append(grid)
+    for t in tensors:
+        broadcast_from_chief(t, mesh)
+    state.step, state.epoch_it = broadcast_from_chief(
+        (int(state.step), int(state.epoch_it)), mesh)
+
+
+def chief_save(cfg, state, epoch: int, recorder, mesh, log=print,
+               **kw) -> None:
+    """``save_model_with_retry`` on the chief, then a barrier: no rank reads
+    a partial file."""
+    from ..parallel.collectives import barrier
+    from ..parallel.mesh import is_chief
+
+    if is_chief():
+        save_model_with_retry(cfg, cfg.trained_model_dir, state, epoch,
+                              recorder.state_dict(), log=log, **kw)
+    barrier(mesh, "post_save")
+
+
+def shard_inputs(cfg, train_ds, mesh, dev, precrop: bool):
+    """``(bank, pool)`` on ``dev``: the whole ray bank (and precrop pool) on
+    one card; over a mesh this rank's slice of the bank permuted globally
+    with the seed (each slice a uniform sample of the scene) and its pool
+    segment rebased to the slice (JAX ``trainer.py:558-587``)."""
+    frac = float(cfg.task_arg.get("precrop_frac", 0.5))
+    rays, rgbs = train_ds.ray_bank()
+    pool = np.asarray(train_ds.precrop_index_pool(frac)) if precrop else None
+    if mesh is not None:
+        from ..parallel.sharding import shard_bank, shard_index_pool
+
+        perm = np.random.default_rng(int(cfg.get("seed", 0))).permutation(
+            rays.shape[0])
+        n_bank = (rays.shape[0] // mesh.size) * mesh.size
+        rays, rgbs = shard_bank(rays[perm], rgbs[perm], mesh)
+        if pool is not None:
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.size)
+            moved = inv[pool]
+            pool = shard_index_pool(moved[moved < n_bank], n_bank, mesh)
+    bank = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (rays, rgbs))
+    if pool is not None:
+        pool = torch.from_numpy(pool).to(dev)
+    return bank, pool
 
 
 def fit(cfg, network=None, log=print, device="cuda"):
@@ -449,12 +579,13 @@ def fit(cfg, network=None, log=print, device="cuda"):
     checkpoint is there (or warm-start from ``pretrain``), run the epoch
     loop with the save/eval cadence on one card (``device``), with
     telemetry, the profiler window, the divergence rollback and the
-    SIGTERM flush. Returns the final :class:`TrainState`."""
+    SIGTERM flush; over a mesh of ranks when a launcher started several
+    (module docstring). Returns the final :class:`TrainState`."""
     from ..compile import registry_from_cfg
     from ..datasets import make_dataset
     from ..evaluators import make_evaluator
+    from ..parallel.mesh import is_chief
     from ..registry import load_attr
-    from ..utils.platform import resolve_device
     from ..utils.setup import configure_runtime
     from .recorder import make_recorder
 
@@ -464,8 +595,7 @@ def fit(cfg, network=None, log=print, device="cuda"):
         from .ngp import fit_ngp
 
         return fit_ngp(cfg, network=network, log=log, device=device)
-    _check_single_card(cfg)
-    dev = resolve_device(device)
+    mesh, dev = setup_mesh(cfg, device, log)
     configure_runtime(cfg)
 
     if network is None:
@@ -476,7 +606,7 @@ def fit(cfg, network=None, log=print, device="cuda"):
     loss = loss_factory(cfg, network)
     evaluator = None if cfg.get("skip_eval", False) else make_evaluator(cfg)
 
-    trainer = Trainer(cfg, network, loss, evaluator)
+    trainer = Trainer(cfg, network, loss, evaluator, mesh=mesh)
     recorder = make_recorder(cfg)
     # telemetry opens AFTER the recorder (a fresh run wipes record_dir)
     emitter = init_run(cfg, component="train")
@@ -490,15 +620,13 @@ def fit(cfg, network=None, log=print, device="cuda"):
             recorder.load_state_dict(rec_state)
     if begin_epoch == 0 and state.epoch_it == 0 and cfg.get("pretrain", ""):
         load_pretrain(str(cfg.pretrain), state.network)
-    save_trained_config(cfg)
+    sync_state(state, mesh)
+    if is_chief():
+        save_trained_config(cfg)
 
     train_ds = make_dataset(cfg, "train")
-    bank = tuple(torch.from_numpy(a).to(dev) for a in train_ds.ray_bank())
-    pool = None
-    if trainer.precrop_iters > 0:
-        frac = float(cfg.task_arg.get("precrop_frac", 0.5))
-        pool = torch.from_numpy(
-            np.asarray(train_ds.precrop_index_pool(frac))).to(dev)
+    bank, pool = shard_inputs(cfg, train_ds, mesh, dev,
+                              trainer.precrop_iters > 0)
     # CUDA graphs: every step of this run and the validation render
     # captured before the loop (compile.aot; a disabled registry on the CPU)
     trainer.aot = registry_from_cfg(cfg, dev, tracker=trainer.tracker)
@@ -508,6 +636,11 @@ def fit(cfg, network=None, log=print, device="cuda"):
     save_ep = int(cfg.get("save_ep", 40))
     save_latest_ep = int(cfg.get("save_latest_ep", 10))
     eval_ep = int(cfg.get("eval_ep", 10))
+    # validation: the chief alone, or every rank through the sharded gate
+    sharded_val = mesh is not None and bool(
+        cfg.get("eval", {}).get("sharded", False))
+    if not (is_chief() or sharded_val):
+        evaluator = None
     if evaluator is not None and validates(begin_epoch, epochs, eval_ep):
         trainer.aot_register_val(test_ds)
     if trainer.aot is not None and trainer.aot.names():
@@ -530,28 +663,28 @@ def fit(cfg, network=None, log=print, device="cuda"):
                 state, _ = trainer.train_epoch(state, epoch, bank, recorder,
                                                index_pool=pool, log=log)
             except DivergenceError as err:
+                # every rank read the same reduced stats: all roll back
                 epoch = _roll_back(cfg, state, recorder, err, rollbacks,
                                    max_rollbacks, log)
                 rollbacks += 1
                 continue
             if state.epoch_it:
                 # SIGTERM mid-epoch: flush what this epoch has taken
-                _flush_preempted(cfg, state, epoch, recorder, log)
+                _flush_preempted(cfg, state, epoch, recorder, log,
+                                 mesh=mesh)
                 break
             _epoch_rows(emitter, epoch, state.step, state.step - step_before,
                         time.time() - t_epoch, time.time() - t_fit_start)
             for latest, every in ((False, save_ep), (True, save_latest_ep)):
                 if (epoch + 1) % every == 0:
-                    save_model_with_retry(cfg, cfg.trained_model_dir, state,
-                                          epoch, recorder.state_dict(),
-                                          latest=latest, log=log)
+                    chief_save(cfg, state, epoch, recorder, mesh, log=log,
+                               latest=latest)
             if (epoch + 1) % eval_ep == 0 and evaluator is not None:
                 trainer.val(state, epoch, test_ds, recorder, log=log)
-            if guard is not None and guard.triggered:
+            if agreed_stop(guard, mesh):
                 # SIGTERM at the epoch's end: one latest flush, then stop
-                save_model_with_retry(cfg, cfg.trained_model_dir, state,
-                                      epoch, recorder.state_dict(),
-                                      latest=True, log=log)
+                chief_save(cfg, state, epoch, recorder, mesh, log=log,
+                           latest=True)
                 log("SIGTERM: latest checkpoint flushed; exiting")
                 break
             epoch += 1
@@ -584,12 +717,12 @@ def _roll_back(cfg, state, recorder, err, rollbacks: int,
 
 
 def _flush_preempted(cfg, state, epoch: int, recorder, log,
-                     phase_state=None) -> None:
+                     phase_state=None, mesh=None) -> None:
     """The SIGTERM flush in the middle of ``epoch``: ``latest.pt`` with the
-    last whole epoch (``epoch - 1``) and the steps of this one taken."""
-    save_model_with_retry(cfg, cfg.trained_model_dir, state, epoch - 1,
-                          recorder.state_dict(), latest=True, log=log,
-                          epoch_it=state.epoch_it, phase_state=phase_state)
+    last whole epoch (``epoch - 1``) and the steps of this one taken (by
+    the chief)."""
+    chief_save(cfg, state, epoch - 1, recorder, mesh, log=log, latest=True,
+               epoch_it=state.epoch_it, phase_state=phase_state)
     log("SIGTERM: latest checkpoint flushed; exiting")
 
 

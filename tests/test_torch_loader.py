@@ -184,10 +184,23 @@ def test_iteration_based_epochs():
 
 
 def test_catalog_and_distributed_refusal(scene):
+    """The catalog as JAX's; ``is_distributed`` without a process group is
+    rank 0 of 1 (JAX's ``process_index()`` / ``process_count()`` on one
+    process): the JAX loader's batches, bitwise."""
     assert DatasetCatalog.get("BlenderTest") == JaxCatalog.get("BlenderTest")
-    ours, _ = _both(scene)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        make_data_loader(ours, "train", is_distributed=True)
+    ours, ref = _both(scene)
+    mine = make_data_loader(ours, "train", is_distributed=True, max_iter=6)
+    theirs = jax_loader(ref, "train", is_distributed=True, max_iter=6)
+    assert isinstance(mine.batch_sampler.batch_sampler.sampler,
+                      samplers.DistributedSampler)
+    assert list(mine.batch_sampler) == list(theirs.batch_sampler)
+    np.random.seed(7)  # the train item draws its rays from numpy's RNG
+    mine = list(mine)
+    np.random.seed(7)
+    theirs = list(theirs)
+    assert len(mine) == len(theirs) == 6
+    for a, b in zip(mine, theirs):
+        _assert_batches_equal(a, b)
 
 
 def test_run_dataset_cli_prints_the_jax_line(scene):

@@ -498,9 +498,10 @@ def test_adam_and_schedule_of_lego_hash_match_optax():
 def test_eval_render_cap_derivation_escalation_and_refusals(scene, tmp_path):
     """The packed eval cap is derived once from a carved grid's occupancy
     and doubles when a render overflows it; march_fused full (the
-    frequency-only mega-kernel) is refused on the NGP eval; a mesh of cards
-    names slice 7; load_trained_network defaults to the card and refuses
-    silently serving from the CPU."""
+    frequency-only mega-kernel) is refused on the NGP eval; tensor
+    parallelism names ROADMAP item 8 part 2 and an NGP batch the world size
+    does not divide raises; load_trained_network defaults to the card and
+    refuses silently serving from the CPU."""
     from nerf_replication_tpu_torch.datasets import make_dataset
     from nerf_replication_tpu_torch.train.ngp import NGPTrainer, fit_ngp
     from nerf_replication_tpu_torch.utils.setup import load_trained_network
@@ -533,9 +534,14 @@ def test_eval_render_cap_derivation_escalation_and_refusals(scene, tmp_path):
     with pytest.raises(ValueError, match="march_fused='full'"):
         trainer.render_image(trainer.make_state("cpu"),
                              {"rays": torch.from_numpy(batch["rays"])})
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="item 8 part 2"):
         fit_ngp(make_cfg(LEGO_HASH, _ngp_opts(scene, str(tmp_path), [
-            "parallel.data_axis", "2"])), device="cpu")
+            "parallel.model_axis", "2"])), device="cpu")
+    from nerf_replication_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="N_rays=64 must divide"):
+        NGPTrainer(cfg, make_network(cfg),
+                   mesh=Mesh(None, 0, 3, torch.device("cpu"), "gloo"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             load_trained_network(cfg, verbose=False)
