@@ -216,6 +216,31 @@ imports nothing of JAX. Phases, each fatal on failure:
    one-process render of the same views (measured bitwise, printed) and
    the same PSNR (rtol 1e-4). One line with all of it and the card.
 
+19. tensor parallelism, then the multi-scene fleet: (a) two ranks share
+   the card over gloo on a (data 1, model 2) mesh (``--dp-worker``, job
+   ``tp2``): lego f32 (fused trunk, full width, 512 global rays) for 20
+   graphed steps, K1/K2 on every rank on gathered weights, then lego_hash
+   through the coarse+fine trainer at its 2^19 table for 8 steps (the
+   column-parallel trunk, K6/K6b on the gathered table), launch counts
+   reset right before and read right after each; per rank the step ms,
+   the model-group all-gather and the data-group all-reduce (ms between
+   CUDA events, bytes a step) and the loss; lego's blocks and first-step
+   gradients held bitwise to a one-process emulation of the same
+   data-parallel step on the same draws, lego_hash's first-step gradient
+   blocks within 1e-6 relative Frobenius (its blocks after two steps are
+   printed); the chief's gathered TP checkpoint served from one card. (b)
+   phase 6's trained lego and three perturbed copies (each with its own
+   rolled grid and tree checksum) behind a manifest, ``fleet.hbm_budget_mb``
+   2.5 scenes and ``fleet.staging_mb`` 1.5, tenants ``t1`` and ``t2`` (the
+   latter over its quota), one engine a route (``full`` K5, ``gather`` K4,
+   the packed and per-ray staged routes under the fused trunk: K3a,
+   K1): 64 requests that switch scenes, with one ``ScenePublisher`` hot
+   swap under traffic; every response bitwise its scene's dedicated
+   single-scene engine's, no capture or route build after warm-up, the
+   views' centre rays of each route within TOL_F32 of a CPU engine (the
+   plain versions); slot-copy ms, evictions, demotions, prefetch hits and
+   the publish drain printed with the card.
+
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
 as a subprocess; its JSON line is printed before the kernels line.
@@ -237,7 +262,9 @@ Prints a ``{"kernels": [...]}`` line (with launches by path: K1, K2 and
 K3a on the proposal path, K1 and K3a on the graphed eval, K6 on the graphed
 NGP val and on hash serving, K4 on hash serving's ``gather`` route, K1, K2,
 K5, K6 and K6b on the ops phase and on the model zoo, K1, K2, K6 and K6b on
-the ``parallel`` path of phase 18, summed over its ranks; K6 and K6b also
+the ``parallel`` path of phase 18, summed over its ranks; the ``tensor``
+path of phase 19 (K1, K2, K6, K6b, summed over its ranks) and its
+``fleet`` path (K5, K4, K3a, K1); K6 and K6b also
 carry their ms and bound at D = 2 and 4), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -2192,7 +2219,8 @@ def _ngp_draws_bitwise(torch, trainer, bank):
 def _engine_pair(torch, np, cfg_path, opts, tier, rays, near, far, label):
     """One request through an engine without graphs and one replaying its
     captured route: bitwise maps, request ms of each, captures constant
-    over 5 more requests; the pool's peak memory."""
+    over 5 more requests; the pool's peak memory. Returns the row and the
+    replayed maps."""
     from nerf_replication_tpu_torch.config import make_cfg
     from nerf_replication_tpu_torch.serve import engine_from_cfg
 
@@ -2236,7 +2264,7 @@ def _engine_pair(torch, np, cfg_path, opts, tier, rays, near, far, label):
            "captures": res["true"]["stats"]["captures"]}
     print(f"graphs engine [{label}]: one {rays.shape[0]}-ray request, maps "
           f"bitwise eager; " + json.dumps(row))
-    return row
+    return row, b
 
 
 def _warm_restart(torch, tmp, cfg_path, opts):
@@ -2358,18 +2386,33 @@ def phase_graphs(torch, np, tmp, data):
                          "test").image_batch(0)
     rays, near, far = batch["rays"].reshape(-1, 6), float(batch["near"]), \
         float(batch["far"])
-    serving = {}
+    serving, maps = {}, {}
+    staged = ["task_arg.march_coarse_block", "8"]
     for label, path, opts, tier in (
             ("full (K5)", lego, _eval_opts(data, tmp, SLICE_OPTS), "full"),
-            ("march_fused off", lego, _eval_opts(data, tmp, [
-                "task_arg.march_coarse_block", "8"]), "full"),
+            ("march_fused off", lego, _eval_opts(data, tmp, staged), "full"),
+            # the same staged packed route through the plain Network (the
+            # engine's route before it ran K3a under the fused trunk)
+            ("march_fused off, plain trunk", lego, _eval_opts(
+                data, tmp, staged + ["network.nerf.fused_trunk", "false"]),
+             "full"),
             ("grid-less", lego, _eval_opts(data, tmp, [
                 "task_arg.accelerated_renderer", "false"]), "full"),
             ("proposal (K3a)", prop, _prop_opts(
                 data, os.path.join(tmp, "out_prop"), "prop_f32",
                 SLICE_OPTS), "proposal")):
-        serving[label] = _engine_pair(torch, np, path, opts, tier, rays,
-                                      near, far, label)
+        serving[label], maps[label] = _engine_pair(
+            torch, np, path, opts, tier, rays, near, far, label)
+    # K3a's whole 200x200 view against the plain Network's on the same
+    # staged packed route (same weights, grid and samples)
+    k3a, plain = maps["march_fused off"], maps["march_fused off, plain trunk"]
+    errs = {k: float(np.abs(np.asarray(k3a[k], np.float64)
+                            - np.asarray(plain[k])).max())
+            for k in ("rgb_map_f", "acc_map_f", "depth_map_f")}
+    require(all(e <= TOL_EVAL_MAPS for e in errs.values()),
+            f"engine march_fused off: K3a maps vs the plain Network {errs}")
+    serving["march_fused off"]["vs_plain_trunk_max_abs"] = errs
+    del maps
 
     # (d) a second process: no nvcc, warm_source disk
     restart = _warm_restart(torch, tmp, lego, _eval_opts(data, tmp,
@@ -4323,6 +4366,8 @@ def _dp_worker(spec_path):
     try:
         if spec["job"] == "nccl1":
             res["a"] = _dp_nccl1(torch, np, spec)
+        elif spec["job"] == "tp2":
+            res["tp"] = _tp_job(torch, np, spec)
         else:
             for part, fn in (("b", _dp_lego), ("c", _dp_ngp)):
                 res[part] = fn(torch, np, spec)
@@ -4434,6 +4479,626 @@ def phase_parallel(torch, np, tmp, data):
     return counts, report
 
 
+# -- phase 19: tensor parallelism, then the multi-scene fleet ----------------
+
+TP_OPTS = ["parallel.data_axis", "1", "parallel.model_axis", "2",
+           "task_arg.precrop_iters", "0", "task_arg.N_rays", "512"]
+TP_STEPS = {"lego": 20, "hash": 8}
+TP_EMU_STEPS = 2  # steps held against the one-process emulation
+# lego_hash: the first step's reduced gradient blocks against the emulation's
+# columns, relative Frobenius (tests/test_torch_tensor_parallel.py's bound)
+TOL_TP_HASH_GRAD_FRO = 1e-6
+# lego_hash: each leaf's block after TP_EMU_STEPS against the emulation's
+# columns, as a share of what the last Adam step moved that leaf (the
+# emulation's columns after TP_EMU_STEPS - 1 steps against after
+# TP_EMU_STEPS: the reading of a step left out). Not bitwise: Adam's eps
+# 1e-15 turns last-bit differences in near-zero table gradients (the
+# column-parallel trunk's sums, K6b's atomics) into whole steps
+TOL_TP_HASH_STEP_SHARE = 0.1
+# appended to the TP configs of lego / lego_hash (a CPU rehearsal)
+TP_EXTRA: dict = {"lego": [], "hash": []}
+FLEET_HW = 64  # a fleet request: a 64x64 view (one 4096-ray bucket)
+FLEET_ROUTES = {
+    "full": ["task_arg.march_fused", "full"],
+    "gather": ["task_arg.march_fused", "gather"],
+    "packed": ["task_arg.march_fused", "off"],
+    "per_ray": ["task_arg.march_fused", "off", "task_arg.march_coarse_block",
+                "0"],
+}
+FLEET_SCENES = ("a", "b", "c")  # beside the trained lego scene, "lego"
+FLEET_CPU_RAYS = 128  # rays of one request held against the plain versions
+FLEET_DRAIN_HOLD_S = 0.1  # a lease on the published scene held into the drain
+
+
+def _tp_run(torch, np, cfg, mesh, label, bitwise):
+    """One TP training run on this rank: ``TP_STEPS[label]`` captured steps
+    (K1/K2 on gathered weights, or the column-parallel trunk and K6/K6b on
+    the gathered table), launch counts reset right before and read right
+    after; the first ``TP_EMU_STEPS`` held against their one-process
+    emulation (the data-parallel step on the same draws: data index 0's
+    stream, full weights, clip + Adam)."""
+    from nerf_replication_tpu_torch.compile import registry_from_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.datasets.sampling import step_generator
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.ops import hash_encode as he
+    from nerf_replication_tpu_torch.parallel import collectives
+    from nerf_replication_tpu_torch.parallel import step as pstep
+    from nerf_replication_tpu_torch.parallel.step import shard_train_state
+    from nerf_replication_tpu_torch.train.optim import (
+        optimizer_step,
+        set_lr,
+    )
+    from nerf_replication_tpu_torch.train.step_core import sampled_grad_step
+    from nerf_replication_tpu_torch.train.trainer import shard_inputs
+
+    fused = bool(cfg.network.nerf.get("fused_trunk", False))
+    _, _, trainer, state = _lego_parts(torch, cfg, mesh)
+    state = shard_train_state(state, mesh, column=not fused)
+    bank, _ = shard_inputs(cfg, make_dataset(cfg, "train"), mesh, DEVICE,
+                           False)
+    trainer.aot = registry_from_cfg(cfg, DEVICE)
+    trainer.aot_register_steps(state, bank)
+    captures = None if trainer.aot is None else trainer.aot.captures
+    pstep.TIME_REDUCE = DEVICE == "cuda"
+    pstep.REDUCE_MS[:], pstep.GATHER_MS[:] = [], []
+    fmlp.reset_launch_counts()
+    he.reset_launch_counts()
+    collectives.reset_counts()
+    losses, stamps, held, grads0 = [], [], None, None
+    for s in range(TP_STEPS[label]):
+        state, st = trainer.step(state, bank[0], bank[1])
+        losses.append(float(st["loss"]))
+        stamps.append(time.perf_counter())
+        if s == 0:  # the reduced, clipped gradient blocks of step 1
+            grads0 = [leaf.block.grad.detach().clone()
+                      for leaf in state.tp.leaves]
+        if s + 1 == TP_EMU_STEPS:
+            held = [leaf.block.detach().clone() for leaf in state.tp.leaves]
+    pstep.TIME_REDUCE = False
+    launches = {"K1": fmlp.LAUNCHES["fused_mlp_fwd"],
+                "K2": fmlp.LAUNCHES["fused_mlp_bwd"],
+                "K6": he.LAUNCHES["hash_encode_fwd"],
+                "K6b": he.LAUNCHES["hash_encode_bwd"]}
+    require(captures is None or (trainer.aot.captures == captures
+                                 and not trainer.aot.status()["errors"]),
+            f"tensor {label}: captured after warm-up, or failed to capture: "
+            f"{None if captures is None else trainer.aot.status()}")
+    tp = trainer._dp
+
+    def emulate():
+        _, eloss, _, est = _lego_parts(torch, cfg, None)
+        params = dict(est.network.named_parameters())
+        grads = prev = None
+        for s in range(TP_EMU_STEPS):
+            if s + 1 == TP_EMU_STEPS:
+                prev = {k: p.detach().clone() for k, p in params.items()}
+            sampled_grad_step(eloss, params.values(), bank[0], bank[1],
+                              tp.n_local, trainer.near, trainer.far,
+                              step_generator(int(cfg.seed), s, DEVICE, 0))
+            set_lr(est.optimizer, est.schedule, s)
+            optimizer_step(est.optimizer)  # clips .grad in place
+            if s == 0:
+                grads = {k: p.grad.clone() for k, p in params.items()}
+        return params, grads, prev
+
+    emu, emu_grads, emu_prev = _uncounted(emulate)
+
+    def columns(tensors):
+        out = []
+        for leaf in state.tp.leaves:
+            t = tensors[leaf.name].detach()
+            if leaf.dim is not None:
+                t = t.narrow(leaf.dim, leaf.start, leaf.length)
+            out.append(t)
+        return out
+
+    refs, ref_grads = columns(emu), columns(emu_grads)
+    same = all(torch.equal(a, b) for a, b in zip(held + grads0,
+                                                 refs + ref_grads))
+    fro, grad_fro = _fro_rel(refs, held), _fro_rel(ref_grads, grads0)
+    require(same if bitwise else grad_fro <= TOL_TP_HASH_GRAD_FRO,
+            f"tensor {label}: the TP step's gradient blocks are "
+            f"{grad_fro:.3g} and its blocks after {TP_EMU_STEPS} steps "
+            f"{fro:.3g} (relative Frobenius) from the emulation")
+    leaves = summary = None
+    if not bitwise:
+        # per leaf: TP against the emulation, a second emulation against
+        # the first (the card's own run-to-run spread: K6b's atomics) and
+        # the last step left out, each relative Frobenius
+        again = columns(_uncounted(emulate)[0])
+        prev = columns(emu_prev)
+        leaves = {leaf.name: {"tp": _fro_rel([r], [h]),
+                              "emulation_again": _fro_rel([r], [a]),
+                              "step_left_out": _fro_rel([r], [p])}
+                  for leaf, r, h, a, p in zip(state.tp.leaves, refs, held,
+                                              again, prev)}
+        worst = max(leaves.items(), key=lambda kv: kv[1]["tp"]
+                    / max(kv[1]["step_left_out"], 1e-300))
+        share = worst[1]["tp"] / max(worst[1]["step_left_out"], 1e-300)
+        require(share <= TOL_TP_HASH_STEP_SHARE,
+                f"tensor {label}: leaf {worst[0]} after {TP_EMU_STEPS} "
+                f"steps is {worst[1]} from the emulation: {share:.3g} of "
+                f"its last step > {TOL_TP_HASH_STEP_SHARE}")
+        summary = {"worst_leaf": worst[0], "worst_share": share,
+                   **{f"{k}_{m.__name__}": m(v[k] for v in leaves.values())
+                      for k, m in (("tp", max), ("emulation_again", max),
+                                   ("step_left_out", min))}}
+    dt = np.diff(np.asarray(stamps)) * 1e3
+    med = (lambda xs: float(np.median(xs[2:])) if len(xs) > 2 else None)
+    return state, {
+        "steps": int(state.step), "step_ms": float(np.median(dt[2:])),
+        "gather_ms": med(pstep.GATHER_MS), "reduce_ms": med(pstep.REDUCE_MS),
+        "gather_bytes_per_step": tp.gather_bytes,
+        "reduce_bytes_per_step": tp.flat.nbytes,
+        "loss_first_last": [losses[0], losses[-1]], "launches": launches,
+        "emulation_bitwise": same, "emulation_fro": fro,
+        "emulation_grad_fro": grad_fro, "emulation_leaves": leaves,
+        "emulation_leaf_summary": summary,
+        "column_layers": len(state.tp.columns),
+        "collectives": dict(collectives.COUNTS)}
+
+
+def _tp_fit_opts(spec, label):
+    """The TP train CLI's opts: ``TP_STEPS[label]`` steps in two epochs,
+    ``latest.pt`` at the end, lego validated (on gathered weights)."""
+    n = TP_STEPS[label] // 2
+    return ({"lego": _train_opts, "hash": _hash_opts}[label](
+        spec["data"], os.path.join(spec["out"], label), f"tp_fit_{label}")
+        + TP_OPTS + spec["extra"][label] + [
+            "ep_iter", str(n), "train.epoch", "2", "save_ep", "2",
+            "save_latest_ep", "2",
+            "eval_ep", "2" if label == "lego" else "100"])
+
+
+def _tp_job(torch, np, spec):
+    """(a) on this rank: lego f32 (fused trunk) and lego_hash (the
+    coarse+fine trainer, its full table) over a (data 1, model 2) mesh,
+    each first as steps held against their emulation, then through the
+    train CLI (``fit``'s TP branch: the mesh from the opts, the block
+    broadcast, the per-epoch gather, the chief's gathered save). Each rank
+    writes the weights it gathered and its blocks' Adam moments beside the
+    run's ``latest.pt``."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.parallel import step as pstep
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+    from nerf_replication_tpu_torch.train.trainer import Trainer
+
+    mesh = make_mesh(1, 2, device=DEVICE)
+    out = {"mesh": mesh.shape, "index": [mesh.data_index,
+                                         mesh.model_index]}
+    for label, cfg_name, opts in (
+            ("lego", "lego.yaml", _train_opts),
+            ("hash", "lego_hash.yaml", _hash_opts)):
+        cfg_path = os.path.join(REPO, "configs", "nerf", cfg_name)
+        cfg = make_cfg(cfg_path, opts(spec["data"],
+                                      os.path.join(spec["out"], label),
+                                      f"tp_{label}")
+                       + TP_OPTS + spec["extra"][label])
+        state, out[label] = _tp_run(torch, np, cfg, mesh, label,
+                                    bitwise=label == "lego")
+        print(f"dp rank {mesh.rank} tensor {label}: " + json.dumps(
+            {k: out[label][k] for k in ("step_ms", "gather_ms", "reduce_ms",
+                                        "emulation_fro",
+                                        "emulation_grad_fro",
+                                        "emulation_leaves")}))
+        del state
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        pstep.GATHER_MS[:] = []
+        fit_opts = _tp_fit_opts(spec, label)
+        run = _cli_fit(torch, np, cfg_path, fit_opts, f"tensor {label} fit",
+                       Trainer, "step")
+        state = run.pop("state")
+        losses = run.pop("losses")
+        require(run["steps"] == TP_STEPS[label]
+                and all(np.isfinite(losses)),
+                f"tensor {label} fit: {run['steps']} steps, losses {losses}")
+        tp = state.tp
+        ckpt = make_cfg(cfg_path, fit_opts).trained_model_dir
+        torch.save({
+            "network": {k: v.detach().cpu() for k, v in
+                        state.network.state_dict().items()},
+            "leaves": [(leaf.name, leaf.dim, leaf.start, leaf.length)
+                       for leaf in tp.leaves],
+            "moments": [{k: v.detach().cpu() for k, v in
+                         state.optimizer.state[leaf.block].items()
+                         if k != "step"} for leaf in tp.leaves]},
+            os.path.join(ckpt, f"gathered_rank{mesh.rank}.pt"))
+        out[label]["fit"] = {
+            **run, "ckpt": ckpt, "loss_first_last": [losses[0], losses[-1]],
+            "gather_ms": (float(np.median(pstep.GATHER_MS[3:]))
+                          if DEVICE == "cuda" else None)}
+        del state, tp
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _tp_served(torch, np, label, ckpt, data, tmp, grid, bbox):
+    """The ``latest.pt`` a TP fit wrote: its weights bitwise what each rank
+    gathered, its Adam moments cut to each rank's block bitwise that rank's
+    moments, a one-card resume from it, and one 64x64 request through an
+    engine on it bitwise an engine on rank 1's gathered weights (lego: the
+    K5 route; lego_hash: the staged packed route, K6)."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.serve import RenderEngine
+    from nerf_replication_tpu_torch.train.checkpoint import (
+        load_model,
+        load_network,
+    )
+    from nerf_replication_tpu_torch.train.trainer import make_train_state
+
+    blob = torch.load(os.path.join(ckpt, "latest.pt"), weights_only=True)
+    ranks = [torch.load(os.path.join(ckpt, f"gathered_rank{r}.pt"),
+                        weights_only=True) for r in range(2)]
+    saved = blob["optimizer"]["state"]
+    for r, got in enumerate(ranks):
+        require(all(torch.equal(v.cpu(), got["network"][k])
+                    for k, v in blob["network"].items()),
+                f"tensor {label} fit: latest.pt's weights differ from rank "
+                f"{r}'s gathered ones")
+        for i, (name, dim, start, length) in enumerate(got["leaves"]):
+            for k, v in got["moments"][i].items():
+                full = saved[i][k].cpu()
+                if dim is not None:
+                    full = full.narrow(dim, start, length)
+                require(torch.equal(full, v), f"tensor {label} fit: "
+                        f"latest.pt's {k} of {name} differs from rank {r}'s "
+                        "block")
+    cfg_path = os.path.join(REPO, "configs", "nerf",
+                            {"lego": "lego.yaml", "hash": "lego_hash.yaml"}[
+                                label])
+    route = (["task_arg.march_fused", "full"] if label == "lego"
+             else ["task_arg.march_fused", "off"])
+    opts = (_train_opts(data, os.path.join(tmp, "tp_serve"), "tp_serve")
+            + (["network.nerf.fused_trunk", "false"] if label == "hash"
+               else []) + TP_EXTRA[label] + route + [
+                "task_arg.march_coarse_block", "8", "serve.buckets",
+                "[4096]"])
+    cfg = make_cfg(cfg_path, opts, default_task="run")
+    test = make_dataset(cfg, "test")
+    cam = {"H": int(test.H), "W": int(test.W), "focal": float(test.focal)}
+    state = make_train_state(cfg, make_network(cfg), DEVICE)
+    _, begin, _ = load_model(ckpt, state)
+    require(begin == 2 and state.step == TP_STEPS[label],
+            f"tensor {label} fit: a one-card resume from latest.pt begins "
+            f"at epoch {begin}, step {state.step}")
+    del state
+    maps = []
+    for source in ("latest.pt", "rank 1"):
+        net = make_network(cfg)
+        if source == "latest.pt":
+            require(load_network(ckpt, net) == -1,  # -1: latest.pt
+                    f"tensor {label} fit: latest.pt did not load")
+        else:
+            net.load_state_dict(ranks[1]["network"])
+        eng = _uncounted(lambda: RenderEngine(
+            cfg, net, 2.0, 6.0, grid=grid, bbox=bbox, device=DEVICE,
+            warmup_families=("full",)))
+        rays = _fleet_rays(np, cam, 3)
+        maps.append(_uncounted(lambda: eng.render_request(rays, 2.0, 6.0)))
+        del eng, net
+    keys = ("rgb_map_f", "acc_map_f", "depth_map_f")
+    require(all(np.array_equal(maps[0][k], maps[1][k]) for k in keys)
+            and all(np.isfinite(maps[0][k]).all() for k in keys),
+            f"tensor {label} fit: latest.pt served differs from rank 1's "
+            "gathered weights")
+    return {"maps_bitwise": True, "resume_epoch": begin,
+            "mean_acc": float(np.mean(maps[0]["acc_map_f"]))}
+
+
+def _fleet_scene(torch, np, net, i):
+    """Scene ``i``'s weights: the trained network's, each scaled by
+    ``1 + 0.01 i`` (deterministic, and different in every bit pattern)."""
+    s = torch.tensor(np.float32(1.0 + 0.01 * i))
+    return {k: v.detach().cpu() * s for k, v in net.state_dict().items()}
+
+
+def _fleet_store(torch, np, tmp, cfg, net, grid, bbox):
+    """The scenes on disk (checkpoint + tree checksum + a grid rolled by
+    ``i`` voxels) and the manifest: scene "lego" is the trained checkpoint,
+    "a"-"c" perturbed, "b2" the version the publish swaps in."""
+    from nerf_replication_tpu_torch.fleet import SceneRecord, SceneRegistry
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        save_occupancy_grid,
+    )
+    from nerf_replication_tpu_torch.resil import write_tree_checksum
+    from nerf_replication_tpu_torch.train.checkpoint import save_network
+
+    root = os.path.join(tmp, "fleet")
+    scenes, records = {}, []
+    for i, sid in enumerate(("lego",) + FLEET_SCENES + ("b2",)):
+        k = 4 if sid == "b2" else i
+        weights = _fleet_scene(torch, np, net, k)
+        g = np.roll(grid, i % 3, axis=0)
+        ckpt = os.path.join(root, sid)
+        scene_net = make_network(cfg)
+        scene_net.load_state_dict(weights)
+        save_network(ckpt, scene_net)
+        write_tree_checksum(ckpt)
+        gpath = os.path.join(root, f"{sid}_grid.npz")
+        save_occupancy_grid(gpath, g, bbox, 0.5)
+        scenes[sid] = (weights, g)
+        rec = SceneRecord(sid if sid != "b2" else "b", checkpoint=ckpt,
+                          grid=gpath)
+        if sid != "b2":
+            records.append(rec)
+        else:
+            scenes["b2_record"] = rec
+    manifest = os.path.join(root, "manifest.json")
+    SceneRegistry(records).to_manifest(manifest)
+    return scenes, manifest
+
+
+def _fleet_rays(np, cam, k):
+    """Request ``k``: a 64x64 view on the sphere of the test camera
+    ``cam`` (``RenderEngine.default_camera``)."""
+    from nerf_replication_tpu_torch.datasets.rays import (
+        get_rays_np,
+        pose_spherical,
+    )
+
+    focal = cam["focal"] * FLEET_HW / cam["W"]
+    o, d = get_rays_np(FLEET_HW, FLEET_HW, focal,
+                       pose_spherical(-180.0 + 37.0 * k, -30.0, 4.0))
+    return np.concatenate([o, d], -1).reshape(-1, 6).astype(np.float32)
+
+
+def phase_tensor_fleet(torch, np, tmp, data):
+    """Phase 19: (a) tensor parallelism on two ranks sharing the card
+    (torchrun subprocess), its checkpoint served from one card; (b) four
+    lego scenes and the trained one served through one engine per route
+    (full: K5, gather: K4, packed: K3a, per-ray: K1) with the fleet
+    attached, a mixed scene / tenant stream with one hot swap and one 429,
+    each response bitwise a dedicated single-scene engine's (cwd: tmp)."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.fleet import (
+        QosController,
+        ScenePublisher,
+        TenantQuotaError,
+    )
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.ops import fused_march as fm
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        default_grid_path,
+        load_occupancy_pyramid,
+    )
+    from nerf_replication_tpu_torch.serve import (
+        MicroBatcher,
+        RenderEngine,
+        engine_from_cfg,
+    )
+    from nerf_replication_tpu_torch.train.checkpoint import load_network
+
+    t0 = time.perf_counter()
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    report = {}
+    # (a) TP on two ranks
+    work = os.path.join(tmp, "tp")
+    os.makedirs(work, exist_ok=True)
+    spec = {"data": data, "out": work, "device": DEVICE, "extra": TP_EXTRA,
+            "hw": TRAIN_HW, "job": "tp2"}
+    ranks, wall = _dp_launch(torch, 2, spec, work, 600)
+    tp_counts = {k: 0 for k in ("K1", "K2", "K6", "K6b")}
+    for r in ranks:
+        for label, kernels in (("lego", ("K1", "K2")),
+                               ("hash", ("K6", "K6b"))):
+            for run in (r["tp"][label], r["tp"][label]["fit"]):
+                for k in kernels:
+                    require(DEVICE != "cuda" or run["launches"][k] > 0,
+                            f"tensor {label}: rank {r['rank']} never "
+                            f"launched {k}")
+                    tp_counts[k] += run["launches"][k]
+    report["tensor"] = {
+        label: {k: [r["tp"][label][k] for r in ranks] for k in (
+            "step_ms", "gather_ms", "gather_bytes_per_step", "reduce_ms",
+            "reduce_bytes_per_step", "loss_first_last", "emulation_fro",
+            "emulation_grad_fro", "emulation_bitwise",
+            "emulation_leaf_summary", "column_layers")}
+        for label in ("lego", "hash")}
+    levels, bbox = load_occupancy_pyramid(default_grid_path(lego))
+    for label in ("lego", "hash"):
+        fits = [r["tp"][label]["fit"] for r in ranks]
+        report["tensor"][label]["fit"] = {
+            k: [f[k] for f in fits] for k in (
+                "steps", "step_ms", "gather_ms", "reduce_ms",
+                "loss_first_last", "launches", "collectives", "graphs")}
+        report["tensor"][label]["fit"]["served"] = _tp_served(
+            torch, np, label, fits[0]["ckpt"], data, tmp, levels[0], bbox)
+    report["tensor"]["wall_s"] = round(wall, 1)
+    ecfg = make_cfg(lego, _eval_opts(data, tmp, [
+        "task_arg.march_coarse_block", "8", "task_arg.march_fused", "full",
+        "serve.buckets", "[4096]"]), default_task="run")
+
+    # (b) the fleet
+    trained = make_network(ecfg)
+    load_network(ecfg.trained_model_dir, trained)
+    scenes, manifest = _fleet_store(torch, np, tmp, ecfg, trained,
+                                    np.asarray(levels[0], bool), bbox)
+    one_mb = (sum(v.numel() * 4 for v in scenes["a"][0].values())
+              + levels[0].size + 24) / 2 ** 20
+    fleet_opts = [
+        "fleet.manifest", manifest, "fleet.hbm_budget_mb",
+        str(2.5 * one_mb), "fleet.staging_mb", str(1.5 * one_mb),
+        "fleet.qos.enabled", "true", "fleet.qos.tenants",
+        "{'t2': {'rate': 0.001, 'burst': 1}}", "serve.buckets", "[4096]",
+        "serve.shed_queue_depths", "[50, 60, 70, 80]",
+        "task_arg.march_coarse_block", "8"]
+    engines, batchers, before, cfgs = {}, {}, {}, {}
+    for route, extra in FLEET_ROUTES.items():
+        cfg = make_cfg(lego, _eval_opts(data, tmp, fleet_opts + extra),
+                       default_task="run")
+        engines[route] = eng = _uncounted(
+            lambda c=cfg: engine_from_cfg(c, cfg_file=lego, device=DEVICE))
+        batchers[route] = MicroBatcher(eng,
+                                       qos=QosController.from_cfg(cfg))
+        st = eng.stats()
+        before[route] = (st["captures"], st["route_builds"])
+        cfgs[route] = cfg
+    dedicated = {}
+
+    def reference(route, sid, rays):
+        key = (route, sid)
+        if key not in dedicated:
+            weights, g = scenes["b2" if sid == "b2" else sid]
+            net = make_network(ecfg)
+            net.load_state_dict(weights)
+            dedicated[key] = RenderEngine(cfgs[route], net, 2.0, 6.0,
+                                          grid=g, bbox=bbox, device=DEVICE,
+                                          warmup_families=("full",))
+        return dedicated[key].render_request(rays, 2.0, 6.0)
+
+    fmlp.reset_launch_counts()
+    fm.reset_launch_counts()
+    stream = [("lego", "t1"), ("a", "t1"), ("b", "t2"), ("c", "t1"),
+              ("a", "t1"), ("default", "t1"), ("c", "t1"), ("b", "t1")]
+    outs, denied, n_req = [], 0, 0
+    for k in range(64 // len(FLEET_ROUTES) // len(stream)):
+        for route in FLEET_ROUTES:
+            for j, (sid, tenant) in enumerate(stream):
+                rays = _fleet_rays(np, engines[route].default_camera, n_req)
+                n_req += 1
+                try:
+                    out = batchers[route].submit(
+                        rays, 2.0, 6.0, scene=sid, tenant=tenant).result(120)
+                except TenantQuotaError:
+                    denied += 1
+                    continue
+                outs.append((route, sid, rays, out))
+    require(denied >= 1, "fleet: no request was over its tenant's quota")
+    # the hot swap of scene b under traffic (the full route's engine): the
+    # traffic asks for b and the default scene, and a lease on b is held
+    # until the publish has waited FLEET_DRAIN_HOLD_S in its drain (a
+    # pinned a or c beside the pinned b would leave the two-scene budget
+    # nothing to evict for b's next version: ResidencyOverloadError)
+    res = engines["full"].fleet
+    stop, leased = threading.Event(), threading.Event()
+    swap = {}
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            sid = ("b", "default")[i % 2]
+            rays = _fleet_rays(np, engines["full"].default_camera, 100 + i)
+            t_submit = time.perf_counter()
+            out = batchers["full"].submit(rays, 2.0, 6.0, scene=sid,
+                                          tenant="t1").result(120)
+            tag = sid
+            if sid == "b":  # which version: by the swap's clock
+                tag = ("b" if time.perf_counter() < swap.get("t0", 1e300)
+                       else "b2" if t_submit > swap.get("t1", 1e300)
+                       else "b|b2")
+            outs.append(("full", tag, rays, out))
+            swap["b_requests"] = swap.get("b_requests", 0) + (sid == "b")
+            i += 1
+
+    def holder():
+        with engines["full"].scene_lease("b"):
+            leased.set()
+            while "b" not in res._publishing:  # the drain has begun
+                if stop.is_set():
+                    return
+                time.sleep(0.001)
+            time.sleep(FLEET_DRAIN_HOLD_S)
+
+    th = threading.Thread(target=traffic)
+    hold = threading.Thread(target=holder)
+    th.start()
+    try:
+        time.sleep(0.05)
+        hold.start()
+        require(leased.wait(60), "fleet: the lease on b was not taken")
+        swap["t0"] = time.perf_counter()
+        row = ScenePublisher(res, drain_timeout_s=60.0).publish(
+            scenes["b2_record"])
+        swap["t1"] = time.perf_counter()
+    finally:
+        stop.set()
+        th.join(timeout=120)
+        hold.join(timeout=120)
+    require(row["drain_ms"] >= FLEET_DRAIN_HOLD_S * 1e3,
+            f"fleet: the publish drained in {row['drain_ms']} ms, under the "
+            "lease it had to wait out")
+    require(swap.get("b_requests", 0) > 0,
+            "fleet: the traffic asked for no b during the publish")
+    rays = _fleet_rays(np, engines["full"].default_camera, 999)
+    outs.append(("full", "b2", rays, batchers["full"].submit(
+        rays, 2.0, 6.0, scene="b", tenant="t1").result(120)))
+    fleet_counts = {"K5": fm.LAUNCHES["fused_march_full"],
+                    "K4": fm.LAUNCHES["fused_dda_gather"],
+                    "K3a": fmlp.LAUNCHES["fused_mlp_fwd_masked"],
+                    "K1": fmlp.LAUNCHES["fused_mlp_fwd"]}
+    for k, n in fleet_counts.items():
+        require(DEVICE != "cuda" or n > 0, f"fleet: {k} never launched")
+    # the gates: each response bitwise its scene's dedicated engine (a b
+    # request that overlapped the swap: one of b's two versions)
+    keys = ("rgb_map_f", "acc_map_f", "depth_map_f")
+    for route, sid, rays, out in outs:
+        versions = ["lego" if v == "default" else v for v in sid.split("|")]
+        require(any(all(np.array_equal(out[key], ref[key]) for key in keys)
+                    for ref in (_uncounted(reference, route, v, rays)
+                                for v in versions)),
+                f"fleet {route} {sid}: the maps differ from the dedicated "
+                "engine's")
+    # the card's routes against their plain versions: one request's first
+    # rays through a CPU engine of the same scene
+    worst = {}
+    for route in FLEET_ROUTES:
+        _, _, rays, out = next(o for o in outs if o[0] == route
+                               and o[1] == "c")
+        # the view's centre rows (the scene; the edges are background)
+        mid = FLEET_HW * FLEET_HW // 2 - FLEET_CPU_RAYS // 2
+        sel = slice(mid, mid + FLEET_CPU_RAYS)
+        net = make_network(ecfg)
+        net.load_state_dict(scenes["c"][0])
+        cpu = _uncounted(lambda: RenderEngine(
+            cfgs[route], net, 2.0, 6.0, grid=scenes["c"][1], bbox=bbox,
+            device="cpu", warmup_families=("full",)).render_request(
+                rays[sel], 2.0, 6.0))
+        require(float(cpu["acc_map_f"].max()) > 0.0,
+                f"fleet {route}: the held rays miss the scene")
+        errs = {}
+        for key, tol in (("rgb_map_f", TOL_F32["rgb"]),
+                         ("acc_map_f", TOL_F32["acc"]),
+                         ("depth_map_f", TOL_F32["depth"])):
+            e = float(np.abs(out[key][sel] - cpu[key]).max())
+            require(e <= tol, f"fleet {route}: {key} {e:.3g} from the plain "
+                    "version")
+            errs[key] = e
+        worst[route] = errs
+    for route, eng in engines.items():
+        st = eng.stats()
+        require((st["captures"], st["route_builds"]) == before[route],
+                f"fleet {route}: captured or built a route after warm-up "
+                f"({before[route]} -> {st['captures'], st['route_builds']})")
+    for b in batchers.values():
+        b.close()
+    fs = engines["full"].stats()["fleet"]
+    report["fleet"] = {
+        "requests": len(outs), "denied_429": denied,
+        "captures_after_warmup": 0, "route_builds_after_warmup": 0,
+        "slot_copy_ms": {r: [round(x, 4) for x in e.slot_copy_ms()[:6]]
+                         for r, e in engines.items()},
+        "slot_copy_ms_median": {r: float(np.median(e.slot_copy_ms()))
+                                for r, e in engines.items()},
+        "switches": {r: e.slot_switches for r, e in engines.items()},
+        "evictions": fs["evictions"], "demotions": fs["demotions"],
+        "repromotions": fs["repromotions"],
+        "prefetch_hits": fs["prefetch_hits"],
+        "publish_drain_ms": row["drain_ms"],
+        "traffic_b_requests": swap["b_requests"], "scene_mb": one_mb,
+        "plain_max_abs": worst, "launches": fleet_counts}
+    report["smi"] = smi_line()
+    report["wall_s"] = round(time.perf_counter() - t0, 1)
+    print("tensor_fleet phase: " + json.dumps(report))
+    return tp_counts, fleet_counts, report
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -4509,6 +5174,8 @@ def main() -> int:
                 profiles["f32_fused"]["graphed"]["step_ms"])
             zoo_counts, zoo_hash = phase_zoo(torch, np, tmp, data)
             par_counts, _ = phase_parallel(torch, np, tmp, data)
+            tp_counts, fleet_counts, _ = phase_tensor_fleet(torch, np, tmp,
+                                                            data)
         finally:
             os.chdir(cwd)
     run_bench()
@@ -4556,6 +5223,14 @@ def main() -> int:
         # the NGP ranks, summed over the ranks
         if kernel in par_counts:
             paths["parallel"] = par_counts[kernel]
+        # phase 19: tensor-parallel training (K1/K2 on the lego ranks'
+        # gathered weights, K6/K6b on lego_hash's gathered table, summed
+        # over the ranks) and the multi-scene fleet stream (K5 full, K4
+        # gather, K3a packed, K1 per-ray)
+        if kernel in tp_counts:
+            paths["tensor"] = tp_counts[kernel]
+        if kernel in fleet_counts:
+            paths["fleet"] = fleet_counts[kernel]
         if kernel in ("K6", "K6b"):
             kind = "fwd" if kernel == "K6" else "bwd"
             for d in (2, 4):

@@ -54,6 +54,22 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return state
 
 
+def jax_path(name: str) -> str:
+    """The JAX parameter path of a port state-dict key: the inverse of
+    :func:`params_from_jax`'s names (``coarse.pts_linear_3.weight`` ->
+    ``coarse/pts_linear_3/kernel``)."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+def transposed(name: str) -> bool:
+    """Whether the port tensor ``name`` is a JAX leaf transposed (a Dense
+    kernel ``[in, out]`` carried as ``weight [out, in]``)."""
+    return name.endswith(".weight") or name == "weight"
+
+
 def load_jax_params(network: torch.nn.Module, tree: dict) -> torch.nn.Module:
     """Copy a JAX parameter tree into ``network`` in place (strict)."""
     network.load_state_dict(params_from_jax(tree), strict=True)

@@ -391,6 +391,17 @@ class FusedWeights:
             self.flat = spec.flatten_params(branch)
             self.wmat, self.bias, self.heads = pack_for_chain(spec, self.flat)
 
+    @torch.no_grad()
+    def refresh(self, branch) -> None:
+        """Repack ``branch``'s current weights into these buffers in place,
+        on their device (a captured route that reads them sees the new
+        weights: the serving engine's scene switch)."""
+        for dst, src in zip(self.flat, self.spec.flatten_params(branch)):
+            dst.copy_(src)
+        for dst, src in zip((self.wmat, self.bias, self.heads),
+                            pack_for_chain(self.spec, self.flat)):
+            dst.copy_(src)
+
 
 def _encoder_bands(enc, width: int) -> int:
     """Band count of a frequency encoder the kernel can reproduce

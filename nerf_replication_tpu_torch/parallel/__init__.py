@@ -1,9 +1,10 @@
-"""Data parallelism and sequence parallelism on ``torch.distributed`` (port
-of ``nerf_replication_tpu/parallel/``): the process group and its mesh,
-collectives, the ray bank over the ranks, the data-parallel train step
-(captured segments around one all-reduce) and the sequence-parallel
-renderer and march. Tensor parallelism (``build_gspmd_step`` and the rule
-table) comes with ROADMAP item 8 part 2.
+"""Data, tensor and sequence parallelism on ``torch.distributed`` (port
+of ``nerf_replication_tpu/parallel/``): the process group and its ``(data,
+model)`` mesh, collectives, the ray bank over the data axis, the rule table
+(``tree_specs``, ``tree_shard_nbytes``), the data-parallel step (captured
+segments around one all-reduce), the GSPMD step (the model axis through
+``parallel/tensor.py``'s seams and gathered weights) and the
+sequence-parallel renderer and march.
 """
 
 from .collectives import (  # noqa: F401
@@ -28,12 +29,20 @@ from .mesh import (  # noqa: F401
     multihost_init,
 )
 from .sharding import (  # noqa: F401
+    chunk_sharding,
     data_sharding,
     shard_bank,
     shard_index_pool,
+    spec_for_path,
+    tree_shard_nbytes,
+    tree_specs,
 )
 from .step import (  # noqa: F401
     DPStep,
+    TPStep,
     aot_register_dp_step,
+    aot_register_gspmd_step,
     build_dp_step,
+    build_gspmd_step,
+    shard_train_state,
 )

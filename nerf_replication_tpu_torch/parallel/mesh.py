@@ -19,8 +19,16 @@ explicitly.
 * A rank's device is ``cuda:(LOCAL_RANK % device_count)`` unless the
   caller asks for the CPU.
 * One process: :func:`make_mesh_from_cfg` returns no mesh, as JAX does with
-  one device. ``data_axis`` is -1 or the world size (processes cannot carve
-  a sub-mesh); ``model_axis > 1`` (tensor parallelism) raises.
+  one device.
+* The ``(data, model)`` mesh: ``model_axis`` divides the world size and
+  ``data_axis`` is -1 or ``world // model_axis`` (processes cannot carve a
+  sub-mesh). Rank ``r`` sits at data index ``r // M`` and model index
+  ``r % M`` (JAX's ``np.asarray(devices).reshape(data, model)``). Under
+  tensor parallelism (``model_axis > 1``) the mesh carries a model group
+  (the ranks of one data index) and a data group (the ranks of one model
+  index), made with ``torch.distributed.new_group`` on every rank in one
+  order: every data group's ranks, then every model group's. With
+  ``model_axis 1`` the data group is the mesh's own group.
 """
 
 from __future__ import annotations
@@ -37,18 +45,13 @@ MODEL_AXIS = "model"
 _TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
-def tensor_parallel_refusal() -> NotImplementedError:
-    return NotImplementedError(
-        "parallel.model_axis > 1 (tensor parallelism) comes with ROADMAP "
-        "item 8 part 2 (tensor parallelism): the port trains data-parallel "
-        "only")
-
-
 @dataclass(frozen=True)
 class Mesh:
-    """A data-parallel mesh over the ranks of a process group: ``group``
+    """A ``(data, model)`` mesh over the ranks of a process group: ``group``
     (None: the default group), this ``rank``, the world ``size``, the
-    rank's ``device`` and the group's ``backend``."""
+    rank's ``device``, the group's ``backend``, the ``model`` axis size and,
+    under tensor parallelism, this rank's ``data_group`` and
+    ``model_group``."""
 
     group: object
     rank: int
@@ -56,10 +59,29 @@ class Mesh:
     device: torch.device
     backend: str
     axis_names: tuple = (DATA_AXIS, MODEL_AXIS)
+    model: int = 1
+    data_group: object = None
+    model_group: object = None
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+        return {DATA_AXIS: self.size // self.model, MODEL_AXIS: self.model}
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    def data_mesh(self) -> "Mesh":
+        """The data-parallel view: this rank's data group as a mesh of its
+        own (rank = the data index). The mesh itself when ``model == 1``."""
+        if self.model == 1:
+            return self
+        return Mesh(self.data_group, self.data_index,
+                    self.size // self.model, self.device, self.backend)
 
 
 def torchrun_env() -> bool:
@@ -150,31 +172,52 @@ def is_chief() -> bool:
 def make_mesh(data_axis: int = -1, model_axis: int = 1, device=None,
               group=None) -> Mesh:
     """The ``(data, model)`` mesh over the process group's ranks (any world
-    size, one included). ``data_axis``: -1 or the world size."""
-    if model_axis > 1:
-        raise tensor_parallel_refusal()
+    size, one included), with JAX ``make_mesh``'s checks: ``model_axis``
+    divides the world size; ``data_axis`` is -1 or ``world //
+    model_axis``. Every rank must call it (the groups are collective)."""
     if not is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "multihost_init first")
     world = dist.get_world_size(group)
-    if data_axis not in (-1, world):
+    if model_axis < 1 or world % model_axis != 0:
+        raise ValueError(
+            f"model_axis={model_axis} does not divide device count {world}")
+    if data_axis != -1 and data_axis < 1:
+        raise ValueError(f"data_axis must be -1 or >= 1, got {data_axis}")
+    data = world // model_axis
+    if data_axis not in (-1, data):
+        over = "" if model_axis == 1 else f" over model_axis {model_axis}"
         raise ValueError(
             f"parallel.data_axis={data_axis} does not match the world size "
-            f"{world}: set -1 or {world} (processes cannot carve a "
+            f"{world}{over}: set -1 or {data} (processes cannot carve a "
             "sub-mesh out of the group)")
     backend = str(dist.get_backend(group))
     dev = rank_device("cuda" if device is None else device)
-    return Mesh(group, dist.get_rank(group), world, dev, backend)
+    rank = dist.get_rank(group)
+    if model_axis == 1:
+        return Mesh(group, rank, world, dev, backend)
+    if group is not None:
+        raise ValueError("a tensor-parallel mesh spans the default group")
+    # every rank creates every group, in the same order, or new_group hangs
+    data_group = model_group = None
+    for m in range(model_axis):
+        g = dist.new_group(list(range(m, world, model_axis)))
+        if rank % model_axis == m:
+            data_group = g
+    for d in range(data):
+        g = dist.new_group(list(range(d * model_axis,
+                                      (d + 1) * model_axis)))
+        if rank // model_axis == d:
+            model_group = g
+    return Mesh(group, rank, world, dev, backend, model=model_axis,
+                data_group=data_group, model_group=model_group)
 
 
 def make_mesh_from_cfg(cfg, device=None) -> Mesh | None:
     """The mesh ``cfg.parallel`` asks for, or None with one process (as JAX
     with one device: a single-card run)."""
     par = cfg.get("parallel", {}) or {}
-    model_axis = int(par.get("model_axis", 1))
-    if model_axis > 1:
-        raise tensor_parallel_refusal()
     if not is_initialized() or dist.get_world_size() == 1:
         return None
-    return make_mesh(int(par.get("data_axis", -1)), model_axis,
-                     device=device)
+    return make_mesh(int(par.get("data_axis", -1)),
+                     int(par.get("model_axis", 1)), device=device)

@@ -9,16 +9,22 @@ The port of ``serve.py``'s request surface (all JSON):
 
 * ``POST /render`` — a spherical pose (``theta``/``phi``/``radius``) OR a
   ``c2w`` 3x4/4x4 matrix; optional ``H``/``W``/``focal`` override the test
-  camera. Reply ``{h, w, tier, cache_hit, latency_ms, rgb_b64}``, where
-  ``rgb_b64`` is the base64 of the raw uint8 [h, w, 3] buffer. A bad pose or
-  out-of-bounds request → 400, a render timeout → 504, anything else → 500.
+  camera; optional ``scene`` (a fleet scene id) and ``tenant`` (the QoS
+  tenant, ``fleet.qos``). Reply ``{h, w, tier, cache_hit, latency_ms,
+  rgb_b64[, scene]}``, where ``rgb_b64`` is the base64 of the raw uint8
+  [h, w, 3] buffer. A bad pose or out-of-bounds request → 400, an unknown
+  scene → 404, an over-quota tenant → 429 with ``Retry-After``, a torn,
+  unloadable or over-budget scene → 503 for that scene only, a render
+  timeout → 504, anything else → 500.
 * ``GET /stats`` — engine counters (with the ``march`` block and kernel
   launch counts) plus the batcher's.
 * ``GET /healthz`` — the batcher's health (queue depth, last-dispatch age,
   breaker state, worker liveness) plus the ``slo`` block: latency
   attainment against ``obs.slo_target_ms`` and the shed / timeout / error
-  / breaker rates of the live metrics. 200 while healthy, 503 while the
-  breaker is open.
+  / breaker rates of the live metrics, and the ``replica`` block (JAX
+  ``serve.py``'s fields the port has: the resident and staged scenes, the
+  residency byte watermarks and budgets, ``param_shards``, the warm source
+  and the captures). 200 while healthy, 503 while the breaker is open.
 * ``GET /metrics`` — Prometheus text of the live counters, gauges and
   histograms (``obs/metrics.py``).
 
@@ -71,15 +77,22 @@ def render_pose(engine, batcher, body: dict) -> dict:
     H = int(body.get("H", camera["H"]))
     W = int(body.get("W", camera["W"]))
     focal = float(body.get("focal", camera["focal"]))
+    scene = body.get("scene")
+    scene = None if scene is None else str(scene)
+    tenant = body.get("tenant")
+    tenant = None if tenant is None else str(tenant)
     c2w = _resolve_pose(body)
     timeout = engine.options.request_timeout_s + 30.0
     via = None
     if batcher is not None:
         def via(rays, near, far):
-            return batcher.submit(rays, near, far).result(timeout)
+            return batcher.submit(rays, near, far, scene=scene,
+                                  tenant=tenant).result(timeout)
     t0 = time.perf_counter()
-    image, info = engine.render_view(c2w, H, W, focal, via=via)
-    return {
+    # a scene-less request makes the pre-fleet call (engine doubles too)
+    kw = {} if scene is None else {"scene": scene}
+    image, info = engine.render_view(c2w, H, W, focal, via=via, **kw)
+    out = {
         "h": H,
         "w": W,
         "tier": info["tier"],
@@ -87,12 +100,43 @@ def render_pose(engine, batcher, body: dict) -> dict:
         "latency_ms": (time.perf_counter() - t0) * 1e3,
         "rgb_b64": base64.b64encode(image.tobytes()).decode("ascii"),
     }
+    if scene is not None:
+        out["scene"] = scene
+    return out
+
+
+def replica_block(engine) -> dict:
+    """The ``/healthz`` replica block: resident and staged scenes, the
+    residency watermarks and budgets, and the warm state."""
+    import os
+
+    stats = engine.stats()
+    fs = stats.get("fleet") or {}
+    return {
+        "id": os.environ.get("SCALE_REPLICA_ID", ""),
+        "warm_source": stats.get("warm_source"),
+        "captures": stats.get("captures", 0),
+        "scenes": (engine.resident_scenes()
+                   if hasattr(engine, "resident_scenes") else []),
+        "staging": list(fs.get("staging", [])),
+        "hbm_bytes": int(fs.get("resident_bytes", 0)),
+        "staging_bytes": int(fs.get("staging_bytes", 0)),
+        "hbm_budget_bytes": int(fs.get("budget_bytes", 0)),
+        "staging_budget_bytes": int(fs.get("staging_budget_bytes", 0)),
+        "param_shards": int(fs.get("param_shards", 1)),
+    }
 
 
 def make_server(engine, batcher, host: str = "127.0.0.1",
                 port: int = 8008,
                 slo_target_ms: float = 100.0) -> ThreadingHTTPServer:
     """A ready-to-serve ThreadingHTTPServer (port 0 = ephemeral)."""
+    from ..fleet import (
+        ResidencyOverloadError,
+        SceneError,
+        TenantQuotaError,
+        UnknownSceneError,
+    )
     from ..obs import get_metrics, get_tracer
     from ..obs.trace import TRACE_HEADER, SpanContext
     from ..resil import BreakerOpenError, report
@@ -120,6 +164,7 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
                 health = (batcher.health() if batcher is not None
                           else {"ok": True, "queue_depth": 0})
                 health["slo"] = get_metrics().slo_view(slo_target_s)
+                health["replica"] = replica_block(engine)
                 return self._reply(200 if health["ok"] else 503, health)
             if self.path == "/stats":
                 stats = engine.stats()
@@ -143,14 +188,35 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
+                scene, tenant = body.get("scene"), body.get("tenant")
                 # the request's root span; the batcher captures its context
                 # at submit, so the worker's spans descend from it
                 with get_tracer().span(
                         "serve.request",
                         parent=SpanContext.from_header(
-                            self.headers.get(TRACE_HEADER))):
+                            self.headers.get(TRACE_HEADER)),
+                        scene=None if scene is None else str(scene),
+                        tenant=None if tenant is None else str(tenant)):
                     out = render_pose(engine, batcher, body)
                 return self._reply(200, out)
+            except TenantQuotaError as err:
+                return self._reply(
+                    429, {"error": str(err), "tenant": err.tenant,
+                          "retry_after_s": err.retry_after_s},
+                    headers={"Retry-After":
+                             str(max(1, round(err.retry_after_s)))})
+            except UnknownSceneError as err:
+                return self._reply(404, {"error": str(err),
+                                         "scene": err.scene_id})
+            except ResidencyOverloadError as err:
+                # every resident scene is pinned: momentary, retryable
+                return self._reply(503, {"error": str(err),
+                                         "scene": err.scene_id},
+                                   headers={"Retry-After": "1"})
+            except SceneError as err:
+                # torn / unloadable / incompatible: this scene only
+                return self._reply(503, {"error": str(err),
+                                         "scene": err.scene_id})
             except BreakerOpenError as err:
                 return self._reply(
                     503, {"error": str(err),
@@ -186,6 +252,7 @@ def main(argv=None) -> int:
         PreemptionGuard,
         install_flight_recorder,
     )
+    from ..fleet.qos import QosController
     from ..utils.setup import configure_runtime
     from .batcher import MicroBatcher
     from .engine import engine_from_cfg
@@ -208,7 +275,8 @@ def main(argv=None) -> int:
     guard = PreemptionGuard.install()
 
     engine = engine_from_cfg(cfg, cfg_file=args.cfg_file, device=args.device)
-    batcher = MicroBatcher(engine, breaker=CircuitBreaker.from_cfg(cfg))
+    batcher = MicroBatcher(engine, breaker=CircuitBreaker.from_cfg(cfg),
+                           qos=QosController.from_cfg(cfg))
     server = make_server(engine, batcher, host=args.host, port=args.port,
                          slo_target_ms=slo_target_ms)
     print(f"serving on http://{args.host}:{server.server_address[1]} "

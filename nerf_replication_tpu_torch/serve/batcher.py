@@ -25,7 +25,23 @@ The ops layers, as in the JAX batcher:
 * telemetry rows ``serve_request`` / ``serve_batch`` / ``serve_shed``,
   ``fault`` rows, and the live metrics behind ``GET /metrics``.
 
-Per-tenant QoS and multi-scene fleets are not ported (the fleet slice).
+Multi-scene fleets and tenants, as in the JAX batcher:
+
+* ``scene`` and ``tenant`` ride each request. An unknown scene raises at
+  ``submit`` (404 at the HTTP edge); a known one that is not resident
+  starts its prefetch there. A batch is cut for ONE scene, the queue
+  head's (the engine renders one scene a call); other scenes' requests
+  keep their order.
+* A scene-scoped failure (:class:`~..fleet.SceneError`: a torn or
+  unloadable scene, a residency overload) fails that batch's requests
+  alone, counts ``n_scene_errors`` and leaves the breaker closed: the
+  other scenes keep serving.
+* With a :class:`~..fleet.QosController` (``qos``): token-bucket
+  admission at ``submit`` (:class:`~..fleet.TenantQuotaError`, 429), the
+  weighted-fair pop (the least-served backlogged tenant picks the
+  batch's scene; every popped request advances its tenant's virtual time
+  by rays / weight) and per-tenant breakers (a single-tenant batch's
+  failures open that tenant's breaker, not the engine's).
 
 Determinism for tests: construct with ``start=False`` and an injectable
 ``clock``, enqueue with ``submit`` and drive batches with ``pump()`` — the
@@ -37,10 +53,13 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..fleet.errors import SceneError
+from ..fleet.qos import TenantQuotaError
 from ..obs import get_emitter
 from ..obs.metrics import get_metrics
 from ..obs.trace import current_ctx, get_tracer
@@ -94,6 +113,8 @@ class _Pending:
     rays: np.ndarray
     future: ServeFuture
     t_enqueued: float
+    scene: str | None = None
+    tenant: str | None = None
     # the trace context captured on the submitting thread (how a request's
     # identity crosses into the worker thread) and the enqueue time on the
     # TRACER's clock, so queue-wait spans share the trace's timebase
@@ -110,7 +131,7 @@ class MicroBatcher:
 
     def __init__(self, engine, policy: DegradationPolicy | None = None,
                  clock=time.monotonic, start: bool = True,
-                 breaker: CircuitBreaker | None = None):
+                 breaker: CircuitBreaker | None = None, qos=None):
         self.engine = engine
         self.options = engine.options
         self.policy = policy or DegradationPolicy(
@@ -118,9 +139,13 @@ class MicroBatcher:
         )
         self.clock = clock
         self.breaker = breaker or CircuitBreaker(clock=clock)
+        # per-tenant QoS (fleet.QosController; None: FIFO) and each
+        # tenant's virtual time for the weighted-fair pop ("": tenant-less)
+        self.qos = qos
+        self._vtime: dict[str, float] = {}
         self._queue: deque[_Pending] = deque()
-        # guards _queue, _stop and _inflight; the counters below are
-        # written by the batch-rendering thread only
+        # guards _queue, _stop, _vtime and _inflight; the counters below
+        # are written by the batch-rendering thread only
         self._cond = threading.Condition()
         self._stop = False
         self.n_batches = 0
@@ -128,6 +153,8 @@ class MicroBatcher:
         self.n_timeouts = 0
         self.n_completed = 0
         self.n_dispatch_errors = 0
+        self.n_scene_errors = 0
+        self.n_quota_denied = 0
         self.worker_restarts = 0
         self._inflight: list[_Pending] = []
         self._worker_dead = False
@@ -187,14 +214,29 @@ class MicroBatcher:
 
     # -- submission -----------------------------------------------------------
 
-    def submit(self, rays, near, far, ctx=None) -> ServeFuture:
+    def submit(self, rays, near, far, scene: str | None = None,
+               tenant: str | None = None, ctx=None) -> ServeFuture:
         """Enqueue a [N, C] ray request; returns a future. ``ctx`` (a
         ``SpanContext``) parents the request's spans; default: the calling
-        thread's current span. With the breaker open, submission fails
-        fast with :class:`BreakerOpenError`; bounds are checked here, so a
-        bad request never occupies the queue."""
+        thread's current span. With the breaker (or the tenant's) open,
+        submission fails fast with :class:`BreakerOpenError`; the tenant's
+        token bucket admits it or raises :class:`TenantQuotaError`; bounds
+        and the scene are checked here (an unknown scene raises
+        ``UnknownSceneError``), so a bad request never occupies the queue;
+        a known scene that is not resident starts its prefetch."""
+        tenant = None if tenant is None else str(tenant)
+        if self.qos is not None:
+            tb = self.qos.breaker(tenant)
+            if not tb.allow():
+                raise BreakerOpenError(tb.retry_after_s())
         if not self.breaker.allow():
             raise BreakerOpenError(self.breaker.retry_after_s())
+        if self.qos is not None:
+            try:
+                self.qos.admit(tenant)
+            except TenantQuotaError:  # 429 at the HTTP edge
+                self.n_quota_denied += 1
+                raise
         self.ensure_worker()
         check_baked_bounds(self.engine.near, self.engine.far, near, far,
                            surface="serve micro-batcher")
@@ -203,7 +245,13 @@ class MicroBatcher:
             raise ValueError(
                 f"rays must be a non-empty [N, C] array, got {rays.shape}"
             )
+        if scene is None or self.engine._is_default_scene(scene):
+            scene = None
+        else:
+            self.engine.require_scene(scene)   # 404 before queueing
+            self.engine.prefetch_scene(scene)  # overlap its copy to the card
         pending = _Pending(rays, ServeFuture(rays.shape[0]), self.clock(),
+                           scene=scene, tenant=tenant,
                            ctx=ctx if ctx is not None else current_ctx(),
                            t_trace=get_tracer().now())
         with self._cond:
@@ -238,7 +286,8 @@ class MicroBatcher:
 
     def _cut_batch(self) -> tuple[list[_Pending], int] | None:
         """Block until a batch edge fires; pop and return (batch, depth
-        left behind). None only on close with an empty queue."""
+        left behind). None only on close with an empty queue. A batch is
+        the queue head's scene's (the fair pop's with a QoS controller)."""
         with self._cond:
             while not self._queue and not self._stop:
                 self._cond.wait()
@@ -246,7 +295,9 @@ class MicroBatcher:
                 return None
             max_rays = self.options.max_batch_rays
             while not self._stop:
-                if sum(p.n_rays for p in self._queue) >= max_rays:
+                head = self._queue[0].scene
+                if sum(p.n_rays for p in self._queue
+                       if p.scene == head) >= max_rays:
                     break
                 remaining = self.options.max_delay_s - (
                     self.clock() - self._queue[0].t_enqueued
@@ -254,17 +305,65 @@ class MicroBatcher:
                 if remaining <= 0:
                     break
                 self._cond.wait(timeout=remaining)
-            # whole requests up to the ray budget (always >= 1: an oversize
-            # request still renders — the engine splits it)
+            if self.qos is not None:
+                batch = self._fair_pop(max_rays)
+                return batch, len(self._queue)
+            # whole head-scene requests up to the ray budget (always >= 1:
+            # an oversize request still renders — the engine splits it);
+            # other scenes and over-budget stragglers keep their order
+            scene = self._queue[0].scene
             batch: list[_Pending] = []
+            kept: list[_Pending] = []
             total = 0
-            while self._queue and (
-                not batch or total + self._queue[0].n_rays <= max_rays
-            ):
-                p = self._queue.popleft()
+            full = False
+            for p in self._queue:
+                if p.scene != scene or full:
+                    kept.append(p)
+                elif not batch or total + p.n_rays <= max_rays:
+                    batch.append(p)
+                    total += p.n_rays
+                else:
+                    full = True
+                    kept.append(p)
+            self._queue.clear()
+            self._queue.extend(kept)
+            return batch, len(self._queue)
+
+    def _fair_pop(self, max_rays: int) -> list[_Pending]:
+        """Weighted-fair batch assembly (caller holds the lock): the scene
+        of the least-served backlogged tenant's head; the budget fills
+        tenant by tenant in virtual-time order (arrival order within a
+        tenant, that scene only), each popped request advancing its
+        tenant by ``rays / weight``. A tenant (re)joining the backlog
+        starts at the active floor (idle time banks no credit)."""
+        by_tenant: dict[str, list[_Pending]] = {}
+        for p in self._queue:
+            by_tenant.setdefault(p.tenant or "", []).append(p)
+        floor = min((self._vtime[t] for t in by_tenant if t in self._vtime),
+                    default=0.0)
+        for t in by_tenant:
+            self._vtime[t] = max(self._vtime.get(t, floor), floor)
+        order = sorted(by_tenant, key=lambda t: self._vtime[t])
+        scene = by_tenant[order[0]][0].scene
+        batch: list[_Pending] = []
+        total = 0
+        for t in order:
+            weight = self.qos.weight(t or None)
+            for p in by_tenant[t]:
+                if p.scene != scene:
+                    continue
+                if batch and total + p.n_rays > max_rays:
+                    break
                 batch.append(p)
                 total += p.n_rays
-            return batch, len(self._queue)
+                self._vtime[t] += p.n_rays / weight
+            if total >= max_rays:
+                break
+        picked = set(map(id, batch))
+        kept = [p for p in self._queue if id(p) not in picked]
+        self._queue.clear()
+        self._queue.extend(kept)
+        return batch
 
     def pump(self) -> int:
         """Cut and render one batch synchronously; returns the number of
@@ -283,15 +382,24 @@ class MicroBatcher:
 
     def _request_row(self, p: _Pending, status: str, tier: str,
                      latency_s: float, queue_s: float) -> None:
+        """The request's row and metrics (JAX's fields: a timeout row names
+        no scene or tenant; the metrics label an ok request's tenant)."""
+        fields = {}
+        if status != "timeout":
+            fields = {**({} if p.scene is None else {"scene": str(p.scene)}),
+                      **({} if p.tenant is None else {"tenant": p.tenant})}
+        labels = ({"tenant": p.tenant} if status == "ok"
+                  and p.tenant is not None else {})
         get_emitter().emit("serve_request", latency_s=latency_s,
                            n_rays=p.n_rays, tier=tier, status=status,
-                           queue_s=queue_s)
+                           queue_s=queue_s, **fields)
         mx = get_metrics()
-        mx.counter("serve_requests_total", status=status, tier=tier)
+        mx.counter("serve_requests_total", status=status, tier=tier,
+                   **labels)
         if status in ("ok", "timeout"):
             mx.observe("serve_request_latency_seconds", latency_s,
                        trace_id=(p.ctx.trace_id if p.ctx is not None
-                                 else None), tier=tier)
+                                 else None), tier=tier, **labels)
 
     def _render_batch(self, batch: list[_Pending], queue_depth: int) -> int:
         emitter = get_emitter()
@@ -317,13 +425,26 @@ class MicroBatcher:
             return 0
         for p in live:
             trs.record("serve.queue", start_s=p.t_trace, end_s=t_cut,
-                       parent=p.ctx, stage="queue", n_rays=p.n_rays)
+                       parent=p.ctx, stage="queue", n_rays=p.n_rays,
+                       **({} if p.tenant is None else {"tenant": p.tenant}))
+
+        # a single-tenant batch (the fair pop's usual cut) charges that
+        # tenant's breaker and carries the tenant on its rows
+        tenants = {p.tenant for p in live}
+        batch_tenant = next(iter(tenants)) if len(tenants) == 1 else None
+        tenant_breaker = (self.qos.breaker(batch_tenant)
+                          if self.qos is not None and batch_tenant is not None
+                          else None)
+        tenant_fields = ({} if batch_tenant is None
+                         else {"tenant": batch_tenant})
 
         # failure degrades through the SAME ladder load does: consecutive
         # dispatch failures push the tier further down before the breaker
         # opens (cheaper captured routes, never a new capture)
         tier = self.policy.tier_for(queue_depth)
         steps = self.breaker.degrade_steps()
+        if tenant_breaker is not None:
+            steps = max(steps, tenant_breaker.degrade_steps())
         if steps:
             i = TIER_NAMES.index(tier)
             tier = TIER_NAMES[min(i + steps, len(TIER_NAMES) - 1)]
@@ -332,7 +453,7 @@ class MicroBatcher:
             self.n_shed += 1
             emitter.emit("serve_shed", tier=tier, queue_depth=queue_depth,
                          n_requests=len(live),
-                         n_rays=sum(p.n_rays for p in live))
+                         n_rays=sum(p.n_rays for p in live), **tenant_fields)
             get_metrics().counter("serve_sheds_total", tier=tier)
 
         segments = []
@@ -342,6 +463,8 @@ class MicroBatcher:
             segments.append((offset, length))
             offset += length
         flat = np.concatenate([p.rays[::stride] for p in live], axis=0)
+        scene = live[0].scene
+        scene_fields = {} if scene is None else {"scene": str(scene)}
         t0 = self.clock()
         # no try/finally around _inflight: a kill must LEAVE it set, so
         # the watchdog fails the stranded futures
@@ -353,13 +476,39 @@ class MicroBatcher:
             # riders); it nests the engine's dispatch/device spans
             with trs.span("serve.batch", parent=live[0].ctx, tier=tier,
                           n_requests=len(live), n_rays=int(flat.shape[0]),
-                          queue_depth=queue_depth):
-                fault_point("serve.flush")
-                out, info = self.engine.render_flat(flat, family)
+                          queue_depth=queue_depth, **scene_fields):
+                # the lease pins the scene for the whole render; the
+                # default scene takes none (the two-argument call)
+                with (nullcontext() if scene is None
+                      else self.engine.scene_lease(scene)) as data:
+                    fault_point("serve.flush")
+                    out, info = (
+                        self.engine.render_flat(flat, family)
+                        if data is None
+                        else self.engine.render_flat(flat, family, data))
+        except SceneError as err:
+            # scene-scoped: this scene's requests fail, the breaker stays
+            # closed, the other scenes keep serving
+            self.n_scene_errors += 1
+            self._last_dispatch_t = self.clock()
+            for p in live:
+                p.future.set_exception(err)
+                self._request_row(p, "scene_error", tier,
+                                  self.clock() - p.t_enqueued,
+                                  t0 - p.t_enqueued)
+            dump_flight("scene_error",
+                        detail=f"scene={scene} {type(err).__name__}: "
+                               f"{err}"[:200])
+            with self._cond:
+                self._inflight = []
+            return 0
         except Exception as err:  # fail this batch's requests, keep serving
             self.n_dispatch_errors += 1
             self._last_dispatch_t = self.clock()
-            self.breaker.record_failure()
+            if tenant_breaker is not None:
+                tenant_breaker.record_failure()
+            else:
+                self.breaker.record_failure()
             for p in live:
                 p.future.set_exception(err)
                 self._request_row(p, "error", tier,
@@ -373,12 +522,15 @@ class MicroBatcher:
         render_s = self.clock() - t0
         self._last_dispatch_t = self.clock()
         self.breaker.record_success()
+        if tenant_breaker is not None:
+            tenant_breaker.record_success()
         self.n_batches += 1
         emitter.emit("serve_batch", n_requests=len(live),
                      n_rays=int(flat.shape[0]),
                      occupancy=float(info["occupancy"]), tier=tier,
                      render_s=float(render_s), queue_depth=queue_depth,
-                     bucket_rays=int(info["bucket_rays"]))
+                     bucket_rays=int(info["bucket_rays"]), **scene_fields,
+                     **tenant_fields)
         t_done = self.clock()
         for p, (start, length) in zip(live, segments):
             t_sc = trs.now()
@@ -400,16 +552,26 @@ class MicroBatcher:
         return len(live)
 
     def stats(self) -> dict:
-        return {
+        out = {
             "queue_depth": self.queue_depth(),
             "n_batches": self.n_batches,
             "n_completed": self.n_completed,
             "n_shed": self.n_shed,
             "n_timeouts": self.n_timeouts,
             "n_dispatch_errors": self.n_dispatch_errors,
+            "n_scene_errors": self.n_scene_errors,
+            "n_quota_denied": self.n_quota_denied,
             "worker_restarts": self.worker_restarts,
             "breaker": self.breaker.snapshot(),
         }
+        if self.qos is not None:
+            with self._cond:
+                depths: dict[str, int] = {}
+                for p in self._queue:
+                    depths[p.tenant or ""] = depths.get(p.tenant or "", 0) + 1
+            out["tenant_queue_depth"] = depths
+            out["qos"] = self.qos.stats()
+        return out
 
     def last_dispatch_age_s(self) -> float | None:
         """Seconds since the last dispatch attempt (None before the

@@ -21,6 +21,11 @@ Routes (``task_arg.march_fused``, with a grid):
   ``march_clip_bbox``, else the per-ray march
   (``renderer/accelerated.py``).
 
+Under ``network.nerf.fused_trunk`` the staged routes' MLP runs through the
+fused kernels, as the port's eval routes do: K1 on the per-ray and
+``gather`` routes, K3a on the packed route (the JAX engine keeps the plain
+network there; the maps agree within K1's float32 gate).
+
 A checkpoint trained with ``sampling.mode: proposal`` carries the proposal
 branch (``has_proposal``) and adds the ``proposal`` family: on a grid, the
 packed proposal march (``march_rays_proposal_packed``: the resampler admits
@@ -33,9 +38,8 @@ to the (untrained) coarse network. A coarse+fine checkpoint serves the
 
 Without a grid (``accelerated_renderer: false``, or a grid file that is
 missing or unusable) every family renders through the chunked volume
-renderer (``renderer/volume.render_rays``) in ``chunk_size``-ray chunks.
-The staged and grid-less routes run the plain Network, as the JAX engine's
-do (its fused MLP is the one-shot surfaces' option, not the engine's).
+renderer (``renderer/volume.render_rays``) in ``chunk_size``-ray chunks,
+on the plain Network.
 
 CUDA graphs (``compile.aot``, the JAX engine's AOT registry): on the card
 :meth:`RenderEngine.warm_up` captures one graph per (bucket, family) route
@@ -45,20 +49,41 @@ the host under the engine's lock before another dispatch may replay. The
 ``gather`` route stays eager: it compacts the valid slots with
 ``torch.nonzero``, a data-dependent shape.
 
+Multi-scene serving (``fleet/``, JAX ``engine.py:566-762``): a
+:class:`~..fleet.ResidencyManager` attached by :meth:`attach_fleet` (or
+``engine_from_cfg`` through ``fleet_from_cfg``) keeps scenes on the card,
+and ``scene=`` on ``render_flat`` / ``render_request`` / ``render_view``
+renders one. JAX passes a scene's params, grid and bbox as ARGUMENTS of one
+compiled executable; the port's captured routes read the engine's tensors,
+so those tensors are **slots**: the network's parameters (which the bf16
+clone shares), one K5 ``FusedWeights`` per family (not per bucket), the grid
+and the bbox. A batch for scene S first copies S's tensors into the slots
+on the card and repacks K5's buffers from them (``FusedWeights.refresh``),
+under the engine's lock and only when the slots hold another scene; the
+engine's own checkpoint is one more scene (``default_scene``), so a switch
+back restores it. After warm-up no scene, switch or publish adds a
+capture or a route build (``route_builds``, ``captures`` in :meth:`stats`).
+Without a mesh a scene is placed by a plain copy to the card (from pinned
+host memory, on a side stream, with an event the copy into the slots
+waits on) and ``param_shards`` is 1; mesh serving comes with ROADMAP
+item 9 part 2.
+
 Each request dispatch passes the ``serve.dispatch`` fault point and runs
 under ``serve.dispatch`` (the host's part) and ``serve.device`` (the wait
-at the copy back) spans (``obs/trace.py``). Mesh and fleet are not ported.
+at the copy back) spans (``obs/trace.py``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from ..fleet.errors import SceneCompatError, UnknownSceneError
 from ..obs.trace import get_tracer
 from ..renderer.gate import check_baked_bounds
 from ..resil import fault_point
@@ -116,8 +141,8 @@ class RenderEngine:
         self.device = resolve_device(device)
         self.network = network.to(self.device).eval()
         self.has_proposal = _has_proposal_branch(self.network)
-        # the proposal family's fine MLP runs the masked kernel K3a under
-        # fused_trunk (make_fused_apply reads the tile from this config)
+        # under fused_trunk the staged and proposal routes' MLP runs the
+        # fused kernels (make_fused_apply reads the tile from this config)
         self._fused_cfg = (cfg if bool(cfg.network.nerf.get("fused_trunk",
                                                              False))
                            else None)
@@ -142,6 +167,20 @@ class RenderEngine:
             decimals=self.options.pose_decimals,
         )
         self._fns: dict[tuple[int, str], object] = {}
+        self.route_builds = 0
+        # K5's packed weights, one per family (the slots a scene switch
+        # repacks)
+        self._fused: dict[str, object] = {}
+        # multi-scene residency: the attached manager, the default scene's
+        # name and own tensors, and the scene the slots hold (None: the
+        # engine's own)
+        self.fleet = None
+        self.default_scene = "default"
+        self._own = None
+        self._slot_scene = None
+        self.slot_switches = 0
+        self._slot_events: list = []
+        self._slot_wall_ms: list = []
         # CUDA graphs of the routes (None: compile.aot off; disabled on the
         # CPU); a replay's outputs are static buffers, so one dispatch at a
         # time replays and copies them out
@@ -258,8 +297,11 @@ class RenderEngine:
         grid, bbox = self.grid, self.bbox
 
         if options.march_fused == "full":
-            spec = fused_spec_for(network)
-            weights = FusedWeights(spec, getattr(network, model))
+            weights = self._fused.get(family)
+            if weights is None:
+                weights = FusedWeights(fused_spec_for(network),
+                                       getattr(network, model))
+                self._fused[family] = weights
             k_tile = compositing_tile(options, chunk)
             xyz_enc, dir_enc = network.xyz_encoder, network.dir_encoder
 
@@ -271,8 +313,18 @@ class RenderEngine:
 
             return fn
 
-        def apply_fn(pts, viewdirs, _model):
-            return network(pts, viewdirs, model=model)
+        if self._fused_cfg is not None:
+            from ..ops.fused_mlp import make_fused_apply
+
+            fused = make_fused_apply(network, self._fused_cfg)
+
+            def apply_fn(pts, viewdirs, _model, valid=None):
+                return fused(pts, viewdirs, model, valid=valid)
+
+            apply_fn.supports_valid_mask = True
+        else:
+            def apply_fn(pts, viewdirs, _model):
+                return network(pts, viewdirs, model=model)
 
         march = staged_march_fn(apply_fn, near, far, grid, bbox, options,
                                 self.packed_cap)
@@ -284,6 +336,7 @@ class RenderEngine:
         if fn is None:
             fn = self._build_fn(bucket, family)
             self._fns[key] = fn
+            self.route_builds += 1
         return fn
 
     def _fn_name(self, bucket: int, family: str) -> str:
@@ -341,9 +394,14 @@ class RenderEngine:
 
     # -- rendering -----------------------------------------------------------
 
-    def _dispatch(self, rays_b: np.ndarray, bucket: int, family: str) -> dict:
+    def _dispatch(self, rays_b: np.ndarray, bucket: int, family: str,
+                  scene=None) -> dict:
         """One route call on exactly ``bucket`` rays (already padded): the
-        captured route's replay (its static outputs), else the route."""
+        captured route's replay (its static outputs), else the route.
+        ``scene`` (a pinned SceneData, None: the engine's own) is copied
+        into the slots first when they hold another (caller holds the
+        lock)."""
+        self._install_scene(scene)
         rays_h = torch.from_numpy(np.ascontiguousarray(rays_b))
         captured = self._captured.get((bucket, family))
         if captured is not None:
@@ -352,7 +410,7 @@ class RenderEngine:
             return self._get_fn(bucket, family)(rays_h.to(self.device))
 
     def _render_bucket(self, rays: np.ndarray, bucket: int, family: str,
-                       warm: bool = False) -> dict:
+                       warm: bool = False, scene=None) -> dict:
         n = rays.shape[0]
         rays_b = np.pad(rays, ((0, bucket - n), (0, 0)))
         trs = get_tracer()
@@ -366,7 +424,7 @@ class RenderEngine:
                     # chaos hook: an injected dispatch failure drives the
                     # batcher's breaker without touching the routes
                     fault_point("serve.dispatch")
-                out = dict(self._dispatch(rays_b, bucket, family))
+                out = dict(self._dispatch(rays_b, bucket, family, scene))
             with trs.span("serve.device", stage="device", bucket=int(bucket)):
                 # per-chunk traversal stats (the packed and fused routes)
                 stats = {k: out.pop(k).cpu().numpy() for k in (
@@ -395,9 +453,12 @@ class RenderEngine:
                 return b
         return self.buckets[-1]
 
-    def render_flat(self, rays, family: str = "full") -> tuple[dict, dict]:
+    def render_flat(self, rays, family: str = "full",
+                    scene=None) -> tuple[dict, dict]:
         """Render a flat [N, 6] ray array through the bucketed routes;
-        returns ``(outputs, info)`` with host numpy [N, ...] outputs."""
+        returns ``(outputs, info)`` with host numpy [N, ...] outputs.
+        ``scene``: a pinned SceneData (:meth:`scene_lease`), rendered
+        through the same routes; None: the engine's own checkpoint."""
         if family == "proposal" and not self.has_proposal:
             family = "reduced_k"
         rays = np.asarray(rays, np.float32)
@@ -409,11 +470,12 @@ class RenderEngine:
         i = 0
         while n - i > largest:
             pieces.append(self._render_bucket(rays[i:i + largest], largest,
-                                              family))
+                                              family, scene=scene))
             used.append(largest)
             i += largest
         bucket = self.bucket_for(n - i)
-        pieces.append(self._render_bucket(rays[i:], bucket, family))
+        pieces.append(self._render_bucket(rays[i:], bucket, family,
+                                          scene=scene))
         used.append(bucket)
         out = pieces[0] if len(pieces) == 1 else {
             k: np.concatenate([p[k] for p in pieces], axis=0)
@@ -430,15 +492,19 @@ class RenderEngine:
         }
         return out, info
 
-    def render_request(self, rays, near, far, tier: str = "full") -> dict:
+    def render_request(self, rays, near, far, tier: str = "full",
+                       scene=None) -> dict:
         """Render one request at ``tier``; bounds must match the baked ones.
-        ``half_res`` renders every 2nd ray and repeats it back to [N, ...]."""
+        ``half_res`` renders every 2nd ray and repeats it back to [N, ...].
+        ``scene`` names a registry scene (None: the engine's own), pinned
+        for the render."""
         check_baked_bounds(self.near, self.far, near, far,
                            surface="serve engine")
         family, stride = TIER_IMPL[tier]
         rays = np.asarray(rays, np.float32)
         n = rays.shape[0]
-        out, _ = self.render_flat(rays[::stride], family)
+        with self.scene_lease(scene) as data:
+            out, _ = self.render_flat(rays[::stride], family, data)
         if stride > 1:
             out = {k: np.repeat(v, stride, axis=0)[:n] for k, v in out.items()}
         self.n_requests += 1
@@ -446,13 +512,19 @@ class RenderEngine:
         return out
 
     def render_view(self, c2w, H: int, W: int, focal: float,
-                    tier: str = "full", via=None) -> tuple[np.ndarray, dict]:
+                    tier: str = "full", via=None,
+                    scene=None) -> tuple[np.ndarray, dict]:
         """Pose -> uint8 [H, W, 3] image through the pose LRU cache.
         ``via(rays, near, far) -> out dict`` overrides the render path (the
-        HTTP entry passes the micro-batcher's submit)."""
+        HTTP entry passes the micro-batcher's submit). ``scene`` selects
+        the scene's own pose cache and render target."""
         from ..datasets.rays import get_rays_np
 
-        cache = self.cache
+        if self._is_default_scene(scene):
+            cache, scene = self.cache, None
+        else:
+            self.require_scene(scene)
+            cache = self.fleet.pose_cache(scene)
         key = cache.key(c2w, H, W, focal)
         cached = cache.get(key)
         if cached is not None:
@@ -463,7 +535,8 @@ class RenderEngine:
         if via is not None:
             out = via(rays, self.near, self.far)
         else:
-            out = self.render_request(rays, self.near, self.far, tier=tier)
+            out = self.render_request(rays, self.near, self.far, tier=tier,
+                                      scene=scene)
         served_tier = out.get("tier", tier)
         # the grid-less coarse tier renders coarse only
         rgb_key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
@@ -471,6 +544,201 @@ class RenderEngine:
         image = (rgb * 255).astype(np.uint8)
         cache.put(key, (image, served_tier))
         return image, {"tier": served_tier, "cache_hit": False}
+
+    # -- multi-scene residency (fleet/) ---------------------------------------
+
+    def place_scene_tree(self, tree):
+        """A scene's host ``(params, grid, bbox)`` on the engine's device:
+        ``(device tree, ready event)``. On a card the copy runs on a side
+        stream from the (pinned) host tensors and records the event the
+        slot copy waits on; on the CPU the host tensors are the scene."""
+        params, grid, bbox = tree
+        if self.device.type != "cuda":
+            return (params, grid, bbox), None
+        stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(stream):
+            def put(t):
+                return None if t is None else t.to(self.device,
+                                                   non_blocking=True)
+
+            out = ({k: put(v) for k, v in params.items()}, put(grid),
+                   put(bbox))
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return out, ready
+
+    def pin_scene_tree(self, data):
+        """``data`` with its host tensors page-locked (a card's async
+        copies and the staging tier read them)."""
+        def pin(t):
+            return None if t is None else t.pin_memory()
+
+        return replace(data, params={k: pin(v) for k, v in
+                                     data.params.items()},
+                       grid=pin(data.grid), bbox=pin(data.bbox))
+
+    def scene_shard_nbytes(self, tree) -> int:
+        """Bytes one device holds once :meth:`place_scene_tree` placed
+        ``tree`` (no mesh: every tensor whole)."""
+        params, grid, bbox = tree
+        return sum(int(t.numel()) * int(t.element_size())
+                   for t in (*params.values(), grid, bbox) if t is not None)
+
+    @property
+    def param_shards(self) -> int:
+        """How many ways scene params split across devices (1: no serving
+        mesh)."""
+        return 1
+
+    def attach_fleet(self, residency, default_scene: str = "default") -> None:
+        """Install a :class:`~..fleet.ResidencyManager`: its compat check,
+        placement and byte hooks. The engine's own tensors are kept as the
+        default scene's, so a switch back restores them."""
+        residency.validate = self._check_scene_compat
+        residency.placer = self.place_scene_tree
+        residency.shard_nbytes = self.scene_shard_nbytes
+        residency.param_shards = self.param_shards
+        if self.device.type == "cuda":
+            residency.pin = self.pin_scene_tree
+        with self._lock:
+            if self._own is None:
+                from ..fleet.residency import SceneData
+
+                self._own = SceneData(
+                    scene_id=str(default_scene),
+                    params={k: v.detach().clone() for k, v in
+                            self.network.state_dict().items()},
+                    grid=None if self.grid is None else self.grid.clone(),
+                    bbox=None if self.bbox is None else self.bbox.clone(),
+                    near=self.near, far=self.far)
+                self._slot_scene = self._own
+        self.fleet = residency
+        self.default_scene = str(default_scene)
+
+    def _is_default_scene(self, scene_id) -> bool:
+        return scene_id is None or scene_id == self.default_scene
+
+    def resident_scenes(self) -> list[str]:
+        """Scene ids served without a disk load now: the resident set plus
+        the staging tier's."""
+        if self.fleet is None:
+            return []
+        ids = list(self.fleet.resident_ids())
+        staged = getattr(self.fleet, "staged_ids", None)
+        if staged is not None:
+            ids.extend(s for s in staged() if s not in ids)
+        return ids
+
+    def require_scene(self, scene_id) -> None:
+        """Synchronous existence check (404 before a bad scene id occupies
+        the queue)."""
+        if self._is_default_scene(scene_id):
+            return
+        if self.fleet is None:
+            raise UnknownSceneError(
+                scene_id, f"scene {scene_id!r} requested but multi-scene "
+                          "serving is not configured (fleet.manifest / "
+                          "fleet.scan_dir)")
+        self.fleet.registry.get(scene_id)
+
+    def prefetch_scene(self, scene_id) -> bool:
+        """Start a background load of ``scene_id`` (no-op when resident,
+        loading, default or fleet-less)."""
+        if self.fleet is None or self._is_default_scene(scene_id):
+            return False
+        return self.fleet.prefetch(scene_id)
+
+    @contextmanager
+    def scene_lease(self, scene_id):
+        """Pin ``scene_id`` for a render block, yielding its SceneData (None:
+        the engine's own checkpoint); the manager cannot evict it
+        meanwhile."""
+        if self._is_default_scene(scene_id):
+            yield None
+            return
+        self.require_scene(scene_id)
+        with self.fleet.lease(scene_id) as data:
+            yield data
+
+    def _check_scene_compat(self, data) -> None:
+        """Reject scenes the warmed routes cannot serve as they are."""
+        sid = data.scene_id
+        if (data.grid is not None) != self.use_grid:
+            raise SceneCompatError(
+                sid, f"scene {sid!r}: grid presence ({data.grid is not None})"
+                     f" does not match the engine's path (use_grid="
+                     f"{self.use_grid})")
+        if abs(data.near - self.near) > 1e-6 or abs(data.far - self.far) > 1e-6:
+            raise SceneCompatError(
+                sid, f"scene {sid!r}: bounds ({data.near}, {data.far}) differ "
+                     f"from the baked ({self.near}, {self.far})")
+        ours = self.network.state_dict()
+        if set(data.params) != set(ours):
+            raise SceneCompatError(
+                sid, f"scene {sid!r}: state dict names differ from the "
+                     "engine's network")
+        for k, v in ours.items():
+            t = data.params[k]
+            if tuple(t.shape) != tuple(v.shape) or t.dtype != v.dtype:
+                raise SceneCompatError(
+                    sid, f"scene {sid!r}: {k} {tuple(t.shape)}/{t.dtype} vs "
+                         f"engine {tuple(v.shape)}/{v.dtype}")
+        if self.use_grid and (tuple(data.grid.shape) != tuple(self.grid.shape)
+                              or data.grid.dtype != self.grid.dtype):
+            raise SceneCompatError(
+                sid, f"scene {sid!r}: grid {tuple(data.grid.shape)}/"
+                     f"{data.grid.dtype} vs engine {tuple(self.grid.shape)}/"
+                     f"{self.grid.dtype}")
+
+    @torch.inference_mode()
+    def _install_scene(self, scene) -> None:
+        """Copy ``scene`` (None: the default scene) into the slots unless
+        they hold it: parameters, K5's packed weights, grid, bbox — on the
+        serving stream, after the scene's placement event (caller holds
+        the lock). Inference mode: the packed buffers were made by a warm-up
+        inside it."""
+        if self._own is None:
+            return  # no fleet: the slots hold the engine's own weights
+        data = self._own if scene is None else scene
+        if data is self._slot_scene:
+            return
+        t0 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            if data.ready is not None:
+                stream.wait_event(data.ready)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        pairs = [(v, data.params[k]) for k, v in
+                 self.network.state_dict().items()]
+        if self.use_grid:
+            pairs += [(self.grid, data.grid), (self.bbox, data.bbox)]
+        for dst, src in pairs:
+            dst.copy_(src)
+            if cuda and src.device.type == "cuda":
+                # the allocator must not hand this memory out again before
+                # the serving stream's copy has read it
+                src.record_stream(stream)
+        for family, weights in self._fused.items():
+            model = "coarse" if family == "coarse" else "fine"
+            weights.refresh(getattr(self._family_network(family), model))
+        if cuda:
+            end.record(stream)
+            self._slot_events = (self._slot_events + [(start, end)])[-256:]
+        self._slot_wall_ms = (self._slot_wall_ms + [
+            (time.perf_counter() - t0) * 1e3])[-256:]
+        self._slot_scene = data
+        self.slot_switches += 1
+
+    def slot_copy_ms(self) -> list[float]:
+        """Device ms of the recent slot switches (CUDA events; the host's
+        enqueue ms on the CPU)."""
+        if not self._slot_events:
+            return list(self._slot_wall_ms)
+        self._slot_events[-1][1].synchronize()
+        return [s.elapsed_time(e) for s, e in self._slot_events]
 
     # -- introspection -------------------------------------------------------
 
@@ -522,7 +790,13 @@ class RenderEngine:
             "compile": None if self.aot is None else self.aot.summary(),
             "captured_routes": sorted(
                 self._fn_name(b, f) for b, f in self._captured),
+            "route_builds": self.route_builds,
             "cache": self.cache.stats(),
+            # multi-scene residency (None: single-scene serving) and the
+            # slot switches its batches took
+            "fleet": None if self.fleet is None else self.fleet.stats(),
+            "slots": {"switches": self.slot_switches,
+                      "param_shards": self.param_shards},
         }
 
 
@@ -570,4 +844,12 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
     engine.default_camera = {
         "H": int(test_ds.H), "W": int(test_ds.W), "focal": float(test_ds.focal),
     }
+    # multi-scene residency: only when the fleet block names a manifest,
+    # a scan_dir or a store_dir (JAX engine.py:1099)
+    from ..fleet import fleet_from_cfg
+
+    residency = fleet_from_cfg(cfg, engine)
+    if residency is not None:
+        print(f"fleet: {len(residency.registry)} scenes registered, "
+              f"budget {residency.budget_bytes / (1 << 20):.0f} MB")
     return engine

@@ -256,7 +256,13 @@ def load_model(model_dir: str, state, epoch: int = -1):
         raise ValueError(f"{target} holds no grid_ema to resume an NGP "
                          "run from")
     state.network.load_state_dict(blob["network"], strict=True)
-    load_optimizer_state(state.optimizer, blob["optimizer"])
+    saved_opt = blob["optimizer"]
+    tp = getattr(state, "tp", None)
+    if tp is not None:
+        # a tensor-parallel state slices the one-card bundle to its blocks
+        tp.pull_blocks()
+        saved_opt = tp.slice_optimizer_state(saved_opt)
+    load_optimizer_state(state.optimizer, saved_opt)
     state.step = int(blob["step"])
     state.epoch_it = int(blob.get("epoch_it", 0))
     if getattr(state, "grid_ema", None) is not None:
@@ -301,13 +307,23 @@ def load_network(model_dir: str, network: torch.nn.Module,
     pinned epoch loads exactly that file. Returns the loaded epoch (-1 for
     ``latest``), and leaves ``network`` unchanged (returning -1) when there
     is no checkpoint."""
+    state, loaded = read_network(model_dir, epoch)
+    if state is not None:
+        network.load_state_dict(state, strict=True)
+    return loaded
+
+
+def read_network(model_dir: str, epoch: int = -1) -> tuple[dict | None,
+                                                            int]:
+    """``(state dict of CPU tensors, loaded epoch)`` as :func:`load_network`
+    picks it (``-1`` for ``latest``), or ``(None, -1)`` without a
+    checkpoint."""
     cands = _candidates(model_dir, epoch)
     if not cands:
-        return -1
+        return None, -1
     blob, target = _load_first(cands)
-    network.load_state_dict(blob["network"], strict=True)
     name = os.path.basename(target)[:-len(".pt")]
-    return -1 if name == "latest" else int(name)
+    return blob["network"], -1 if name == "latest" else int(name)
 
 
 def save_pretrain(pretrain_dir: str, network: torch.nn.Module) -> str:

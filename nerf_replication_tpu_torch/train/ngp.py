@@ -787,6 +787,13 @@ def fit_ngp(cfg, network=None, log=print, device="cuda"):
     )
     from .recorder import make_recorder
 
+    if int(cfg.get("parallel", {}).get("model_axis", 1)) > 1:
+        # JAX train/ngp.py:980, before any process group or data
+        raise NotImplementedError(
+            "ngp_training supports data parallelism only (the occupancy "
+            "march has no tensor-parallel seam yet) — set "
+            "parallel.model_axis 1"
+        )
     mesh, dev = setup_mesh(cfg, device, log)
     configure_runtime(cfg)
     if network is None:

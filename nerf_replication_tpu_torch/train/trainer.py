@@ -66,6 +66,14 @@ a SIGTERM is agreed by a MAX over the ranks' flags at each burst boundary);
 only the chief writes checkpoints, the recorder's files and telemetry, with a
 barrier after each save. Validation renders on the chief, or on every rank
 through the sequence-parallel gate under ``eval.sharded``.
+
+Tensor parallelism (``parallel.model_axis > 1``, JAX ``trainer.py:128``):
+the state is split by the rule table (``parallel.step.shard_train_state``:
+the optimizer updates this rank's blocks), each block broadcast within its
+data group, and the steps go through ``parallel.step.TPStep``; precrop
+refuses first, in JAX's words. Checkpoints hold the gathered state (an
+ordinary one-card checkpoint, which a TP resume slices), and validation
+renders the weights gathered at the end of each epoch.
 """
 
 from __future__ import annotations
@@ -105,13 +113,16 @@ class TrainState:
     """What the JAX ``TrainState`` holds: the network (parameters), the
     optimizer (its moments) with its lr schedule, and the step count;
     ``epoch_it``: the steps of the current epoch already taken when a run
-    stopped mid-epoch (a SIGTERM flush), 0 otherwise."""
+    stopped mid-epoch (a SIGTERM flush), 0 otherwise; ``tp``: under tensor
+    parallelism the ``parallel.step.TPLayout`` (the optimizer then updates
+    this rank's blocks; ``parallel.step.shard_train_state``)."""
 
     network: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: object
     step: int = 0
     epoch_it: int = 0
+    tp: object = None
 
 
 def make_train_state(cfg, network, device) -> TrainState:
@@ -228,14 +239,32 @@ class Trainer:
         # proposal anneal reads (batch["step"]), both filled before a step
         self._gen: torch.Generator | None = None
         self._step_t: torch.Tensor | None = None
-        # the data-parallel step over a mesh (parallel/step.py)
+        # the sharded step over a mesh (parallel/step.py)
         self._dp = None
         if mesh is not None:
-            from ..parallel.step import DPStep
+            self._dp = self._build_sharded_step()
 
-            self._dp = DPStep(mesh, loss, self.n_rays, self.near, self.far,
-                              seed=self.seed, k_steps=self.scan_steps,
-                              grad_accum=self.grad_accum)
+    def _uses_tp(self) -> bool:
+        from ..parallel.mesh import MODEL_AXIS
+
+        return self.mesh is not None and self.mesh.shape[MODEL_AXIS] > 1
+
+    def _build_sharded_step(self):
+        """One routing ladder for every mesh (JAX ``trainer.py:128``):
+        ``model_axis > 1`` through the GSPMD step (``TPStep``), pure data
+        parallelism through ``DPStep``."""
+        from ..parallel.step import build_dp_step, build_gspmd_step
+
+        if self._uses_tp():
+            refuse_tp_precrop(self.cfg, self.mesh)
+            return build_gspmd_step(self.mesh, self.loss, self.n_rays,
+                                    self.near, self.far, seed=self.seed,
+                                    k_steps=self.scan_steps,
+                                    grad_accum=self.grad_accum)
+        return build_dp_step(self.mesh, self.loss, self.n_rays, self.near,
+                             self.far, seed=self.seed,
+                             k_steps=self.scan_steps,
+                             grad_accum=self.grad_accum)
 
     def epoch_iters(self, bank_size: int) -> int:
         """Steps per epoch; ep_iter=-1 means one pass over the bank."""
@@ -356,7 +385,7 @@ class Trainer:
         ``state.epoch_it`` set to the steps taken."""
         bank_rays, bank_rgbs, pool = bank[0], bank[1], index_pool
         # the bank's global size (a rank holds 1/world of it)
-        world = 1 if self.mesh is None else self.mesh.size
+        world = 1 if self.mesh is None else self.mesh.shape["data"]
         max_iter = self.epoch_iters(int(bank_rays.shape[0]) * world)
         end = time.time()
         log_interval = int(self.cfg.get("log_interval", 20))
@@ -494,11 +523,24 @@ def validates(begin_epoch: int, epochs: int, eval_ep: int) -> bool:
     return any((e + 1) % eval_ep == 0 for e in range(begin_epoch, epochs))
 
 
+def refuse_tp_precrop(cfg, mesh) -> None:
+    """Precrop warm-up over a tensor-parallel mesh raises, in JAX's words
+    (``trainer.py:140``), before the data loads."""
+    if (mesh is not None and mesh.model > 1
+            and int(cfg.task_arg.get("precrop_iters", 0)) > 0):
+        raise NotImplementedError(
+            "precrop warm-up is not supported with "
+            "parallel.model_axis > 1 — set task_arg.precrop_iters 0 "
+            "or train pure-DP"
+        )
+
+
 def setup_mesh(cfg, device, log=print):
     """The run's process group and mesh: ``(mesh or None, this rank's
     device)``. Starts the group when a launcher asked for one
-    (``parallel.multihost_init``); one process trains on one card;
-    ``parallel.model_axis > 1`` raises (``make_mesh_from_cfg``)."""
+    (``parallel.multihost_init``); one process trains on one card; over
+    ranks the ``(data, model)`` mesh ``cfg.parallel`` asks for
+    (``make_mesh_from_cfg``)."""
     from ..parallel.mesh import make_mesh_from_cfg, multihost_init, \
         rank_device
     from ..utils.platform import resolve_device
@@ -515,10 +557,19 @@ def setup_mesh(cfg, device, log=print):
 def sync_state(state, mesh, grid=None) -> None:
     """Rank 0's parameters, optimizer moments and step counts (and an NGP
     state's grid EMA) on every rank, in place (after init, resume or a
-    ``pretrain`` warm start)."""
+    ``pretrain`` warm start). A tensor-parallel state broadcasts each block
+    and its moments within its data group (the ranks of its model index)
+    from data index 0, then gathers the full weights."""
     if mesh is None:
         return
     from ..parallel.collectives import broadcast_from_chief
+
+    if getattr(state, "tp", None) is not None:
+        state.tp.broadcast_blocks(state.optimizer)
+        state.tp.gather(all_leaves=True)
+        state.step, state.epoch_it = broadcast_from_chief(
+            (int(state.step), int(state.epoch_it)), mesh)
+        return
 
     opt = state.optimizer
     tensors = [p.data for g in opt.param_groups for p in g["params"]]
@@ -537,9 +588,13 @@ def sync_state(state, mesh, grid=None) -> None:
 def chief_save(cfg, state, epoch: int, recorder, mesh, log=print,
                **kw) -> None:
     """``save_model_with_retry`` on the chief, then a barrier: no rank reads
-    a partial file."""
+    a partial file. A tensor-parallel state is gathered first (every rank
+    takes part), so the chief writes an ordinary one-card checkpoint."""
     from ..parallel.collectives import barrier
     from ..parallel.mesh import is_chief
+
+    if getattr(state, "tp", None) is not None:
+        state = state.tp.full_state(state)
 
     if is_chief():
         save_model_with_retry(cfg, cfg.trained_model_dir, state, epoch,
@@ -560,7 +615,8 @@ def shard_inputs(cfg, train_ds, mesh, dev, precrop: bool):
 
         perm = np.random.default_rng(int(cfg.get("seed", 0))).permutation(
             rays.shape[0])
-        n_bank = (rays.shape[0] // mesh.size) * mesh.size
+        n_data = mesh.shape["data"]
+        n_bank = (rays.shape[0] // n_data) * n_data
         rays, rgbs = shard_bank(rays[perm], rgbs[perm], mesh)
         if pool is not None:
             inv = np.empty_like(perm)
@@ -596,6 +652,7 @@ def fit(cfg, network=None, log=print, device="cuda"):
 
         return fit_ngp(cfg, network=network, log=log, device=device)
     mesh, dev = setup_mesh(cfg, device, log)
+    refuse_tp_precrop(cfg, mesh)
     configure_runtime(cfg)
 
     if network is None:
@@ -611,6 +668,11 @@ def fit(cfg, network=None, log=print, device="cuda"):
     # telemetry opens AFTER the recorder (a fresh run wipes record_dir)
     emitter = init_run(cfg, component="train")
     state = make_train_state(cfg, network, dev)
+    if trainer._uses_tp():
+        from ..parallel.step import shard_train_state
+
+        state = shard_train_state(state, mesh, column=not bool(
+            cfg.network.nerf.get("fused_trunk", False)))
 
     begin_epoch = 0
     if cfg.get("resume", True):
@@ -620,6 +682,8 @@ def fit(cfg, network=None, log=print, device="cuda"):
             recorder.load_state_dict(rec_state)
     if begin_epoch == 0 and state.epoch_it == 0 and cfg.get("pretrain", ""):
         load_pretrain(str(cfg.pretrain), state.network)
+        if state.tp is not None:
+            state.tp.pull_blocks()
     sync_state(state, mesh)
     if is_chief():
         save_trained_config(cfg)
@@ -675,6 +739,9 @@ def fit(cfg, network=None, log=print, device="cuda"):
                 break
             _epoch_rows(emitter, epoch, state.step, state.step - step_before,
                         time.time() - t_epoch, time.time() - t_fit_start)
+            if state.tp is not None:
+                # validation renders the gathered weights (every rank)
+                state.tp.gather(all_leaves=True)
             for latest, every in ((False, save_ep), (True, save_latest_ep)):
                 if (epoch + 1) % every == 0:
                     chief_save(cfg, state, epoch, recorder, mesh, log=log,

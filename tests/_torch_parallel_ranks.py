@@ -469,3 +469,100 @@ def checks_job(rank, world, p):
 
 
 JOBS["checks"] = checks_job
+
+
+# -- tests/test_torch_tensor_parallel.py: the TP step against DPStep ---------
+
+def _tp_vs_dp(mesh, p, case):
+    """Two TP steps and two DP steps over this rank's data group (the same
+    draws: the streams of its data index) from one seeded init: each
+    block and its Adam moments against the DP state's columns; the
+    gathered weights against the DP network; and, on the chief, the
+    gathered state saved as a one-card checkpoint."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.parallel.sharding import shard_bank
+    from nerf_replication_tpu_torch.parallel.step import (
+        build_dp_step,
+        build_gspmd_step,
+        shard_train_state,
+    )
+    from nerf_replication_tpu_torch.registry import load_attr
+    from nerf_replication_tpu_torch.train.checkpoint import save_model
+    from nerf_replication_tpu_torch.train.trainer import make_train_state
+
+    c = p["cases"][case]
+    cfg = make_cfg(c["cfg_file"], c["opts"])
+    fused = bool(cfg.network.nerf.get("fused_trunk", False))
+
+    def build():
+        net = make_network(cfg)
+        loss = load_attr(cfg.loss_module, "make_loss",
+                         "NetworkWrapper")(cfg, net)
+        return loss, make_train_state(cfg, net, "cpu")
+
+    bank = [torch.from_numpy(a) for a in shard_bank(
+        c["bank_rays"], c["bank_rgbs"], mesh.data_mesh())]
+    loss, state = build()
+    state = shard_train_state(state, mesh, column=not fused)
+    tp = build_gspmd_step(mesh, loss, p["n_global"], 2.0, 6.0)
+    dloss, dstate = build()
+    dp = build_dp_step(mesh.data_mesh(), dloss, p["n_global"], 2.0, 6.0)
+    losses, grads = [], {}
+    dparams = dict(dstate.network.named_parameters())
+    for s in range(p["steps"]):
+        state, st = tp(state, *bank)
+        dstate, dst = dp(dstate, *bank)
+        losses.append((float(st["loss"]), float(dst["loss"])))
+        if s == 0:  # the first step's reduced, clipped gradients
+            for leaf in state.tp.leaves:
+                ref = dparams[leaf.name].grad
+                if leaf.dim is not None:
+                    ref = ref.narrow(leaf.dim, leaf.start, leaf.length)
+                grads[leaf.name] = (leaf.block.grad.numpy().copy(),
+                                    ref.numpy().copy())
+    blocks = {}
+    for leaf in state.tp.leaves:
+        ref = dparams[leaf.name].detach()
+        dst_opt = dstate.optimizer.state[dparams[leaf.name]]
+        mine = state.optimizer.state[leaf.block]
+        if leaf.dim is not None:
+            ref = ref.narrow(leaf.dim, leaf.start, leaf.length)
+        moments = {}
+        for k in ("exp_avg", "exp_avg_sq"):
+            r = dst_opt[k]
+            if leaf.dim is not None:
+                r = r.narrow(leaf.dim, leaf.start, leaf.length)
+            moments[k] = (mine[k].numpy().copy(), r.numpy().copy())
+        blocks[leaf.name] = {"param": (leaf.block.detach().numpy().copy(),
+                                       ref.numpy().copy()),
+                             "moments": moments, "dim": leaf.dim,
+                             "column": leaf.column}
+    full = state.tp.full_state(state)
+    gathered = {k: (v.numpy().copy(), dparams[k].detach().numpy().copy())
+                for k, v in full.network.state_dict().items()
+                if k in dparams}
+    if mesh.rank == 0 and c.get("save"):
+        save_model(c["save"], full, 0)
+    return {"losses": losses, "blocks": blocks, "gathered": gathered,
+            "grads": grads,
+            "shape": mesh.shape, "index": (mesh.data_index,
+                                           mesh.model_index)}
+
+
+def tp_job(rank, world, p):
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(-1, p["model"], device="cpu")
+    out = {case: _tp_vs_dp(mesh, p, case) for case in p["cases"]}
+    errors = {}
+    for data_axis in p.get("bad_data_axes", ()):
+        try:
+            make_mesh(data_axis, p["model"], device="cpu")
+        except ValueError as err:
+            errors[data_axis] = str(err)
+    out["errors"] = errors
+    return out
+
+
+JOBS["tp"] = tp_job

@@ -499,7 +499,7 @@ def test_eval_render_cap_derivation_escalation_and_refusals(scene, tmp_path):
     """The packed eval cap is derived once from a carved grid's occupancy
     and doubles when a render overflows it; march_fused full (the
     frequency-only mega-kernel) is refused on the NGP eval; tensor
-    parallelism names ROADMAP item 8 part 2 and an NGP batch the world size
+    parallelism is refused in JAX's words and an NGP batch the world size
     does not divide raises; load_trained_network defaults to the card and
     refuses silently serving from the CPU."""
     from nerf_replication_tpu_torch.datasets import make_dataset
@@ -534,7 +534,8 @@ def test_eval_render_cap_derivation_escalation_and_refusals(scene, tmp_path):
     with pytest.raises(ValueError, match="march_fused='full'"):
         trainer.render_image(trainer.make_state("cpu"),
                              {"rays": torch.from_numpy(batch["rays"])})
-    with pytest.raises(NotImplementedError, match="item 8 part 2"):
+    with pytest.raises(NotImplementedError,
+                       match="ngp_training supports data parallelism only"):
         fit_ngp(make_cfg(LEGO_HASH, _ngp_opts(scene, str(tmp_path), [
             "parallel.model_axis", "2"])), device="cpu")
     from nerf_replication_tpu_torch.parallel.mesh import Mesh

@@ -303,20 +303,25 @@ def test_train_entry_point_runs_one_epoch(scene, tmp_path):
 
 
 def test_fit_refuses_later_slices(scene, tmp_path):
-    """Tensor parallelism (``model_axis 2``) still raises, naming ROADMAP
-    item 8 part 2; ``data_axis 2`` in one process trains on one card, as
-    JAX with one device builds no mesh."""
+    """NGP training with ``model_axis 2`` still refuses, in JAX's words
+    (``fit`` routes it to ``fit_ngp``); ``model_axis 2`` or ``data_axis 2``
+    in one process trains on one card, as JAX with one device builds no
+    mesh (tensor parallelism needs ranks: tests/test_torch_tensor_
+    parallel.py)."""
     from nerf_replication_tpu_torch.train.trainer import fit
 
     cfg = make_cfg(LEGO, _tiny_opts(scene, str(tmp_path), "x",
-                                    ["parallel.model_axis", "2"]))
-    with pytest.raises(NotImplementedError, match="item 8 part 2"):
+                                    ["parallel.model_axis", "2",
+                                     "task_arg.ngp_training", "true"]))
+    with pytest.raises(NotImplementedError,
+                       match="ngp_training supports data parallelism only"):
         fit(cfg, device="cpu")
-    cfg = make_cfg(LEGO, _tiny_opts(scene, str(tmp_path), "y",
-                                    ["parallel.data_axis", "2",
-                                     "train.epoch", "1"]))
-    state = fit(cfg, device="cpu", log=lambda s: None)
-    assert state.step == 10
+    for name, axis in (("y", "parallel.data_axis"),
+                       ("z", "parallel.model_axis")):
+        cfg = make_cfg(LEGO, _tiny_opts(scene, str(tmp_path), name,
+                                        [axis, "2", "train.epoch", "1"]))
+        state = fit(cfg, device="cpu", log=lambda s: None)
+        assert state.step == 10 and state.tp is None
 
 
 def test_scan_step_bursts_keep_the_numerics(scene, tmp_path):
