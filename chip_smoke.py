@@ -241,6 +241,38 @@ imports nothing of JAX. Phases, each fatal on failure:
    plain versions); slot-copy ms, evictions, demotions, prefetch hits and
    the publish drain printed with the card.
 
+20. the scale-out stack (``scale/``, ``obs/{alerts,incidents,capacity}``),
+   each serve child a ``python -m nerf_replication_tpu_torch.serve --device
+   cuda`` process spawned by ``scale.ProcessLauncher`` (cwd: the phase's
+   directory, the kernel libraries from the store phase 1 filled):
+   (a) one child serving phase 6's checkpoint and grid on ``march_fused
+   gather`` (K4) with the alert windows and hold shortened by config
+   (``SCALE_OPS_OPTS``) and a ``serve.dispatch`` io_error plan installed
+   by its interpreter (``_FAULT_PYTHON``: after SCALE_FAULT_AFTER
+   dispatches, SCALE_FAULT_TIMES failures, then none); while requests go
+   to it the page fires on both windows, an incident opens with the
+   breaker's flight dump and the faults on its timeline, ``GET /alerts``
+   lists the page, which clears after its hold once the faults are spent;
+   ``POST /drain`` with requests in flight replies ``n_failed 0`` and the
+   child exits 0. (b) children serving ``full`` (K5) with phase 19's four
+   lego scenes (``fleet.manifest``): every child ready with ``warm_source
+   disk`` and ``total_compiles`` 0 (no nvcc run, no capture after
+   warm-up), no capture or route build after warm-up (``/stats``); a
+   ``Router`` sends 64 pose requests from 4 threads over scenes a and c
+   and tenants t1 and t2, each image bitwise the in-process engine's; 16
+   routed and 16 direct requests (p50, p95); one routed request's
+   ``serve.request`` span under the router's ``route.dispatch`` in the
+   child's telemetry; ``GET /fleet/metrics`` with each child's
+   ``replica`` label; a ``Supervisor`` on a ``FleetMetricsAggregator``
+   scales out to 3 under a tight SLO target, in under a loose one (a drain
+   with requests in flight, ``n_failed`` 0, exit 0), a child SIGKILLed
+   under traffic has its requests failed over by the router (counted, none
+   lost), ``replace_dead`` spawns the
+   replacement and the ``PlacementPlanner`` replans (reason ``replace``)
+   from the children's capacity ledgers. One line with spawn-to-ready
+   seconds per child, routed and direct latency, drain, scale and
+   failover ms, alert fire and clear seconds and the card.
+
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
 as a subprocess; its JSON line is printed before the kernels line.
@@ -264,7 +296,8 @@ NGP val and on hash serving, K4 on hash serving's ``gather`` route, K1, K2,
 K5, K6 and K6b on the ops phase and on the model zoo, K1, K2, K6 and K6b on
 the ``parallel`` path of phase 18, summed over its ranks; the ``tensor``
 path of phase 19 (K1, K2, K6, K6b, summed over its ranks) and its
-``fleet`` path (K5, K4, K3a, K1); K6 and K6b also
+``fleet`` path (K5, K4, K3a, K1), the ``scale`` path of phase 20 (K4 and
+K5 in the serve children, from their ``/stats``); K6 and K6b also
 carry their ms and bound at D = 2 and 4), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -5099,6 +5132,613 @@ def phase_tensor_fleet(torch, np, tmp, data):
     return tp_counts, fleet_counts, report
 
 
+SCALE_HW = 64  # a routed request: a 64x64 view (one 4096-ray bucket)
+SCALE_REQUESTS = 64  # routed pose requests over two scenes and two tenants
+SCALE_THREADS = 4
+SCALE_SCENES = ("a", "c")
+SCALE_TENANTS = ("t1", "t2")
+SCALE_LATENCY_N = 16  # sequential requests a latency set (routed, direct)
+SCALE_READY_S = 300.0
+# (a): the alert windows and hold shortened by config alone, a capacity
+# snapshot a second, a 1 s breaker cooldown (its half-open probes keep
+# hitting the faults until they are spent)
+SCALE_OPS_OPTS = [
+    "obs.alerts.enabled", "true", "obs.alerts.fast_short_s", "4",
+    "obs.alerts.fast_long_s", "8", "obs.alerts.slow_short_s", "4",
+    "obs.alerts.slow_long_s", "8", "obs.alerts.clear_hold_s", "2",
+    "obs.alerts.view_window_s", "8", "obs.alerts.capacity_every_s", "1",
+    "resil.breaker_cooldown_s", "1"]
+# the latency target of (a)'s requests: the faults, not the latency, burn
+# its budget (a 64x64 gather request takes milliseconds on the card)
+SCALE_SLO_TARGET_MS = 500.0
+SCALE_ALERT_WAIT_S = 60.0  # fire and clear within this
+# the serve.dispatch io_errors of (a): after SCALE_FAULT_AFTER real
+# dispatches, the next SCALE_FAULT_TIMES dispatches fail (the warm-up's
+# dispatches pass no fault point), then the plan is spent: faults off
+SCALE_FAULT_AFTER = 8
+SCALE_FAULT_TIMES = 10
+SCALE_PHASE_S = 240.0  # phase 20's own deadline
+# a serve child whose fault plan is installed before the server's main:
+# the launcher's ``python`` (the plan is the child's input, not a switch
+# of the server)
+_FAULT_PYTHON = """#!{python}
+import runpy
+import sys
+
+from nerf_replication_tpu_torch.resil import FaultPlan, FaultSpec, install
+
+install(FaultPlan([FaultSpec("serve.dispatch", "io_error", after={after},
+                             times={times})], seed=0))
+module = sys.argv[2]  # argv: <this file> -m <module> <args...>
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def _pose_body(np, cam, theta, scene=None, tenant=None):
+    """A pose request (64x64 view of the test camera's sphere) as the
+    JSON a client sends, and its float32 ``c2w``."""
+    from nerf_replication_tpu_torch.datasets.rays import pose_spherical
+
+    c2w = np.asarray(pose_spherical(float(theta), -30.0, 4.0), np.float32)
+    focal = float(cam["focal"] * SCALE_HW / cam["W"])
+    body = {"c2w": c2w.tolist(), "H": SCALE_HW, "W": SCALE_HW,
+            "focal": focal}
+    if scene is not None:
+        body["scene"] = scene
+    if tenant is not None:
+        body["tenant"] = tenant
+    return body, c2w
+
+
+def _decode(np, out):
+    import base64
+
+    return np.frombuffer(base64.b64decode(out["rgb_b64"]), np.uint8).reshape(
+        out["h"], out["w"], 3)
+
+
+def _http_json(url, body=None, timeout=30.0):
+    """GET (``body`` None) or POST ``url``: ``(status, decoded JSON)``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read().decode() or "{}")
+
+
+def _child_stats(rep):
+    code, st = _http_json(f"http://{rep.host}:{rep.port}/stats")
+    require(code == 200, f"scale: {rep.replica_id} /stats answered {code}")
+    return st
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return round(1e3 * xs[min(len(xs) - 1, int(q * len(xs)))], 3)
+
+
+class _Traffic:
+    """Client threads sending pose requests for ``scenes`` (None: the
+    server's own) through ``send(body)`` until stopped: every reply (or
+    error) with its start and end on the wall clock."""
+
+    def __init__(self, np, cam, send, n_threads, theta0,
+                 scenes=SCALE_SCENES):
+        self.np, self.cam, self.send = np, cam, send
+        self.scenes = scenes
+        self.stop = threading.Event()
+        self.done, self.errors = [], []
+        self._lock = threading.Lock()
+        self._k = 0
+        self.theta0 = theta0
+        self.threads = [threading.Thread(target=self._run, daemon=True)
+                        for _ in range(n_threads)]
+
+    def _next(self):
+        with self._lock:
+            k = self._k
+            self._k += 1
+        return k
+
+    def _run(self):
+        while not self.stop.is_set():
+            k = self._next()
+            sid = self.scenes[k % len(self.scenes)]
+            body, c2w = _pose_body(self.np, self.cam, self.theta0 + 0.5 * k,
+                                   sid, SCALE_TENANTS[(k // 2) % 2])
+            t0 = time.perf_counter()
+            try:
+                out = self.send(body)
+            except Exception as exc:  # counted: the gates read them
+                with self._lock:
+                    self.errors.append((t0, time.perf_counter(),
+                                        f"{type(exc).__name__}: {exc}"))
+                time.sleep(0.05)
+                continue
+            with self._lock:
+                self.done.append((t0, time.perf_counter(), sid, c2w, out))
+
+    def __enter__(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=120)
+
+
+def phase_scale(torch, np, tmp, data):
+    """Phase 20: the scale-out stack on the card. (a) one port serve child
+    (``march_fused gather``, K4) under ``serve.dispatch`` faults: the page
+    fires on both windows, an incident opens with the flight dump, ``GET
+    /alerts`` lists it, the alert clears after its hold once the faults
+    are spent, and ``POST /drain`` with requests in flight replies
+    ``n_failed 0`` before the child exits 0. (b) children serving ``full``
+    (K5) with phase 19's four lego scenes behind the router: each ready
+    with no nvcc run and no capture or route build after warm-up, every
+    routed image bitwise the in-process engine's, the supervisor's scale
+    out (tight SLO target) and in (loose target; a drain with requests in
+    flight), a kill with failover and ``replace_dead``, the placement
+    planner replanning on the death from the children's heat,
+    ``/fleet/metrics`` with ``replica`` labels, a routed request's child
+    spans under the router's span (cwd: tmp)."""
+    import glob
+
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.fleet import SceneRegistry
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.obs import configure_tracing, get_tracer
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        default_grid_path,
+        load_occupancy_pyramid,
+    )
+    from nerf_replication_tpu_torch.scale import (
+        FleetMetricsAggregator,
+        PlacementExecutor,
+        PlacementOptions,
+        PlacementPlanner,
+        ProcessLauncher,
+        ReplicaState,
+        Router,
+        ScaleOptions,
+        Supervisor,
+        make_fleet_server,
+        merge_heat,
+    )
+    from nerf_replication_tpu_torch.serve import engine_from_cfg
+    from nerf_replication_tpu_torch.train.checkpoint import load_network
+
+    t_phase = time.perf_counter()
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    work = os.path.join(tmp, "scale")
+    os.makedirs(work, exist_ok=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()  # the children share the card
+    env = {"PYTHONPATH": REPO}
+    report = {"children": {}}
+    launchers = []
+    scale_counts = {"K4": 0, "K5": 0}
+
+    def child_ready(rep, spawn_s):
+        """The ready gates of a child: no nvcc run, the card, warm."""
+        beat = rep.heartbeat()
+        st = _child_stats(rep)
+        require(st["device"].startswith(DEVICE),
+                f"scale: {rep.replica_id} serves on {st['device']}")
+        require((beat["total_compiles"] == 0
+                 and beat["warm_source"] == "disk") or DEVICE != "cuda",
+                f"scale: {rep.replica_id} ran nvcc or captured after "
+                f"warm-up ({beat['total_compiles']}, {beat['warm_source']})")
+        report["children"][rep.replica_id] = {
+            "spawn_to_ready_s": round(spawn_s, 2),
+            "warm_source": beat["warm_source"],
+            "captures": st["captures"], "route_builds": st["route_builds"]}
+        return st
+
+    def child_steady(rep, ready, key):
+        """No capture or route build since ready; the child's launches of
+        ``key`` since ready (0 from a child that is gone)."""
+        st = _child_stats(rep)
+        require((st["captures"], st["route_builds"]) == (
+            ready["captures"], ready["route_builds"]),
+            f"scale: {rep.replica_id} captured or built a route after "
+            f"warm-up ({ready['captures']}, {ready['route_builds']}) -> "
+            f"({st['captures']}, {st['route_builds']})")
+        require(rep.heartbeat()["total_compiles"] == 0 or DEVICE != "cuda",
+                f"scale: {rep.replica_id} compiled after warm-up")
+        n = (st["kernel_launches"][key] - ready["kernel_launches"][key])
+        report["children"][rep.replica_id]["launches"] = n
+        return n
+
+    try:
+        # -- (a) alerts, incident, clear and drain on one child ------------
+        a_dir = os.path.join(work, "a")
+        os.makedirs(a_dir, exist_ok=True)
+        wrapper = os.path.join(a_dir, "fault_python.py")
+        with open(wrapper, "w") as fh:
+            fh.write(_FAULT_PYTHON.format(python=sys.executable,
+                                          after=SCALE_FAULT_AFTER,
+                                          times=SCALE_FAULT_TIMES))
+        os.chmod(wrapper, 0o755)
+        a_opts = _eval_opts(data, tmp, [
+            "task_arg.march_coarse_block", "8", "task_arg.march_fused",
+            "gather", "serve.buckets", "[4096]",
+            "record_dir", os.path.join(a_dir, "record"),
+            "obs.slo_target_ms", str(SCALE_SLO_TARGET_MS), *SCALE_OPS_OPTS])
+        cam_cfg = make_cfg(lego, a_opts, default_task="run")
+        launcher_a = ProcessLauncher(
+            lego, python=wrapper, env=env, cwd=tmp, device=DEVICE,
+            opts=a_opts, ready_timeout_s=SCALE_READY_S)
+        launchers.append(launcher_a)
+        t0 = time.perf_counter()
+        ops = launcher_a.spawn(9)
+        ready_a = child_ready(ops, time.perf_counter() - t0)
+        from nerf_replication_tpu_torch.datasets import make_camera
+
+        cam_ds = make_camera(cam_cfg, "test")
+        cam = {"H": int(cam_ds.H), "W": int(cam_ds.W),
+               "focal": float(cam_ds.focal)}
+        base = f"http://{ops.host}:{ops.port}"
+        codes = []
+        t_first_fault = t_fire = t_last_fault = t_clear = None
+        firing_seen = set()
+        k = 0
+        deadline = time.perf_counter() + SCALE_ALERT_WAIT_S
+        while time.perf_counter() < deadline and t_clear is None:
+            body, _ = _pose_body(np, cam, 1000.0 + k)
+            k += 1
+            code, _out = _http_json(base + "/render", body)
+            now = time.perf_counter()
+            codes.append(code)
+            if code == 500:
+                t_first_fault = t_first_fault or now
+                t_last_fault = now
+            _, view = _http_json(base + "/alerts")
+            firing = set(view["firing"])
+            firing_seen |= firing
+            if t_fire is None and "slo_burn_page" in firing:
+                t_fire = now
+                page = next(x for x in view["alerts"]
+                            if x["name"] == "slo_burn_page")
+                require(page["burn_fast"] >= page["threshold"]
+                        and page["burn_slow"] >= page["threshold"],
+                        f"scale: the page fired off its windows {page}")
+                report["alert_page"] = page
+            if (t_fire is not None and "slo_burn_page" not in firing
+                    and code == 200):
+                t_clear = now
+            time.sleep(0.05)
+        require(codes.count(500) == SCALE_FAULT_TIMES,
+                f"scale: {codes.count(500)} dispatch faults answered 500, "
+                f"{SCALE_FAULT_TIMES} injected")
+        require(t_fire is not None, f"scale: the page never fired "
+                f"(replies {codes})")
+        require(t_clear is not None, f"scale: the page never cleared "
+                f"(replies {codes})")
+        incs = []
+        # (record_dir is specialized: <record_dir>/nerf/<scene>/<exp>/)
+        for path in sorted(glob.glob(os.path.join(
+                a_dir, "record", "**", "incident_*.json"), recursive=True)):
+            with open(path) as fh:
+                incs.append(json.load(fh))
+        require(incs, "scale: no incident opened")
+        inc = incs[0]
+        require(any("flight_breaker_open" in p for p in inc["flight_dumps"])
+                and "slo_burn_page" in inc["detail"],
+                f"scale: the incident misses the alert or the flight dump: "
+                f"{inc['detail'][:300]} {inc['flight_dumps']}")
+        require(any(e["kind"] == "fault" for e in inc["timeline"]),
+                "scale: the incident's timeline holds no fault")
+        scale_counts["K4"] += child_steady(ops, ready_a, "fused_dda_gather")
+        # the drain with requests in flight
+        with _Traffic(np, cam, ops.render, SCALE_THREADS, 2000.0,
+                      scenes=(None,)) as tr:
+            time.sleep(0.5)
+            t_drain = time.perf_counter()
+            failed = ops.drain(timeout_s=60.0)
+            drain_ms = (time.perf_counter() - t_drain) * 1e3
+        in_flight = [d for d in tr.done if d[0] < t_drain < d[1]]
+        require(failed == 0, f"scale: the drain failed {failed} requests")
+        require(ops.proc.returncode == 0,
+                f"scale: the drained child exited {ops.proc.returncode}")
+        require(in_flight, f"scale: no request was in flight at the drain "
+                f"({len(tr.done)} answered, errors {tr.errors[:3]})")
+        report["ops"] = {
+            "requests": len(codes), "http_500": codes.count(500),
+            "http_503": codes.count(503),
+            "alert_fire_s": round(t_fire - t_first_fault, 3),
+            "alert_clear_s": round(t_clear - t_last_fault, 3),
+            "firing_seen": sorted(firing_seen),
+            "incident": {k: inc[k] for k in (
+                "incident_id", "status", "trigger", "alerts",
+                "flight_dumps", "fault_points", "n_events")},
+            "drain_ms": round(drain_ms, 1), "drain_n_failed": failed,
+            "drain_in_flight": len(in_flight),
+            "drain_refused_after": len(tr.errors),
+            "exit_code": ops.proc.returncode}
+
+        # -- (b) the fleet behind the router -------------------------------
+        manifest = os.path.join(tmp, "fleet", "manifest.json")
+        levels, bbox = load_occupancy_pyramid(default_grid_path(lego))
+        if not os.path.exists(manifest):  # phase 19 left it otherwise
+            ecfg = make_cfg(lego, _eval_opts(data, tmp), default_task="run")
+            trained = make_network(ecfg)
+            load_network(ecfg.trained_model_dir, trained)
+            _fleet_store(torch, np, tmp, ecfg, trained,
+                         np.asarray(levels[0], bool), bbox)
+        b_dir = os.path.join(work, "b")
+        b_opts = _eval_opts(data, tmp, [
+            "task_arg.march_coarse_block", "8", "task_arg.march_fused",
+            "full", "serve.buckets", "[4096]",
+            "fleet.manifest", manifest, "fleet.qos.enabled", "true",
+            "serve.shed_queue_depths", "[50, 60, 70, 80]",
+            "obs.alerts.capacity_every_s", "1",
+            "record_dir", os.path.join(b_dir, "record")])
+        b_cfg = make_cfg(lego, b_opts, default_task="run")
+        reference = _uncounted(lambda: engine_from_cfg(
+            b_cfg, cfg_file=lego, device=DEVICE))
+        refs = {}
+
+        def bitwise(sid, c2w, out):
+            require(out["tier"] == "full", f"scale: a routed request was "
+                    f"served at tier {out['tier']}")
+            key = (sid, c2w.tobytes())
+            if key not in refs:
+                refs[key] = _uncounted(lambda: reference.render_view(
+                    c2w, SCALE_HW, SCALE_HW,
+                    float(cam["focal"] * SCALE_HW / cam["W"]),
+                    scene=sid)[0])
+            require(np.array_equal(_decode(np, out), refs[key]),
+                    f"scale: a routed {sid} image differs from the "
+                    "in-process engine's")
+
+        launcher_b = ProcessLauncher(lego, env=env, cwd=tmp, device=DEVICE,
+                                     opts=b_opts,
+                                     ready_timeout_s=SCALE_READY_S)
+        launchers.append(launcher_b)
+        ready_b, children = {}, {}
+
+        def spawn(i):
+            t0 = time.perf_counter()
+            rep = launcher_b(i)
+            ready_b[rep.replica_id] = child_ready(rep,
+                                                  time.perf_counter() - t0)
+            children[rep.replica_id] = rep
+            return rep
+
+        router = Router(heartbeat_timeout_s=10.0)
+        agg = FleetMetricsAggregator(router, slo_target_s=0.25)
+        catalog = SceneRegistry.from_manifest(manifest)
+        popt = PlacementOptions(enabled=True, hot_width=2, max_width=3,
+                                hot_rps=0.05, replan_every_s=1e9)
+        planner = PlacementPlanner(
+            catalog, options=popt,
+            heat_fn=lambda: merge_heat(
+                *agg.capacity_view()["replicas"].values()))
+        router.set_planner(planner)
+        sup = Supervisor(
+            router, spawn,
+            options=ScaleOptions(min_replicas=2, max_replicas=3,
+                                 out_windows=1, in_windows=1,
+                                 cooldown_out_s=0.0, cooldown_in_s=0.0,
+                                 placement=popt),
+            evidence_source=agg, planner=planner,
+            placement_executor=PlacementExecutor())
+        sup.ensure_min()
+        router.sweep()
+        spans = []
+        configure_tracing(enabled=True, id_prefix="router")
+        get_tracer().add_sink(spans.append)
+        try:
+            # SCALE_REQUESTS routed requests from SCALE_THREADS threads,
+            # two scenes x two tenants, poses repeating (pose-cache hits)
+            results, lock = [], threading.Lock()
+
+            def client(tid):
+                for k in range(tid, SCALE_REQUESTS, SCALE_THREADS):
+                    sid = SCALE_SCENES[k % 2]
+                    body, c2w = _pose_body(np, cam, -180.0 + 37.0 * (k % 16),
+                                           sid, SCALE_TENANTS[(k // 2) % 2])
+                    out = router.render(body, timeout_s=120.0)
+                    with lock:
+                        results.append((sid, c2w, out))
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SCALE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            require(len(results) == SCALE_REQUESTS,
+                    f"scale: {len(results)} of {SCALE_REQUESTS} routed "
+                    "requests answered")
+            hits = sum(bool(o["cache_hit"]) for _, _, o in results)
+            for sid, c2w, out in results:
+                bitwise(sid, c2w, out)
+            # routed against direct latency, sequential, fresh poses
+            lat = {"routed": [], "direct": []}
+            first = children[sorted(children)[0]]
+            for k in range(2 * SCALE_LATENCY_N):
+                path = ("routed", "direct")[k % 2]
+                body, c2w = _pose_body(np, cam, 500.0 + k, "a", "t1")
+                t0 = time.perf_counter()
+                out = (router.render(body) if path == "routed"
+                       else first.render(body))
+                lat[path].append(time.perf_counter() - t0)
+                bitwise("a", c2w, out)
+            # one routed request's child spans under the router's span
+            n_spans = len(spans)
+            body, c2w = _pose_body(np, cam, 777.0, "c", "t2")
+            bitwise("c", c2w, router.render(body))
+            dispatch = [s for s in spans[n_spans:]
+                        if s["name"] == "route.dispatch"][-1]
+            time.sleep(0.5)
+            child_rows = []
+            telem = glob.glob(os.path.join(b_dir, "record", "**",
+                                           "telemetry.jsonl"), recursive=True)
+            require(len(telem) == 1, f"scale: child telemetry {telem}")
+            with open(telem[0]) as fh:
+                for line in fh:
+                    if dispatch["span_id"] in line:
+                        child_rows.append(json.loads(line))
+            request = [r for r in child_rows if r.get("kind") == "span"
+                       and r["name"] == "serve.request"
+                       and r.get("parent_id") == dispatch["span_id"]]
+            require(len(request) == 1 and request[0]["remote_parent"]
+                    and request[0]["trace_id"] == dispatch["trace_id"],
+                    "scale: the child's serve.request is not under the "
+                    "router's route.dispatch span")
+            # GET /fleet/metrics: each child's series under its label
+            server = make_fleet_server(agg, port=0)
+            threading.Thread(target=server.serve_forever,
+                             daemon=True).start()
+            try:
+                import urllib.request
+
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{server.server_address[1]}"
+                        "/fleet/metrics", timeout=30) as r:
+                    merged = r.read().decode()
+            finally:
+                server.shutdown()
+                server.server_close()
+            for rid in children:
+                require(f'serve_requests_total{{replica="{rid}"' in merged
+                        or f'replica="{rid}"' in merged,
+                        f"scale: /fleet/metrics has no series of {rid}")
+            # 1. a tight SLO target: scale out to 3
+            agg.window()  # the window starts here
+            for k in range(8):
+                body, c2w = _pose_body(np, cam, 600.0 + k, "a", "t1")
+                bitwise("a", c2w, router.render(body))
+            agg.slo_target_s = 1e-4
+            t0 = time.perf_counter()
+            action_out = sup.step_from_fleet(agg)
+            out_s = time.perf_counter() - t0
+            require(action_out == "out" and router.n_ready() == 3,
+                    f"scale: the tight target gave {action_out}, "
+                    f"{router.n_ready()} ready")
+            # 2. a loose target: scale in, draining with requests in flight
+            agg.slo_target_s = 10.0
+            agg.window()
+            with _Traffic(np, cam, router.render, SCALE_THREADS,
+                          3000.0) as tr:
+                time.sleep(1.0)
+                t_in = time.perf_counter()
+                action_in = sup.step_from_fleet(agg)
+                in_ms = (time.perf_counter() - t_in) * 1e3
+                time.sleep(0.5)
+            decision = sup.decisions[-1]
+            victim = children[decision.get("replica", "")] \
+                if decision.get("replica") in children else None
+            require(action_in == "in" and victim is not None
+                    and victim.state == ReplicaState.RETIRED,
+                    f"scale: the loose target gave {action_in}")
+            require(sup.drain_failures == 0,
+                    f"scale: the scale-in drain failed "
+                    f"{sup.drain_failures} requests")
+            require(not tr.errors, f"scale: {len(tr.errors)} requests "
+                    f"failed during the scale-in: {tr.errors[:3]}")
+            require(victim.proc.returncode == 0,
+                    f"scale: the drained child exited "
+                    f"{victim.proc.returncode}")
+            in_flight_in = sum(1 for d in tr.done if d[0] < t_in < d[1])
+            for t_a, t_b, sid, c2w, out in tr.done:
+                bitwise(sid, c2w, out)
+            # 3. a child dies under traffic (SIGKILL, unannounced): the
+            # router finds it by its failed requests and fails them over
+            live = [r for r in router.replicas()
+                    if r.state == ReplicaState.READY]
+            doomed = live[0]
+            scale_counts["K5"] += child_steady(doomed, ready_b[
+                doomed.replica_id], "fused_march_full")
+            fo_before = router.n_failovers
+            with _Traffic(np, cam, router.render, SCALE_THREADS,
+                          4000.0) as tr:
+                time.sleep(1.0)
+                t_kill = time.perf_counter()
+                doomed.proc.kill()
+                time.sleep(2.0)
+            require(not tr.errors, f"scale: {len(tr.errors)} requests lost "
+                    f"at the kill: {tr.errors[:3]}")
+            require(router.n_failovers > fo_before
+                    and doomed.state == ReplicaState.DEAD,
+                    f"scale: no failover from the dead child "
+                    f"({router.n_failovers - fo_before}, {doomed.state})")
+            overlap = [d for d in tr.done if d[0] < t_kill < d[1]]
+            failover_ms = max([(d[1] - t_kill) * 1e3 for d in overlap]
+                              or [0.0])
+            for t_a, t_b, sid, c2w, out in tr.done:
+                bitwise(sid, c2w, out)
+            # 4. replace_dead spawns the replacement; the plan follows
+            n_plans = planner.n_plans
+            replaced = sup.replace_dead()
+            plan = planner.current
+            require(replaced == 1 and router.n_ready() == 2,
+                    f"scale: replace_dead replaced {replaced}")
+            require(planner.n_plans > n_plans and plan.reason == "replace"
+                    and all(doomed.replica_id not in rs
+                            for rs in plan.assignments.values()),
+                    f"scale: no replan on the death ({plan})")
+            require(any(s in plan.scene_heat for s in SCALE_SCENES),
+                    f"scale: the replan saw no heat ({plan.scene_heat})")
+            for k in range(8):
+                body, c2w = _pose_body(np, cam, 700.0 + k,
+                                       SCALE_SCENES[k % 2], "t1")
+                bitwise(SCALE_SCENES[k % 2], c2w, router.render(body))
+            for rep in list(router.replicas()):
+                if rep.state == ReplicaState.READY:
+                    scale_counts["K5"] += child_steady(
+                        rep, ready_b[rep.replica_id], "fused_march_full")
+                    launcher_b.retire(rep)
+                    require(rep.proc.returncode == 0,
+                            f"scale: {rep.replica_id} exited "
+                            f"{rep.proc.returncode}")
+        finally:
+            configure_tracing(enabled=False)
+        report["fleet"] = {
+            "routed_requests": len(results), "cache_hits": hits,
+            "bitwise_images": len(refs),
+            "latency_ms": {p: {"p50": _pct(v, 0.5), "p95": _pct(v, 0.95)}
+                           for p, v in lat.items()},
+            "scale_out_s": round(out_s, 2), "scale_in_ms": round(in_ms, 1),
+            "scale_in_victim": victim.replica_id,
+            "scale_in_in_flight": in_flight_in,
+            "drain_failures": sup.drain_failures,
+            "kill": doomed.replica_id, "failover_ms": round(failover_ms, 1),
+            "failovers": router.n_failovers - fo_before,
+            "plan": {"version": plan.version, "reason": plan.reason,
+                     "assignments": {k: list(v) for k, v in
+                                     plan.assignments.items()},
+                     "scene_heat": plan.scene_heat},
+            "decisions": [d["action"] for d in sup.decisions],
+            "router": {k: v for k, v in router.stats().items()
+                       if k != "replicas"}}
+        for k, n in scale_counts.items():
+            require(DEVICE != "cuda" or n > 0, f"scale: {k} never launched "
+                    "in the children")
+    finally:
+        for launcher in launchers:
+            launcher.shutdown()
+    report["launches"] = scale_counts
+    report["smi"] = smi_line()
+    report["wall_s"] = round(time.perf_counter() - t_phase, 1)
+    require(report["wall_s"] < SCALE_PHASE_S,
+            f"scale: the phase took {report['wall_s']} s")
+    print("scale phase: " + json.dumps(report))
+    return scale_counts, report
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -5176,6 +5816,7 @@ def main() -> int:
             par_counts, _ = phase_parallel(torch, np, tmp, data)
             tp_counts, fleet_counts, _ = phase_tensor_fleet(torch, np, tmp,
                                                             data)
+            scale_counts, _ = phase_scale(torch, np, tmp, data)
         finally:
             os.chdir(cwd)
     run_bench()
@@ -5231,6 +5872,11 @@ def main() -> int:
             paths["tensor"] = tp_counts[kernel]
         if kernel in fleet_counts:
             paths["fleet"] = fleet_counts[kernel]
+        # phase 20: the serve children behind the router (K4 in the ops
+        # child's gather route, K5 in the fleet's full route), from the
+        # children's own /stats counts since they were ready
+        if kernel in scale_counts:
+            paths["scale"] = scale_counts[kernel]
         if kernel in ("K6", "K6b"):
             kind = "fwd" if kernel == "K6" else "bwd"
             for d in (2, 4):

@@ -17,10 +17,16 @@ step window, and ``obs.metrics`` / ``obs.trace`` are the serving path's
 live aggregates (``GET /metrics``) and request spans. In-process readers
 subscribe to the row stream with ``add_row_tap``.
 
-Not ported yet: the alert engine, the incident correlator and the
-capacity ledger (``obs/alerts.py``, ``incidents.py``, ``capacity.py``),
-which come with the fleet that reads them.
+The ops-intelligence layer closes the loop from telemetry to action:
+``obs/alerts.py`` (multi-window multi-burn-rate SLO alerting),
+``obs/incidents.py`` (auto-correlated incident reports with an
+open→mitigated→resolved lifecycle), and ``obs/capacity.py`` (the
+per-scene capacity/heat ledger the placement planner reads) — all fed
+in-process from the emitter's row-tap bus (``add_row_tap``).
 """
+
+from .alerts import AlertEngine, AlertOptions
+from .capacity import CapacityLedger
 
 from .emit import (
     Emitter,
@@ -32,6 +38,7 @@ from .emit import (
     remove_row_tap,
 )
 from .hooks import CompileTracker, sample_memory
+from .incidents import IncidentManager, validate_incident_dump
 from .metrics import MetricsRegistry, WindowRing, get_metrics, reset_metrics
 from .profiling import ProfileWindow, annotate
 from .schema import SCHEMA_VERSION, validate_bench_row, validate_row
@@ -50,7 +57,11 @@ from .trace import (
 __all__ = [
     "SCHEMA_VERSION",
     "TRACE_HEADER",
+    "AlertEngine",
+    "AlertOptions",
+    "CapacityLedger",
     "Emitter",
+    "IncidentManager",
     "MetricsRegistry",
     "NullEmitter",
     "CompileTracker",
@@ -74,5 +85,6 @@ __all__ = [
     "sample_memory",
     "trace_headers",
     "validate_bench_row",
+    "validate_incident_dump",
     "validate_row",
 ]

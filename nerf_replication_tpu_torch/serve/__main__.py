@@ -21,12 +21,40 @@ The port of ``serve.py``'s request surface (all JSON):
 * ``GET /healthz`` — the batcher's health (queue depth, last-dispatch age,
   breaker state, worker liveness) plus the ``slo`` block: latency
   attainment against ``obs.slo_target_ms`` and the shed / timeout / error
-  / breaker rates of the live metrics, and the ``replica`` block (JAX
-  ``serve.py``'s fields the port has: the resident and staged scenes, the
-  residency byte watermarks and budgets, ``param_shards``, the warm source
-  and the captures). 200 while healthy, 503 while the breaker is open.
+  / breaker rates of the live metrics (over the last
+  ``obs.alerts.view_window_s`` when the alerts are on, else the whole
+  lifetime), the ``alerts`` block (the firing alerts, when on), and the
+  ``replica`` block that ``scale/replica.py``'s heartbeat reads: ``id``
+  (``SCALE_REPLICA_ID``), the warm source, the captures,
+  ``total_compiles``, the resident and staged scenes, the residency byte
+  watermarks and budgets, ``param_shards``, and ``trace`` (spans emitted,
+  sink drops, spans parented to a propagated context). 200 while
+  healthy, 503 while the breaker is open or after a drain.
+* ``GET /alerts`` — the alert engine's status (``obs/alerts.py``: every
+  alert's state, burn rates and value, the firing set, the seconds each
+  has fired); ``{"enabled": false, ...}`` with ``obs.alerts.enabled``
+  off.
+* ``POST /drain`` — drain-before-retire: stop admitting, render everything
+  queued, reply ``{drained, n_failed}`` under a ``serve.drain`` span
+  parented to the ``Traceparent`` header. The process keeps running
+  (retirement is the caller's: SIGTERM); ``/render`` answers 503 from
+  then on.
 * ``GET /metrics`` — Prometheus text of the live counters, gauges and
   histograms (``obs/metrics.py``).
+
+``total_compiles`` is the port's counterpart of the JAX engine's compile
+count: the kernel libraries this process built with ``nvcc`` plus the
+CUDA-graph captures after warm-up (``RenderEngine.total_compiles``). A
+child that warmed from the kernel-library store (``compile/artifacts.py``)
+reports 0. The server binds only after the engine's warm-up and captures,
+so a child that answers ``/healthz`` is warm.
+
+With ``obs.alerts.enabled`` (the default) the main loop runs the ops
+layer every half second: the burn-rate alert engine evaluates, the
+incident correlator (alert fires and flight dumps open incidents,
+``incident_<id>.json`` in the flight dir) sweeps, and the capacity ledger
+commits a ``capacity_snapshot`` row every ``obs.alerts.capacity_every_s``
+(and once more on exit).
 
 A breaker that is open answers ``/render`` with 503 and ``Retry-After``.
 Each request runs under a root span (``serve.request``) parented to the
@@ -43,6 +71,7 @@ from __future__ import annotations
 import argparse
 import base64
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -106,16 +135,18 @@ def render_pose(engine, batcher, body: dict) -> dict:
 
 
 def replica_block(engine) -> dict:
-    """The ``/healthz`` replica block: resident and staged scenes, the
-    residency watermarks and budgets, and the warm state."""
-    import os
+    """The ``/healthz`` replica block: the warm state, resident and staged
+    scenes, the residency watermarks and budgets, and tracing health."""
+    from ..obs import get_tracer
 
     stats = engine.stats()
     fs = stats.get("fleet") or {}
+    trs = get_tracer().stats()
     return {
         "id": os.environ.get("SCALE_REPLICA_ID", ""),
         "warm_source": stats.get("warm_source"),
         "captures": stats.get("captures", 0),
+        "total_compiles": int(stats.get("total_compiles", 0)),
         "scenes": (engine.resident_scenes()
                    if hasattr(engine, "resident_scenes") else []),
         "staging": list(fs.get("staging", [])),
@@ -124,13 +155,26 @@ def replica_block(engine) -> dict:
         "hbm_budget_bytes": int(fs.get("budget_bytes", 0)),
         "staging_budget_bytes": int(fs.get("staging_budget_bytes", 0)),
         "param_shards": int(fs.get("param_shards", 1)),
+        "trace": {
+            "enabled": trs["enabled"],
+            "spans": trs["spans"],
+            "dropped_sink": trs["dropped_sink"],
+            "remote_parented": trs["remote_parented"],
+        },
     }
 
 
 def make_server(engine, batcher, host: str = "127.0.0.1",
                 port: int = 8008,
-                slo_target_ms: float = 100.0) -> ThreadingHTTPServer:
-    """A ready-to-serve ThreadingHTTPServer (port 0 = ephemeral)."""
+                slo_target_ms: float = 100.0,
+                alerts=None,
+                slo_window_s: float | None = None) -> ThreadingHTTPServer:
+    """A ready-to-serve ThreadingHTTPServer (port 0 = ephemeral).
+
+    ``alerts`` (an ``obs.alerts.AlertEngine``) adds the ``GET /alerts``
+    status and an ``alerts`` block to ``/healthz``; ``slo_window_s`` reads
+    the ``/healthz`` SLO view over that sliding window instead of the
+    whole lifetime (a long-idle replica cannot mask a fresh regression)."""
     from ..fleet import (
         ResidencyOverloadError,
         SceneError,
@@ -140,7 +184,7 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
     from ..obs import get_metrics, get_tracer
     from ..obs.trace import TRACE_HEADER, SpanContext
     from ..resil import BreakerOpenError, report
-    from .batcher import ServeTimeoutError
+    from .batcher import BatcherClosedError, ServeTimeoutError
 
     slo_target_s = float(slo_target_ms) / 1e3
 
@@ -163,7 +207,10 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
             if self.path == "/healthz":
                 health = (batcher.health() if batcher is not None
                           else {"ok": True, "queue_depth": 0})
-                health["slo"] = get_metrics().slo_view(slo_target_s)
+                health["slo"] = get_metrics().slo_view(
+                    slo_target_s, window_s=slo_window_s)
+                if alerts is not None:
+                    health["alerts"] = alerts.healthz_block()
                 health["replica"] = replica_block(engine)
                 return self._reply(200 if health["ok"] else 503, health)
             if self.path == "/stats":
@@ -171,6 +218,11 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
                 if batcher is not None:
                     stats["batcher"] = batcher.stats()
                 return self._reply(200, stats)
+            if self.path == "/alerts":
+                if alerts is None:
+                    return self._reply(
+                        200, {"enabled": False, "firing": [], "alerts": []})
+                return self._reply(200, alerts.status())
             if self.path == "/metrics":
                 data = get_metrics().render_prometheus().encode()
                 self.send_response(200)
@@ -182,7 +234,27 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
                 return None
             return self._reply(404, {"error": f"no route {self.path}"})
 
+        def _drain(self):
+            """Stop admitting, render everything queued, count what
+            failed meanwhile; the process exit stays the caller's."""
+            if batcher is None:
+                return self._reply(200, {"drained": True, "n_failed": 0})
+            with get_tracer().span(
+                    "serve.drain",
+                    parent=SpanContext.from_header(
+                        self.headers.get(TRACE_HEADER))) as sp:
+                before = (batcher.n_timeouts + batcher.n_dispatch_errors
+                          + batcher.n_scene_errors)
+                batcher.close(drain=True)
+                failed = (batcher.n_timeouts + batcher.n_dispatch_errors
+                          + batcher.n_scene_errors) - before
+                sp.set(detail=f"drain_failed={int(failed)}")
+            return self._reply(200, {"drained": True,
+                                     "n_failed": int(failed)})
+
         def do_POST(self):
+            if self.path == "/drain":
+                return self._drain()
             if self.path != "/render":
                 return self._reply(404, {"error": f"no route {self.path}"})
             try:
@@ -223,6 +295,9 @@ def make_server(engine, batcher, host: str = "127.0.0.1",
                           "retry_after_s": err.retry_after_s},
                     headers={"Retry-After":
                              str(max(1, round(err.retry_after_s)))})
+            except BatcherClosedError as err:
+                # drained or shutting down: another replica takes it
+                return self._reply(503, {"error": str(err)})
             except (ServeTimeoutError, TimeoutError) as err:
                 return self._reply(504, {"error": str(err) or "timed out"})
             except (ValueError, KeyError) as err:
@@ -267,9 +342,37 @@ def main(argv=None) -> int:
     flight_dir = str(o.get("flight_dir", "")) or str(
         cfg.get("record_dir", "."))
     slo_target_ms = float(o.get("slo_target_ms", 100.0))
-    configure_tracing(enabled=trace_on)
+    # a replica's span ids carry its id as a prefix, so a merge of several
+    # replicas' telemetry joins on globally unique ids
+    replica_id = os.environ.get("SCALE_REPLICA_ID", "")
+    configure_tracing(enabled=trace_on, id_prefix=replica_id)
     install_flight_recorder(FlightRecorder(
         flight_dir, capacity=int(o.get("trace_ring", 256))))
+    # the ops layer (obs.alerts): the burn-rate alert engine, the incident
+    # correlator (alert fires and flight dumps open incidents) and the
+    # capacity ledger, fed from the row taps, driven by the loop below
+    alerts = incidents = capacity = None
+    slo_window_s = None
+    capacity_every_s = 30.0
+    if bool(cfg.obs.alerts.enabled):
+        from ..obs import (
+            AlertEngine,
+            AlertOptions,
+            CapacityLedger,
+            IncidentManager,
+        )
+        from ..resil.flight import add_dump_listener, remove_dump_listener
+
+        slo_window_s = float(cfg.obs.alerts.view_window_s)
+        capacity_every_s = float(cfg.obs.alerts.capacity_every_s)
+        alerts = AlertEngine(AlertOptions.from_cfg(cfg),
+                             slo_target_s=slo_target_ms / 1e3,
+                             replica=replica_id).attach()
+        incidents = IncidentManager(flight_dir, replica=replica_id).attach()
+        alerts.add_listener(incidents.on_alert)
+        add_dump_listener(incidents.on_flight_dump)
+        capacity = CapacityLedger(replica=replica_id,
+                                  window_s=slo_window_s).attach()
     # SIGTERM: the guard's handler dumps the flight ring; the loop below
     # then drains and exits cleanly
     guard = PreemptionGuard.install()
@@ -278,7 +381,8 @@ def main(argv=None) -> int:
     batcher = MicroBatcher(engine, breaker=CircuitBreaker.from_cfg(cfg),
                            qos=QosController.from_cfg(cfg))
     server = make_server(engine, batcher, host=args.host, port=args.port,
-                         slo_target_ms=slo_target_ms)
+                         slo_target_ms=slo_target_ms, alerts=alerts,
+                         slo_window_s=slo_window_s)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
           f"(device {engine.device}, route {engine.march_options.march_fused}, "
           f"buckets {list(engine.buckets)}, "
@@ -286,14 +390,31 @@ def main(argv=None) -> int:
     try:
         t = threading.Thread(target=server.serve_forever, daemon=True)
         t.start()
+        last_cap = time.monotonic()
         while t.is_alive() and not (guard is not None and guard.triggered):
             t.join(timeout=0.5)
+            if alerts is not None:
+                # transitions emit alert rows and open or mitigate
+                # incidents; the capacity row commits on its own cadence
+                alerts.evaluate()
+                incidents.sweep()
+                if time.monotonic() - last_cap >= capacity_every_s:
+                    capacity.snapshot()
+                    last_cap = time.monotonic()
         server.shutdown()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
         batcher.close()
+        if alerts is not None:
+            capacity.snapshot()  # the final ledger state is on the record
+            alerts.evaluate()
+            incidents.sweep()
+            alerts.detach()
+            incidents.detach()
+            capacity.detach()
+            remove_dump_listener(incidents.on_flight_dump)
         snap = get_metrics().snapshot()
         snap["slo"] = get_metrics().slo_view(slo_target_ms / 1e3)
         emitter.emit("metrics_snapshot", **snap)

@@ -78,6 +78,11 @@ class ServeTimeoutError(TimeoutError):
     """The request exceeded its deadline while queued (never rendered)."""
 
 
+class BatcherClosedError(RuntimeError):
+    """The batcher was closed (a drain or shutdown): it admits nothing
+    more (503 at the HTTP edge; a router fails over)."""
+
+
 class ServeFuture:
     """Completion handle for one submitted request."""
 
@@ -256,7 +261,7 @@ class MicroBatcher:
                            t_trace=get_tracer().now())
         with self._cond:
             if self._stop:
-                raise RuntimeError("batcher is closed")
+                raise BatcherClosedError("batcher is closed")
             self._queue.append(pending)
             depth = len(self._queue)
             self._cond.notify_all()

@@ -66,7 +66,8 @@ capture or a route build (``route_builds``, ``captures`` in :meth:`stats`).
 Without a mesh a scene is placed by a plain copy to the card (from pinned
 host memory, on a side stream, with an event the copy into the slots
 waits on) and ``param_shards`` is 1; mesh serving comes with ROADMAP
-item 9 part 2.
+item 9c, and until then ``engine_from_cfg`` refuses a ``scale:`` block
+that asks for a mesh (``scale.options.check_mesh_serving``).
 
 Each request dispatch passes the ``serve.dispatch`` fault point and runs
 under ``serve.dispatch`` (the host's part) and ``serve.device`` (the wait
@@ -84,6 +85,7 @@ import numpy as np
 import torch
 
 from ..fleet.errors import SceneCompatError, UnknownSceneError
+from ..obs import get_emitter
 from ..obs.trace import get_tracer
 from ..renderer.gate import check_baked_bounds
 from ..resil import fault_point
@@ -190,6 +192,7 @@ class RenderEngine:
         self._captured: dict[tuple[int, str], object] = {}
         self._lock = threading.Lock()
         self.warm_source = "compiled"
+        self.warm_captures = 0  # the registry's captures at warm-up's end
         self.n_requests = 0
         self.n_rays_rendered = 0
         self.n_pad_rays = 0
@@ -380,6 +383,7 @@ class RenderEngine:
                 if fn is not None:  # a failed capture stays eager
                     self._captured[key] = fn
             self.warm_source = self.aot.warm_source()
+            self.warm_captures = self.aot.captures
         self.warmup_wall_s += time.perf_counter() - t0
         return self.warmup_dispatches
 
@@ -493,21 +497,32 @@ class RenderEngine:
         return out, info
 
     def render_request(self, rays, near, far, tier: str = "full",
-                       scene=None) -> dict:
+                       emit: bool = True, scene=None) -> dict:
         """Render one request at ``tier``; bounds must match the baked ones.
         ``half_res`` renders every 2nd ray and repeats it back to [N, ...].
         ``scene`` names a registry scene (None: the engine's own), pinned
-        for the render."""
+        for the render. With ``emit`` the request writes its
+        ``serve_request`` row (JAX's fields); a caller that writes the
+        row itself passes ``emit=False``, so a request counts once."""
         check_baked_bounds(self.near, self.far, near, far,
                            surface="serve engine")
         family, stride = TIER_IMPL[tier]
         rays = np.asarray(rays, np.float32)
         n = rays.shape[0]
+        t0 = time.perf_counter()
         with self.scene_lease(scene) as data:
-            out, _ = self.render_flat(rays[::stride], family, data)
+            out, info = self.render_flat(rays[::stride], family, data)
         if stride > 1:
             out = {k: np.repeat(v, stride, axis=0)[:n] for k, v in out.items()}
+        latency = time.perf_counter() - t0
         self.n_requests += 1
+        if emit:
+            fields = ({} if self._is_default_scene(scene)
+                      else {"scene": str(scene)})
+            get_emitter().emit(
+                "serve_request", latency_s=latency, n_rays=n, tier=tier,
+                status="ok", n_buckets=len(info["buckets"]),
+                bucket_rays=info["bucket_rays"], **fields)
         out["tier"] = tier
         return out
 
@@ -516,8 +531,10 @@ class RenderEngine:
                     scene=None) -> tuple[np.ndarray, dict]:
         """Pose -> uint8 [H, W, 3] image through the pose LRU cache.
         ``via(rays, near, far) -> out dict`` overrides the render path (the
-        HTTP entry passes the micro-batcher's submit). ``scene`` selects
-        the scene's own pose cache and render target."""
+        HTTP entry passes the micro-batcher's submit, whose batch writes
+        the request's ``serve_request`` row); a direct render and a cache
+        hit write their own. ``scene`` selects the scene's own pose cache
+        and render target."""
         from ..datasets.rays import get_rays_np
 
         if self._is_default_scene(scene):
@@ -526,9 +543,17 @@ class RenderEngine:
             self.require_scene(scene)
             cache = self.fleet.pose_cache(scene)
         key = cache.key(c2w, H, W, focal)
+        t0 = time.perf_counter()
         cached = cache.get(key)
         if cached is not None:
             image, served_tier = cached
+            # a hit does no device work, but it is a served request: the
+            # alert engine and the capacity ledger count it
+            fields = {} if scene is None else {"scene": str(scene)}
+            get_emitter().emit(
+                "serve_request", latency_s=time.perf_counter() - t0,
+                n_rays=H * W, tier=served_tier, status="ok",
+                cache_hit=True, **fields)
             return image, {"tier": served_tier, "cache_hit": True}
         rays_o, rays_d = get_rays_np(H, W, float(focal), np.asarray(c2w))
         rays = np.concatenate([rays_o, rays_d], -1).reshape(-1, 6)
@@ -536,7 +561,7 @@ class RenderEngine:
             out = via(rays, self.near, self.far)
         else:
             out = self.render_request(rays, self.near, self.far, tier=tier,
-                                      scene=scene)
+                                      emit=True, scene=scene)
         served_tier = out.get("tier", tier)
         # the grid-less coarse tier renders coarse only
         rgb_key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
@@ -742,6 +767,17 @@ class RenderEngine:
 
     # -- introspection -------------------------------------------------------
 
+    def total_compiles(self) -> int:
+        """The port's counterpart of the JAX engine's compile count: the
+        kernel libraries this process built with ``nvcc``
+        (``ops.kernels.builds``) plus the CUDA-graph captures after
+        warm-up. 0 for a process that warmed from the kernel-library
+        store (``compile/artifacts.py``) and captured nothing since."""
+        from ..ops import kernels
+
+        captures = 0 if self.aot is None else self.aot.captures
+        return int(kernels.builds) + captures - self.warm_captures
+
     def stats(self) -> dict:
         from ..ops.fused_march import LAUNCHES
 
@@ -787,6 +823,7 @@ class RenderEngine:
             # registry's summary (None: compile.aot off)
             "warm_source": self.warm_source,
             "captures": 0 if self.aot is None else self.aot.captures,
+            "total_compiles": self.total_compiles(),
             "compile": None if self.aot is None else self.aot.summary(),
             "captured_routes": sorted(
                 self._fn_name(b, f) for b, f in self._captured),
@@ -815,15 +852,21 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
     ``accelerated_renderer``, serves through the chunked volume route, with
     the JAX engine's message. The weights come from the port's checkpoint
     in ``cfg.trained_model_dir`` (else the seeded init, as ``load_network``
-    leaves it), the camera from the test split's ``transforms_test.json``."""
+    leaves it), the camera from the test split's ``transforms_test.json``.
+    A ``scale:`` block that asks for a mesh, or an invalid one, raises
+    before anything loads (``scale.options.check_mesh_serving``, devices
+    counted as ``torch.cuda.device_count()`` on the card, 1 on the CPU)."""
     import os
 
     from ..datasets import make_camera
     from ..renderer.occupancy import default_grid_path, load_occupancy_pyramid
+    from ..scale.options import ScaleOptions, check_mesh_serving
     from ..utils.setup import load_trained_network
     from ..utils.platform import resolve_device
 
     dev = resolve_device(device)
+    check_mesh_serving(ScaleOptions.from_cfg(cfg),
+                       torch.cuda.device_count() if dev.type == "cuda" else 1)
     grid = bbox = None
     if bool(cfg.task_arg.get("accelerated_renderer", False)):
         path = default_grid_path(cfg_file or "config")

@@ -52,8 +52,11 @@ def test_registry_maps_config_modules_to_the_port():
     mod = resolve_module("nerf_replication_tpu.datasets.blender")
     assert mod.__name__ == "nerf_replication_tpu_torch.datasets.blender"
     # a role the port does not have yet names the missing module
-    with pytest.raises(ImportError, match="nerf_replication_tpu_torch.scale"):
-        resolve_module("nerf_replication_tpu.scale.router")
+    with pytest.raises(ImportError,
+                       match="nerf_replication_tpu_torch.scale.mesh_dispatch"):
+        resolve_module("nerf_replication_tpu.scale.mesh_dispatch")
+    assert resolve_module("nerf_replication_tpu.scale.router").__name__ \
+        == "nerf_replication_tpu_torch.scale.router"
     assert resolve_module("nerf_replication_tpu.fleet.registry").__name__ \
         == "nerf_replication_tpu_torch.fleet.registry"
     assert resolve_module("nerf_replication_tpu.models.img_fit.network") \

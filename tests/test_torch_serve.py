@@ -154,6 +154,61 @@ def test_render_view_and_cache(weights):
         peng.render_request(sample_rays(4), NEAR, FAR + 1.0)
 
 
+def test_serve_request_rows_match_jax_engine(weights):
+    """A direct render and a pose-cache hit each write one
+    ``serve_request`` row whose fields equal the JAX engine's rows for the
+    same request (``latency_s`` aside: a wall time); ``emit=False``
+    writes none, and a batched view is counted once, by the batcher's
+    row."""
+    from _torch_ops_pair import JAX_PKG, PORT_PKG, Side, isolated
+
+    from nerf_replication_tpu_torch.datasets.rays import pose_spherical
+
+    jeng, peng = _engines(weights, "full")
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    rays = sample_rays(50, seed=3)
+
+    def drive(side, eng):
+        with isolated(side):
+            eng.render_request(rays, NEAR, FAR, tier="half_res")
+            eng.render_request(rays, NEAR, FAR, emit=False)
+            eng.render_view(c2w, 8, 10, 12.0)   # direct render
+            eng.render_view(c2w, 8, 10, 12.0)   # cache hit
+            rows = [r for r in side.rows if r["kind"] == "serve_request"]
+            invalid = [side.obs.validate_row(r) for r in rows
+                       if side.obs.validate_row(r)]
+        return rows, invalid
+
+    jrows, _ = drive(Side(JAX_PKG), jeng)
+    prows, invalid = drive(Side(PORT_PKG), peng)
+    assert invalid == []
+    assert len(prows) == len(jrows) == 3
+    for p, j in zip(prows, jrows):
+        assert isinstance(p["latency_s"], float) and p["latency_s"] >= 0
+        drop = ("t", "latency_s")
+        assert {k: v for k, v in p.items() if k not in drop} == \
+            {k: v for k, v in j.items() if k not in drop}
+    assert prows[0]["tier"] == "half_res" and prows[0]["n_rays"] == 50
+    assert (prows[1]["n_rays"], prows[1]["n_buckets"],
+            prows[1]["bucket_rays"]) == (80, 2, 128)
+    assert prows[2]["cache_hit"] is True and "n_buckets" not in prows[2]
+
+    # through the micro-batcher: the batch writes the row, the engine not
+    side = Side(PORT_PKG)
+    with isolated(side):
+        batcher = MicroBatcher(peng, start=False)
+
+        def via(r, near, far):
+            fut = batcher.submit(r, near, far)
+            batcher.pump()
+            return fut.result(1.0)
+
+        peng.render_view(pose_spherical(50.0, -30.0, 4.0), 8, 10, 12.0,
+                         via=via)
+        rows = [r for r in side.rows if r["kind"] == "serve_request"]
+    assert len(rows) == 1 and "queue_s" in rows[0]
+
+
 def test_batcher_coalesces_concurrent_submits(weights):
     """Deterministic drive: three queued requests cut into ONE batch and
     each gets exactly its own slice; then a threaded stress with more
