@@ -186,7 +186,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    and ``vis/res.png``; (d) the scene as one ``transforms.json``:
    ``capture.yaml`` with the fused trunk (K1/K2) and the native ray bank,
    ``capture_ndc.yaml``, 20 steps each; (e) ``run --type mesh`` of phase
-   5's checkpoint at resolution 128 (level: the grid bake's σ cut), faces
+   5's checkpoint at resolution 64 (level: the grid bake's σ cut), faces
    > 0, its seconds and peak memory; (f) the same checkpoint's 360° video
    through its baked grid on the ``full`` route (K5), 24 frames: the AVI
    bitwise the engine's renders of the same poses, no capture after
@@ -201,7 +201,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    ``Trainer.step``, lego f32, 3 steps from one seeded state on one bank:
    parameters, Adam's moments and stats bitwise, one all-reduce a step, no
    capture after warm-up; (b) lego f32 (fused trunk, 1024 global rays, 512
-   a rank) on 2 ranks through ``train.__main__.main`` for 100 graphed
+   a rank) on 2 ranks through ``train.__main__.main`` for 50 graphed
    steps, each rank's K1/K2 launch counts reset right before and read right
    after: one DP step first held bitwise to its one-process emulation
    (both ranks' draws, ``(g0 + g1) / 2``, clip + Adam), the loss falling,
@@ -218,9 +218,9 @@ imports nothing of JAX. Phases, each fatal on failure:
 
 19. tensor parallelism, then the multi-scene fleet: (a) two ranks share
    the card over gloo on a (data 1, model 2) mesh (``--dp-worker``, job
-   ``tp2``): lego f32 (fused trunk, full width, 512 global rays) for 20
+   ``tp2``): lego f32 (fused trunk, full width, 512 global rays) for 10
    graphed steps, K1/K2 on every rank on gathered weights, then lego_hash
-   through the coarse+fine trainer at its 2^19 table for 8 steps (the
+   through the coarse+fine trainer at its 2^19 table for 6 steps (the
    column-parallel trunk, K6/K6b on the gathered table), launch counts
    reset right before and read right after each; per rank the step ms,
    the model-group all-gather and the data-group all-reduce (ms between
@@ -272,6 +272,35 @@ imports nothing of JAX. Phases, each fatal on failure:
    from the children's capacity ledgers. One line with spawn-to-ready
    seconds per child, routed and direct latency, drain, scale and
    failover ms, alert fire and clear seconds and the card.
+21. mesh-sharded serving, then a JPEG capture (``scale/mesh_dispatch.py``,
+   ``utils/image.decode_jpeg``, ``tools/colmap2nerf``): (a) phase 6's
+   trained lego checkpoint and grid (fused trunk, chunk 1024, buckets
+   4096 and 16384) on the ``full`` (K5), ``gather`` (K4, then K1) and
+   packed (K3a) routes: a mesh-less engine, ``scale.mesh force`` through
+   ``engine_from_cfg`` (a (1, 1) mesh), a (2, 1) mesh over the card twice
+   (two lanes, two graph sets, two streams) and a (1, 2) one (the scene
+   sharded over two model indices, gathered into the lane); every family's
+   maps bitwise the mesh-less engine's for 37-, 128- and 4096-ray requests
+   and one 200x200 view, no capture or route build after warm-up, the
+   registries without errors; the ``mesh`` launches read straight after
+   the mesh engines' own requests; then a 4096-ray request's median ms of
+   9 on each engine (in turns, after an untimed repeat), the (2, 1) lanes'
+   overlap and the (1, 2) slot fill. Then phase 11's lego_hash checkpoint
+   on a (1, 2) engine with a fleet of it and a scaled copy: its bytes a
+   device at most 1/1.8 of the whole, a budget between the two admitting
+   it sharded and refusing it mesh-less, a demote and re-promote bitwise,
+   and the median ms of a request with the slots already holding the
+   scene, sharded and mesh-less. (b) the committed JPEG fixtures
+   (``tests/data/jpeg/``) decoded
+   without Pillow against their Pillow references (bitwise on 4:4:4 and
+   grayscale, within a level elsewhere; the progressive file refused by
+   its marker; the 800x800 4:2:0 frame against the digest of Pillow's
+   decode, and its decode time with the native Huffman decoder and the
+   plain Python one), a COLMAP text model of the JPEG capture's
+   cameras (``utils/colmap.write_model``), ``python -m
+   nerf_replication_tpu_torch.tools.colmap2nerf`` on it, and
+   ``capture.yaml`` (fused trunk: K1/K2) trained for a few steps on the
+   ``transforms.json`` it writes, the loss finite.
 
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
@@ -297,7 +326,9 @@ K5, K6 and K6b on the ops phase and on the model zoo, K1, K2, K6 and K6b on
 the ``parallel`` path of phase 18, summed over its ranks; the ``tensor``
 path of phase 19 (K1, K2, K6, K6b, summed over its ranks) and its
 ``fleet`` path (K5, K4, K3a, K1), the ``scale`` path of phase 20 (K4 and
-K5 in the serve children, from their ``/stats``); K6 and K6b also
+K5 in the serve children, from their ``/stats``), the ``mesh`` path of
+phase 21 (K5, K4, K1, K3a) and its ``jpeg_capture`` path (K1, K2); K6
+and K6b also
 carry their ms and bound at D = 2 and 4), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -3421,7 +3452,7 @@ ZOO_HASH = ["num_levels", "16", "level_dim", "2", "base_resolution", "16",
 ZOO_OPTS: list = []
 IMG_FIT_STEPS = 200
 REAL_STEPS = 20
-MESH_RES = 128
+MESH_RES = 64
 VIDEO_FRAMES = 24
 _ZOO_DRIVER = """
 import json, sys
@@ -3918,9 +3949,10 @@ def phase_zoo(torch, np, tmp, data):
 # -- phase 18: data-parallel training and sequence-parallel eval ------------
 
 DP_WORLD = 2  # ranks sharing the card over gloo in (b)-(d)
-DP_OPTS = ["ep_iter", "50", "train.epoch", "2", "eval_ep", "100",
-           "save_ep", "2", "save_latest_ep", "2"]
-# the NGP run: phase 11 (a)'s schedule (30 warm + 70 march steps)
+DP_STEPS = 50  # each of (b) and (c): two epochs
+DP_OPTS = ["ep_iter", str(DP_STEPS // 2), "train.epoch", "2", "eval_ep",
+           "100", "save_ep", "2", "save_latest_ep", "2"]
+# the NGP run: phase 11 (a)'s warm-up (30 warm steps, then 20 march)
 DP_NGP_OPTS = ["task_arg.ngp_training", "true", "task_arg.ngp_warmup_steps",
                "30", "task_arg.ngp_warmup_max", "30",
                "task_arg.ngp_grid_decay", "0.1"]
@@ -4127,7 +4159,7 @@ def _cli_fit(torch, np, cfg_file, opts, label, step_cls, step_name):
 def _dp_lego(torch, np, spec):
     """(b) on this rank: one DP step against its one-process emulation
     (rank 0: both ranks' draws, ``(g0 + g1) / 2``, Adam; bitwise), then the
-    train CLI for 100 steps."""
+    train CLI for 50 steps."""
     import torch.distributed as dist
 
     from nerf_replication_tpu_torch.compile import registry_from_cfg
@@ -4187,7 +4219,7 @@ def _dp_lego(torch, np, spec):
     del trainer, state
     run = _cli_fit(torch, np, lego, opts, "(b) lego", Trainer, "step")
     first, last = np.mean(run["losses"][:10]), np.mean(run["losses"][-10:])
-    require(run["steps"] == 100 and last < first,
+    require(run["steps"] == DP_STEPS and last < first,
             f"parallel (b): {run['steps']} steps, loss {first} -> {last}")
     run.pop("state")
     return {**run, **one, "loss_first10": float(first),
@@ -4197,7 +4229,7 @@ def _dp_lego(torch, np, spec):
 def _dp_ngp(torch, np, spec):
     """(c) on this rank: one NGP DP step (warm) against its one-process
     emulation (rank 0; within TOL_DP_NGP_FRO: K6b's atomics), then the
-    train CLI for 100 steps."""
+    train CLI for 50 steps."""
     import torch.distributed as dist
 
     from nerf_replication_tpu_torch.compile import registry_from_cfg
@@ -4269,7 +4301,7 @@ def _dp_ngp(torch, np, spec):
     run = _cli_fit(torch, np, cfg_file, opts, "(c) NGP", NGPTrainer,
                    "_one_step")
     first, last = np.mean(run["losses"][:10]), np.mean(run["losses"][-10:])
-    require(run["steps"] == 100 and last < first,
+    require(run["steps"] == DP_STEPS and last < first,
             f"parallel (c): {run['steps']} steps, loss {first} -> {last}")
     run["grid_digest"] = _dp_digest(torch, [run["state"].grid_ema])
     run.pop("state")
@@ -4516,7 +4548,7 @@ def phase_parallel(torch, np, tmp, data):
 
 TP_OPTS = ["parallel.data_axis", "1", "parallel.model_axis", "2",
            "task_arg.precrop_iters", "0", "task_arg.N_rays", "512"]
-TP_STEPS = {"lego": 20, "hash": 8}
+TP_STEPS = {"lego": 10, "hash": 6}
 TP_EMU_STEPS = 2  # steps held against the one-process emulation
 # lego_hash: the first step's reduced gradient blocks against the emulation's
 # columns, relative Frobenius (tests/test_torch_tensor_parallel.py's bound)
@@ -5659,13 +5691,17 @@ def phase_scale(torch, np, tmp, data):
             # router finds it by its failed requests and fails them over
             live = [r for r in router.replicas()
                     if r.state == ReplicaState.READY]
-            doomed = live[0]
-            scale_counts["K5"] += child_steady(doomed, ready_b[
-                doomed.replica_id], "fused_march_full")
+            sent = {r.replica_id: r.n_submitted for r in live}
             fo_before = router.n_failovers
             with _Traffic(np, cam, router.render, SCALE_THREADS,
                           4000.0) as tr:
                 time.sleep(1.0)
+                # the child this traffic goes to (affinity can leave a
+                # child idle, and an idle child's death fails nothing over)
+                doomed = max(live, key=lambda r: r.n_submitted
+                             - sent[r.replica_id])
+                scale_counts["K5"] += child_steady(doomed, ready_b[
+                    doomed.replica_id], "fused_march_full")
                 t_kill = time.perf_counter()
                 doomed.proc.kill()
                 time.sleep(2.0)
@@ -5737,6 +5773,486 @@ def phase_scale(torch, np, tmp, data):
             f"scale: the phase took {report['wall_s']} s")
     print("scale phase: " + json.dumps(report))
     return scale_counts, report
+
+
+# -- phase 21: mesh-sharded serving, then a JPEG capture ---------------------
+
+# the staged and fused routes the mesh engines serve (fused trunk: K1 under
+# gather, K3a on the packed route), chunk 1024 so that both buckets hold an
+# even number of chunks (4 and 16)
+MESH_ROUTES = {
+    "full": (["task_arg.march_fused", "full"],
+             ("full", "bf16", "reduced_k", "coarse")),
+    "gather": (["task_arg.march_fused", "gather"], ("full", "reduced_k")),
+    "packed": (["task_arg.march_fused", "off"], ("full", "reduced_k")),
+}
+MESH_OPTS = ["task_arg.march_coarse_block", "8", "task_arg.march_chunk_size",
+             "1024", "serve.buckets", "[4096, 16384]"]
+MESH_REQUESTS = (37, 128, 4096)  # rays; then one 200x200 view
+MESH_HASH_OPTS = ["task_arg.march_fused", "off", "task_arg.march_coarse_block",
+                  "8", "task_arg.march_chunk_size", "1024", "serve.buckets",
+                  "[4096]"]
+MESH_SHARD_RATIO = 1.8  # whole / per-device bytes of lego_hash on (1, 2)
+MESH_TIMING_REPS = 9  # timed requests an engine, after an untimed repeat
+JPEG_STEPS = 10  # training steps on the JPEG capture
+
+
+def _mesh_engines(torch, np, cfg, net, grid, bbox, near, far, fams):
+    """The mesh-less engine and the (2, 1) and (1, 2) engines over the card
+    twice, each on its own copy of ``net``, warmed on ``fams``."""
+    import copy
+
+    from nerf_replication_tpu_torch.scale.mesh_dispatch import (
+        make_serve_mesh,
+    )
+    from nerf_replication_tpu_torch.serve import RenderEngine
+
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        "cpu")
+    engines = {}
+    for label, mesh in (("none", None),
+                        ("(2, 1)", make_serve_mesh(2, 1, [dev, dev])),
+                        ("(1, 2)", make_serve_mesh(1, 2, [dev, dev]))):
+        engines[label] = RenderEngine(
+            cfg, copy.deepcopy(net), near, far, grid=grid, bbox=bbox,
+            device=DEVICE, warmup_families=fams, mesh=mesh)
+    return engines
+
+
+def _mesh_rays(np, cam, n, seed):
+    """``n`` rays of a test-camera view (a 200x200 view: all of them)."""
+    from nerf_replication_tpu_torch.datasets.rays import (
+        get_rays_np,
+        pose_spherical,
+    )
+
+    o, d = get_rays_np(cam["H"], cam["W"], cam["focal"],
+                       pose_spherical(-150.0 + 23.0 * seed, -30.0, 4.0))
+    rays = np.concatenate([o, d], -1).reshape(-1, 6).astype(np.float32)
+    if n is None:
+        return rays
+    idx = np.random.default_rng(seed).choice(rays.shape[0], n, replace=False)
+    return rays[np.sort(idx)]
+
+
+def _median_request_ms(torch, np, calls, reps=MESH_TIMING_REPS):
+    """``{label: {"median", "min", "max"}}`` host-clock ms of ``reps``
+    requests a label (``calls``: label -> a function rendering one), the
+    labels in turns after one untimed repeat each; the card idle before
+    each request, whose maps are on the host when it returns."""
+    for call in calls.values():
+        call()
+    times = {label: [] for label in calls}
+    for _ in range(reps):
+        for label, call in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    return {label: {"median": round(float(np.median(v)), 3),
+                    "min": round(min(v), 3), "max": round(max(v), 3)}
+            for label, v in times.items()}
+
+
+def _copy_fleet(torch, np, net, grid, bbox, near, far):
+    """A residency of two scenes, ``copy`` (``net``'s weights, ``grid`` and
+    ``bbox`` from the host) and ``other`` (the weights scaled by 1.01)."""
+    from nerf_replication_tpu_torch.fleet import (
+        ResidencyManager,
+        SceneData,
+        SceneRecord,
+        SceneRegistry,
+    )
+
+    params = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    scenes = {"copy": params,
+              "other": {k: v * 1.01 for k, v in params.items()}}
+    grid_t = torch.from_numpy(np.asarray(grid, bool))
+    bbox_t = torch.from_numpy(np.asarray(bbox, np.float32))
+
+    def loader(rec):
+        return SceneData(scene_id=rec.scene_id, params=scenes[rec.scene_id],
+                         grid=grid_t, bbox=bbox_t, near=near, far=far)
+
+    return ResidencyManager(SceneRegistry([SceneRecord(scene_id=s)
+                                           for s in scenes]),
+                            loader, budget_bytes=1 << 30,
+                            verify_checksums=False)
+
+
+def _mesh_serving(torch, np, tmp, data, report):
+    """(a) the lego routes: each mesh engine bitwise the mesh-less one; the
+    main path's K5/K4/K1/K3a launches."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.ops import fused_march as fm
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        default_grid_path,
+        load_occupancy_pyramid,
+    )
+    from nerf_replication_tpu_torch.serve import engine_from_cfg
+    from nerf_replication_tpu_torch.train.checkpoint import load_network
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    levels, bbox = load_occupancy_pyramid(default_grid_path(lego))
+    counts = {"K5": 0, "K4": 0, "K1": 0, "K3a": 0}
+    keys = (("K5", fm, "fused_march_full"), ("K4", fm, "fused_dda_gather"),
+            ("K1", fmlp, "fused_mlp_fwd"),
+            ("K3a", fmlp, "fused_mlp_fwd_masked"))
+    maps = ("rgb_map_f", "depth_map_f", "acc_map_f")
+    for route, (extra, fams) in MESH_ROUTES.items():
+        opts = _eval_opts(data, tmp, extra + MESH_OPTS + [
+            "compile.aot", "true"])
+        cfg = make_cfg(lego, opts, default_task="run")
+        net = make_network(cfg)
+        load_network(cfg.trained_model_dir, net)
+        forced = engine_from_cfg(
+            make_cfg(lego, opts + ["scale.mesh", "force", "serve.warmup",
+                                   "false"], default_task="run"),
+            cfg_file=lego, device=DEVICE)
+        near, far, cam = forced.near, forced.far, forced.default_camera
+        engines = _mesh_engines(torch, np, cfg, net, levels[0], bbox, near,
+                                far, fams)
+        forced.warm_up(fams)
+        engines["(1, 1)"] = forced
+        for label, axes in (("(1, 1)", (1, 1)), ("(2, 1)", (2, 1)),
+                            ("(1, 2)", (1, 2))):
+            st = engines[label].stats()
+            require(st["mesh"] is not None and st["mesh"]["axes"] == {
+                "data": axes[0], "model": axes[1]}, f"mesh {route} {label}: "
+                f"stats mesh {st['mesh']}")
+            require(not st["compile"]["errors"], f"mesh {route} {label}: "
+                    f"registry errors {st['compile']}")
+            require(len(engines[label].lanes) == axes[0],
+                    f"mesh {route} {label}: {len(engines[label].lanes)} lanes")
+        # each mesh engine serves a fleet scene ``copy`` of the same
+        # weights after a scene ``other`` held its slots: its requests
+        # render from slots the copy's placed pieces fill (the gather),
+        # bitwise the mesh-less engine's own
+        requests = [(n, _mesh_rays(np, cam, n, i))
+                    for i, n in enumerate(MESH_REQUESTS)]
+        for label in ("(1, 1)", "(2, 1)", "(1, 2)"):
+            engines[label].attach_fleet(_copy_fleet(
+                torch, np, net, levels[0], bbox, near, far))
+            engines[label].render_request(requests[0][1], near, far,
+                                          emit=False, scene="other")
+        before = {k: (e.stats()["captures"], e.route_builds)
+                  for k, e in engines.items()}
+        requests.append(("view", _mesh_rays(np, cam, None, 7)))
+        ref = {(n, f): engines["none"].render_request(rays, near, far,
+                                                      tier=f, emit=False)
+               for n, rays in requests for f in fams}
+        # the main path: the mesh engines' own requests, and nothing else
+        # between the reset and the read
+        for _, mod, key in keys:
+            mod.reset_launch_counts()
+        for label in ("(1, 1)", "(2, 1)", "(1, 2)"):
+            eng = engines[label]
+            for n, rays in requests:
+                for f in fams:
+                    out = eng.render_request(rays, near, far, tier=f,
+                                             emit=False, scene="copy")
+                    for k in maps:
+                        require(np.array_equal(out[k], ref[(n, f)][k]),
+                                f"mesh {route} {label}: {f} {k} at {n} rays "
+                                "differs from the mesh-less engine")
+        launches = {k: mod.LAUNCHES[key] for k, mod, key in keys}
+        row = {"families": list(fams), "launches": launches}
+        for k, n in launches.items():
+            counts[k] += n
+        rays = requests[2][1]
+        row["ms_4096"] = _median_request_ms(torch, np, {
+            label: (lambda e=engines[label], s=(
+                None if label == "none" else "copy"): e.render_request(
+                rays, near, far, emit=False, scene=s))
+            for label in ("none", "(1, 1)", "(2, 1)", "(1, 2)")})
+        engines["(2, 1)"].render_request(requests[-1][1], near, far,
+                                         emit=False, scene="copy")
+        overlap = engines["(2, 1)"].lane_overlap_ms() or {}
+        row["lanes_2x1"] = {k: (round(v, 4) if isinstance(v, float)
+                                else [round(x, 4) for x in v])
+                            for k, v in overlap.items()}
+        # a switch back to the engine's own scene, gathered as well
+        row["slot_fill_ms"] = {}
+        for label in ("(1, 1)", "(2, 1)", "(1, 2)"):
+            eng = engines[label]
+            out = eng.render_request(rays, near, far, emit=False)
+            want = ref[(requests[2][0], "full")]
+            require(all(np.array_equal(out[k], want[k]) for k in maps),
+                    f"mesh {route} {label}: the own scene's maps after a "
+                    "switch back differ")
+            require(eng.slot_switches == 3, f"mesh {route} {label}: "
+                    f"{eng.slot_switches} slot switches, expected 3")
+            row["slot_fill_ms"][label] = [round(x, 4)
+                                          for x in eng.slot_copy_ms()]
+        for label, eng in engines.items():
+            require((eng.stats()["captures"], eng.route_builds)
+                    == before[label], f"mesh {route} {label}: captures or "
+                    f"route builds grew after warm-up: {before[label]} -> "
+                    f"{(eng.stats()['captures'], eng.route_builds)}")
+        row["captures"] = {k: e.stats()["captures"]
+                           for k, e in engines.items()}
+        report[route] = row
+        print(f"mesh ({route}): " + json.dumps(row))
+        del engines, forced
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _mesh_hash_fleet(torch, np, tmp, run, report):
+    """(a) lego_hash on a (1, 2) engine with a fleet of its trained scene
+    and a scaled copy: admitted only sharded, re-promoted bitwise."""
+    import copy
+
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.fleet import (
+        ResidencyOverloadError,
+        SceneData,
+        SceneRecord,
+        SceneRegistry,
+        TieredResidencyManager,
+    )
+    from nerf_replication_tpu_torch.renderer.occupancy import (
+        default_grid_path,
+        load_occupancy_pyramid,
+    )
+    from nerf_replication_tpu_torch.scale.mesh_dispatch import (
+        make_serve_mesh,
+    )
+    from nerf_replication_tpu_torch.serve import RenderEngine
+
+    cfg_path = os.path.join(REPO, "configs", "nerf", run["cfg_name"])
+    cfg = make_cfg(cfg_path, run["opts"] + MESH_HASH_OPTS, default_task="run")
+    levels, bbox = load_occupancy_pyramid(os.path.join(
+        tmp, "serve_hash_d", default_grid_path(run["cfg_name"])))
+    grid_t = torch.from_numpy(np.asarray(levels[0], bool))
+    bbox_t = torch.from_numpy(np.asarray(bbox, np.float32))
+    net = run["state"].network
+    host = {"h1": {k: v.detach().cpu().clone()
+                   for k, v in net.state_dict().items()}}
+    host["h2"] = {k: v * 1.01 for k, v in host["h1"].items()}
+    batch = make_dataset(cfg, "test").image_batch(0)
+    near, far = float(batch["near"]), float(batch["far"])
+    # 4096 rays through the middle of the view (the top rows miss the
+    # scene: background on every scene)
+    rays = np.asarray(batch["rays"], np.float32)
+    mid = rays.shape[0] // 2
+    rays = rays[mid - 2048:mid + 2048]
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        "cpu")
+    eng = RenderEngine(cfg, copy.deepcopy(net), near, far, grid=levels[0],
+                       bbox=bbox, device=DEVICE, warmup_families=("full",),
+                       mesh=make_serve_mesh(1, 2, [dev, dev]))
+    plain = RenderEngine(cfg, copy.deepcopy(net), near, far, grid=levels[0],
+                         bbox=bbox, device=DEVICE, warmup_families=("full",))
+    tree = (host["h1"], grid_t, bbox_t)
+    total = (sum(v.numel() * v.element_size() for v in host["h1"].values())
+             + grid_t.numel() + bbox_t.numel() * 4)
+    shard = eng.scene_shard_nbytes(tree)
+    require(shard * MESH_SHARD_RATIO <= total, f"mesh hash: {shard} bytes a "
+            f"device of {total} (> 1/{MESH_SHARD_RATIO})")
+    budget = (shard + total) // 2
+
+    def ladder():
+        def loader(rec):
+            return SceneData(scene_id=rec.scene_id, params=host[rec.scene_id],
+                             grid=grid_t, bbox=bbox_t, near=near, far=far)
+
+        return TieredResidencyManager(
+            SceneRegistry([SceneRecord(scene_id=s) for s in host]), loader,
+            budget_bytes=int(budget), staging_budget_bytes=int(4 * total),
+            verify_checksums=False)
+
+    own = plain.render_request(rays, near, far, emit=False)
+    plain.attach_fleet(ladder())
+    try:
+        plain.render_request(rays, near, far, scene="h1", emit=False)
+        refused = False
+    except ResidencyOverloadError:
+        refused = True
+    require(refused, "mesh hash: the mesh-less engine admitted the scene "
+            f"over a {budget}-byte budget")
+    mgr = ladder()
+    eng.attach_fleet(mgr)
+    builds = (eng.stats()["captures"], eng.route_builds)
+    keys = ("rgb_map_f", "depth_map_f", "acc_map_f")
+    out1 = eng.render_request(rays, near, far, scene="h1", emit=False)
+    require(float(np.mean(out1["acc_map_f"])) > 0.01, "mesh hash: the rays "
+            "miss the scene (mean acc "
+            f"{float(np.mean(out1['acc_map_f']))})")
+    require(all(np.array_equal(out1[k], own[k]) for k in keys),
+            "mesh hash: the sharded scene's maps differ from the mesh-less "
+            "engine's")
+    out2 = eng.render_request(rays, near, far, scene="h2", emit=False)
+    require(not np.array_equal(out1["rgb_map_f"], out2["rgb_map_f"]),
+            "mesh hash: the scaled scene renders as the trained one")
+    again = eng.render_request(rays, near, far, scene="h1", emit=False)
+    require(mgr.repromotions >= 1 and mgr.stats()["param_shards"] == 2,
+            f"mesh hash: ladder {mgr.stats()}")
+    require(all(np.array_equal(out1[k], again[k]) for k in keys),
+            "mesh hash: the re-promoted scene's maps differ")
+    require((eng.stats()["captures"], eng.route_builds) == builds,
+            "mesh hash: a capture or route build after warm-up")
+    fills = eng.slot_copy_ms()
+    switches = eng.slot_switches
+    # each engine's slots already hold the scene it times: no switch
+    ms = _median_request_ms(torch, np, {
+        "mesh": lambda: eng.render_request(rays, near, far, scene="h1",
+                                           emit=False),
+        "none": lambda: plain.render_request(rays, near, far, emit=False)})
+    require(eng.slot_switches == switches, "mesh hash: a slot switch in "
+            "the timed requests")
+    report["hash"] = {"whole_bytes": int(total), "shard_bytes": int(shard),
+                      "budget_bytes": int(budget),
+                      "ratio": round(total / shard, 4),
+                      "slot_fill_ms": [round(x, 4) for x in fills[-3:]],
+                      "repromotions": mgr.repromotions,
+                      "ms_4096": ms}
+    print("mesh (hash): " + json.dumps(report["hash"]))
+    del eng, plain
+    torch.cuda.empty_cache()
+
+
+def _jpeg_capture(torch, np, tmp, report):
+    """(b) the committed JPEG fixtures against their Pillow references, a
+    COLMAP model of the capture's cameras, ``colmap2nerf`` and a short
+    ``capture.yaml`` fit on the JPEG frames; K1/K2 launches."""
+    import hashlib
+    import shutil
+
+    from nerf_replication_tpu_torch.native import native_available
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.utils import colmap as pcm
+    from nerf_replication_tpu_torch.utils.image import decode_jpeg, read_image
+
+    jdir = os.path.join(REPO, "tests", "data", "jpeg")
+    ref = np.load(os.path.join(jdir, "pillow.npz"))
+    gates = {}
+    for name in ref.files:
+        path = os.path.join(jdir, f"{name}.jpg")
+        if name == "progressive":
+            try:
+                read_image(path)
+                ok = False
+            except ValueError as exc:
+                ok = "SOF2" in str(exc)
+            require(ok, "jpeg: the progressive file was not refused by name")
+            continue
+        ours = read_image(path)
+        diff = np.abs(ours.astype(np.int16) - ref[name].astype(np.int16))
+        exact = float((diff == 0).mean())
+        bitwise = name.startswith(("rgb444", "gray"))
+        require(ours.shape == ref[name].shape and (
+            exact == 1.0 if bitwise else diff.max() <= 1 and exact >= 0.99),
+            f"jpeg {name}: max {diff.max()} levels, {exact} exact")
+        gates[name] = exact
+    with open(os.path.join(jdir, "frame800.json")) as f:
+        digest = json.load(f)
+    with open(os.path.join(jdir, "frame800.jpg"), "rb") as f:
+        frame800 = f.read()
+    decode_jpeg(frame800)  # builds the native Huffman decoder
+    require(native_available("jpeg_scan"), "jpeg: the native Huffman "
+            "decoder did not build")
+    times = {"native": [], "plain": []}
+    for _ in range(3):
+        for kind in times:
+            t0 = time.perf_counter()
+            frame = np.ascontiguousarray(decode_jpeg(
+                frame800, native=kind == "native"))
+            times[kind].append(time.perf_counter() - t0)
+            require(hashlib.sha256(frame.tobytes()).hexdigest()
+                    == digest["sha256"], f"jpeg: the 800x800 frame "
+                    f"({kind}) differs from Pillow's decode")
+    src = os.path.join(jdir, "capture")
+    cap = os.path.join(tmp, "jpeg_capture")
+    shutil.rmtree(cap, ignore_errors=True)
+    shutil.copytree(os.path.join(src, "images"), os.path.join(cap, "images"))
+    cref = np.load(os.path.join(src, "pillow.npz"))
+    frame_s = []
+    for name in cref.files:
+        t0 = time.perf_counter()
+        ours = read_image(os.path.join(cap, "images", f"{name}.jpg"))
+        frame_s.append(time.perf_counter() - t0)
+        diff = np.abs(ours.astype(np.int16) - cref[name].astype(np.int16))
+        require(diff.max() <= 1 and (diff == 0).mean() >= 0.99,
+                f"jpeg capture {name}: max {diff.max()} levels")
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2")]
+    require(not loaded, f"jpeg: the decode loaded {loaded}")
+    # the capture's cameras as a COLMAP text model (world -> camera)
+    with open(os.path.join(src, "transforms.json")) as f:
+        meta = json.load(f)
+    camera = pcm.Camera(1, "PINHOLE", meta["w"], meta["h"], np.array(
+        [meta["fl_x"], meta["fl_y"], meta["cx"], meta["cy"]], np.float64))
+    images = {}
+    for i, fr in enumerate(meta["frames"]):
+        c2w = np.asarray(fr["transform_matrix"], np.float64)
+        c2w[:3, 1:3] *= -1
+        w2c = np.linalg.inv(c2w)
+        images[i + 1] = pcm.Image(i + 1, pcm.rotmat2qvec(w2c[:3, :3]),
+                                  w2c[:3, 3], 1,
+                                  os.path.basename(fr["file_path"]))
+    model = os.path.join(tmp, "jpeg_colmap")
+    pcm.write_model({1: camera}, images, {}, model, ext=".txt")
+    res = subprocess.run(
+        [sys.executable, "-m", "nerf_replication_tpu_torch.tools.colmap2nerf",
+         "--text", model, "--images", os.path.join(cap, "images"), "--out",
+         os.path.join(cap, "transforms.json")],
+        capture_output=True, text=True, timeout=120, cwd=REPO)
+    require(res.returncode == 0, f"colmap2nerf failed: {res.stderr[-2000:]}")
+    with open(os.path.join(cap, "transforms.json")) as f:
+        conv = json.load(f)
+    require(len(conv["frames"]) == len(meta["frames"]) and all(
+        fr["sharpness"] > 0 for fr in conv["frames"]),
+        f"colmap2nerf: {len(conv['frames'])} frames, sharpness "
+        f"{[fr['sharpness'] for fr in conv['frames']][:4]}")
+    out = os.path.join(tmp, "out_jpeg")
+    opts = ["scene", "jpeg_capture", "train_dataset.data_root", tmp,
+            "test_dataset.data_root", tmp, "ep_iter", str(JPEG_STEPS),
+            "train.epoch", "1", "eval_ep", "100", "save_ep", "100",
+            "save_latest_ep", "100", "network.nerf.fused_trunk", "true",
+            "network.nerf.fused_tile", "512", *_zoo_paths(out, "jpeg_real")]
+    fmlp.reset_launch_counts()
+    run = _zoo_fit(torch, np, os.path.join(REPO, "configs", "real",
+                                           "capture.yaml"), opts,
+                   "jpeg capture")
+    counts = {"K1": fmlp.LAUNCHES["fused_mlp_fwd"],
+              "K2": fmlp.LAUNCHES["fused_mlp_bwd"]}
+    report["jpeg"] = {
+        "fixtures_exact_share": gates,
+        "decode_800x800_420_s": {k: round(float(np.median(v)), 4)
+                                 for k, v in times.items()},
+        "decode_64x64_frame_s": round(float(np.median(frame_s)), 5),
+        "colmap2nerf_sharpness": [round(fr["sharpness"], 3)
+                                  for fr in conv["frames"][:4]],
+        "fit": {"steps": len(run["losses"]), "step_ms": round(
+            run["step_ms"], 3), "loss_first_last": [run["losses"][0],
+                                                    run["losses"][-1]]},
+        "launches": counts}
+    print("jpeg capture: " + json.dumps(report["jpeg"]))
+    return counts
+
+
+def phase_mesh_jpeg(torch, np, tmp, data, hash_runs):
+    """Phase 21: (a) mesh-sharded serving of phase 6's lego checkpoint on
+    the full (K5), gather (K4 + K1) and packed (K3a) routes at (1, 1),
+    (2, 1) and (1, 2), each bitwise the mesh-less engine, and phase 11's
+    lego_hash scene sharded over (1, 2) through a fleet; (b) the JPEG
+    fixtures, colmap2nerf and a fit on the JPEG capture (cwd: tmp)."""
+    t0 = time.perf_counter()
+    os.chdir(tmp)
+    report = {}
+    mesh_counts = _mesh_serving(torch, np, tmp, data, report)
+    _mesh_hash_fleet(torch, np, tmp, hash_runs["hash_d"], report)
+    t_a = time.perf_counter() - t0
+    jpeg_counts = _jpeg_capture(torch, np, tmp, report)
+    report["wall_s"] = {"a": round(t_a, 1),
+                        "b": round(time.perf_counter() - t0 - t_a, 1),
+                        "all": round(time.perf_counter() - t0, 1)}
+    report["card"] = smi_line()
+    print("mesh_jpeg phase: " + json.dumps(report))
+    return mesh_counts, jpeg_counts, report
 
 
 def run_bench():
@@ -5817,6 +6333,8 @@ def main() -> int:
             tp_counts, fleet_counts, _ = phase_tensor_fleet(torch, np, tmp,
                                                             data)
             scale_counts, _ = phase_scale(torch, np, tmp, data)
+            mesh_counts, jpeg_counts, _ = phase_mesh_jpeg(torch, np, tmp,
+                                                          data, hash_runs)
         finally:
             os.chdir(cwd)
     run_bench()
@@ -5877,6 +6395,13 @@ def main() -> int:
         # children's own /stats counts since they were ready
         if kernel in scale_counts:
             paths["scale"] = scale_counts[kernel]
+        # phase 21: the mesh engines' requests (K5 full, K4 gather, K1
+        # under gather's fused trunk, K3a packed) and the fit on the JPEG
+        # capture (K1, K2)
+        if kernel in mesh_counts:
+            paths["mesh"] = mesh_counts[kernel]
+        if kernel in jpeg_counts:
+            paths["jpeg_capture"] = jpeg_counts[kernel]
         if kernel in ("K6", "K6b"):
             kind = "fwd" if kernel == "K6" else "bwd"
             for d in (2, 4):

@@ -17,9 +17,11 @@ The JAX package reads images with Pillow and does its image work with
 OpenCV; the card's machine has neither, so this module carries its own,
 each held against OpenCV in ``tests/test_torch_light_stage.py``:
 
-* PNG frames and masks through ``utils.image.read_image`` (the port's PNG
-  codec; any other format through Pillow when it is importable, else an
-  error naming the file);
+* frames and masks through ``utils.image.read_image``: PNG and baseline
+  JPEG (sequential Huffman, 8-bit, 4:4:4 / 4:2:2 / 4:2:0) by the port's
+  own codecs, as Pillow decodes them; a progressive or arithmetic-coded
+  JPEG raises naming its marker; any other format through Pillow when it
+  is importable, else an error naming the file;
 * :func:`erode_dilate_band` (``cv2.erode`` / ``cv2.dilate`` with a square
   kernel, OpenCV's border rule: outside pixels never win), bitwise;
 * :func:`fill_convex_poly` + :func:`convex_hull` (``cv2.convexHull`` +

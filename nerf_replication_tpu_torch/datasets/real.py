@@ -8,8 +8,11 @@
   per frame (per-frame keys win, each in its own pixel units), honoured in
   ray generation (``rays.get_rays_np``); frames of another size are resized
   to the bank's with ``utils.image.resize_area`` (OpenCV's INTER_AREA).
-* ``file_path`` entries keep their extension (PNG through the port's codec;
-  other formats need Pillow, ``utils.image.read_image``).
+* ``file_path`` entries keep their extension; ``utils.image.read_image``
+  decodes PNG and baseline JPEG (sequential Huffman, 8-bit, 4:4:4 / 4:2:2 /
+  4:2:0, as Pillow decodes them) by the port's own codecs, whatever the
+  extension says; a progressive or arithmetic-coded JPEG raises naming its
+  marker, and other formats need Pillow.
 * ``ndc: true`` for forward-facing captures: rays in normalized device
   coordinates (``rays.ndc_rays_np``) and ray-space bounds 0 / 1, which the
   config must state (``configs/real/capture_ndc.yaml``).

@@ -59,13 +59,15 @@ _TOUCH = 0
 
 @dataclass(frozen=True)
 class SceneData:
-    """One scene's render inputs (host- or device-side): ``params`` the
-    network's state dict (name -> tensor), the fine ``grid`` level (bool)
-    and ``bbox`` ([2, 3] float32). ``nbytes`` is filled by the manager from
-    the real tensor sizes — the PER-DEVICE figure; ``total_nbytes`` the
-    whole scene (they coincide without a model-parallel serving mesh).
-    ``ready``: the CUDA event the device copy recorded (None: nothing to
-    wait for)."""
+    """One scene's render inputs: on the host, ``params`` the network's
+    state dict (name -> tensor), the fine ``grid`` level (bool) and
+    ``bbox`` ([2, 3] float32); placed by the engine
+    (``scale.mesh_dispatch.place_tree``), a ``MeshParams`` and one grid
+    and bbox a data index. ``nbytes`` is filled by the manager from the
+    real tensor sizes — the PER-DEVICE figure; ``total_nbytes`` the whole
+    scene (they coincide without a model-parallel serving mesh).
+    ``ready``: the CUDA events the device copies recorded (None or empty:
+    nothing to wait for)."""
 
     scene_id: str
     params: object

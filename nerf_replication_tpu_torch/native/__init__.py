@@ -1,14 +1,17 @@
-"""The native (C++) ray-bank builder, bound by ctypes (port of
+"""The native (C++) host builders, bound by ctypes (port of
 ``nerf_replication_tpu/native/__init__.py``).
 
 ``raybank.cpp`` builds the training bank on the host: pinhole rays of every
 pixel (``datasets/rays.get_rays_np``) and the RGBA frames composited onto
-white, one thread per group of frames. The library is compiled with ``g++``
-at first use into ``<repo>/build/native/`` (git-ignored), keyed by the
-source's hash and the interpreter, so a changed source is never loaded
-stale. A host without a compiler takes the numpy builder, as the JAX
-package does: this is host data code, not a device kernel, and both paths
-give the same banks (``tests/test_torch_real.py`` holds them bitwise).
+white, one thread per group of frames. ``jpeg_scan.cpp`` Huffman-decodes a
+baseline JPEG scan into coefficient planes (``utils/image.decode_jpeg``).
+Each library is compiled with ``g++`` at first use into
+``<repo>/build/native/`` (git-ignored), keyed by its source's hash and the
+interpreter, so a changed source is never loaded stale. A host without a
+compiler takes the numpy ray-bank builder, as the JAX package does, and the
+Python scan decoder: this is host data code, not a device kernel, and both
+paths give the same results (``tests/test_torch_real.py`` holds the banks
+bitwise, ``tests/test_torch_jpeg.py`` the coefficients).
 :func:`native_available` says which path this process takes.
 """
 
@@ -25,32 +28,55 @@ import threading
 
 import numpy as np
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "raybank.cpp")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "build", "native")
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
+                         "native")
 _LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
-_FAILED = False
+_LIBS: dict = {}  # library name -> CDLL, or None after a failed build
+
+_P = ctypes.POINTER
+# argtypes of each library's one entry point
+_SIGNATURES = {
+    "raybank": ("build_ray_bank", [
+        _P(ctypes.c_float),   # poses
+        _P(ctypes.c_uint8),   # images
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n,H,W,C
+        ctypes.c_float,       # focal
+        ctypes.c_int,         # n_threads
+        _P(ctypes.c_float),   # rays_out
+        _P(ctypes.c_float),   # rgbs_out
+    ], None),
+    "jpeg_scan": ("jpeg_decode_scan", [
+        _P(ctypes.c_uint8),   # the intervals, each + 4 zero bytes
+        _P(ctypes.c_int64),   # their starts (n_segs + 1)
+        ctypes.c_int, ctypes.c_int,  # n_segs, MCUs an interval
+        ctypes.c_int, ctypes.c_int,  # MCUs a row, a column
+        ctypes.c_int,         # scan components
+        _P(ctypes.c_uint16),  # DC tables [n, 65536]
+        _P(ctypes.c_uint16),  # AC tables [n, 65536]
+        _P(ctypes.c_int32),   # h, v, blocks a row [n, 3]
+        _P(ctypes.c_void_p),  # coefficient planes [n]
+    ], ctypes.c_int),
+}
 
 
-def _lib_path() -> str:
-    with open(_SRC, "rb") as f:
+def _lib_path(name: str) -> str:
+    with open(os.path.join(_DIR, f"{name}.cpp"), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     tag = f"cpy{sys.version_info.major}{sys.version_info.minor}-" \
           f"{platform.machine()}"
-    return os.path.join(BUILD_DIR, f"libraybank_{tag}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}_{digest}.so")
 
 
-def _compile(out: str) -> bool:
-    """g++ the source into ``out`` (atomically); False without g++ or on
-    a failed build."""
+def _compile(name: str, out: str) -> bool:
+    """g++ ``<name>.cpp`` into ``out`` (atomically); False without g++ or
+    on a failed build."""
     if shutil.which("g++") is None:
         return False
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           _SRC, "-o", tmp]
+           os.path.join(_DIR, f"{name}.cpp"), "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=120)
@@ -65,33 +91,26 @@ def _compile(out: str) -> bool:
             os.remove(tmp)
 
 
-def get_lib() -> ctypes.CDLL | None:
-    """The compiled library, built on first use; None without a compiler."""
-    global _LIB, _FAILED
+def get_lib(name: str = "raybank") -> ctypes.CDLL | None:
+    """The compiled library ``name``, built on first use; None without a
+    compiler."""
     with _LOCK:
-        if _LIB is not None or _FAILED:
-            return _LIB
-        out = _lib_path()
-        if not os.path.exists(out) and not _compile(out):
-            _FAILED = True
-            return None
-        lib = ctypes.CDLL(out)
-        lib.build_ray_bank.argtypes = [
-            ctypes.POINTER(ctypes.c_float),   # poses
-            ctypes.POINTER(ctypes.c_uint8),   # images
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n,H,W,C
-            ctypes.c_float,                   # focal
-            ctypes.c_int,                     # n_threads
-            ctypes.POINTER(ctypes.c_float),   # rays_out
-            ctypes.POINTER(ctypes.c_float),   # rgbs_out
-        ]
-        lib.build_ray_bank.restype = None
-        _LIB = lib
-        return _LIB
+        if name in _LIBS:
+            return _LIBS[name]
+        out = _lib_path(name)
+        lib = None
+        if os.path.exists(out) or _compile(name, out):
+            lib = ctypes.CDLL(out)
+            fn_name, argtypes, restype = _SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _LIBS[name] = lib
+        return lib
 
 
-def native_available() -> bool:
-    return get_lib() is not None
+def native_available(name: str = "raybank") -> bool:
+    return get_lib(name) is not None
 
 
 def build_ray_bank(poses: np.ndarray, images: np.ndarray, focal: float,
@@ -141,3 +160,33 @@ def _build_ray_bank_numpy(poses, images, focal):
         np.concatenate(rays_list, 0).astype(np.float32),
         np.concatenate(rgb_list, 0),
     )
+
+
+def decode_jpeg_scan(segs, comps, per_seg: int, mcus_x: int,
+                     mcus_y: int) -> int | None:
+    """Huffman-decode one baseline JPEG scan with ``jpeg_scan.cpp`` into
+    its components' coefficient planes; None without a compiler, else the
+    decoder's code (0 decoded, 1 a bad Huffman code, 2 data that ends
+    early). ``segs``: the unstuffed restart intervals; ``comps``: per scan
+    component ``(dc_lut, ac_lut, h, v, bw, coef)`` with uint16 [65536]
+    tables and a zeroed int32 [blocks * 64] plane, written in place."""
+    lib = get_lib("jpeg_scan")
+    if lib is None:
+        return None
+    data = np.frombuffer(b"".join(s + b"\0\0\0\0" for s in segs), np.uint8)
+    starts = np.zeros(len(segs) + 1, np.int64)
+    starts[1:] = np.cumsum([len(s) + 4 for s in segs])
+    dc = np.ascontiguousarray(np.stack([c[0] for c in comps]), np.uint16)
+    ac = np.ascontiguousarray(np.stack([c[1] for c in comps]), np.uint16)
+    geom = np.asarray([c[2:5] for c in comps], np.int32)
+    planes = [c[5] for c in comps]
+    for p in planes:
+        assert p.dtype == np.int32 and p.flags.c_contiguous
+    ptrs = (ctypes.c_void_p * len(planes))(*[p.ctypes.data for p in planes])
+    return int(lib.jpeg_decode_scan(
+        data.ctypes.data_as(_P(ctypes.c_uint8)),
+        starts.ctypes.data_as(_P(ctypes.c_int64)), len(segs), int(per_seg),
+        int(mcus_x), int(mcus_y), len(comps),
+        dc.ctypes.data_as(_P(ctypes.c_uint16)),
+        ac.ctypes.data_as(_P(ctypes.c_uint16)),
+        geom.ctypes.data_as(_P(ctypes.c_int32)), ptrs))

@@ -220,7 +220,11 @@ def march_rays_accelerated(apply_fn, rays: torch.Tensor, near: float,
     t_sel = ts[order]
 
     pts_sel = march_points(rays_o, rays_d, t_sel)
-    viewdirs = rays_d / norm3_rn(rays_d, keepdim=True)
+    # a padding ray (zero direction) views along 0, not 0/0: a NaN row
+    # spills into its neighbour in the CPU's bfloat16 matrix product (rows
+    # >= 96), which turned a real ray's bf16 map NaN
+    viewdirs = torch.where(real_rays(rays_d)[:, None],
+                           rays_d / norm3_rn(rays_d, keepdim=True), 0.0)
     raw = apply_fn(pts_sel, viewdirs, "fine")  # [N, K, 4]
 
     rgb = torch.sigmoid(raw[..., :3])

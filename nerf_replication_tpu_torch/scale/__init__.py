@@ -31,10 +31,11 @@ placement and launcher sections hold for the port).
   server answers only after its warm-up and captures), drain-before-
   retire, kill + 1:1 replace.
 
-Not ported yet: mesh-sharded dispatch (the JAX package's
-``scale/mesh_dispatch.py``, ROADMAP item 9c). Until it lands the engine
-refuses every ``scale.mesh`` / ``scale.mesh_shape`` that would build a
-mesh (:func:`~.options.check_mesh_serving`).
+* **Mesh dispatch** (:mod:`.mesh_dispatch`) — serving on one process's
+  ``(data, model)`` device mesh (``scale.mesh`` / ``scale.mesh_shape``):
+  a bucket's whole chunks split over the data axis, one lane of slots,
+  routes, graphs and stream a data index, and scenes sharded at rest over
+  the model axis and gathered into the slots at a switch.
 """
 
 from .fleet_metrics import (
@@ -43,12 +44,17 @@ from .fleet_metrics import (
     merge_scrapes,
 )
 from .launcher import LaunchError, ProcessLauncher, allocate_port
-from .options import (
+from .mesh_dispatch import (
     MeshDispatchError,
+    ServeMesh,
+    mesh_from_scale_cfg,
+    model_size,
+    validate_mesh_buckets,
+)
+from .options import (
     MeshShapeError,
     PlacementOptions,
     ScaleOptions,
-    check_mesh_serving,
     parse_mesh_shape,
 )
 from .placement import (
@@ -86,11 +92,14 @@ __all__ = [
     "ReplicaUnavailableError",
     "Router",
     "ScaleOptions",
+    "ServeMesh",
     "Supervisor",
     "allocate_port",
-    "check_mesh_serving",
     "make_fleet_server",
     "merge_heat",
     "merge_scrapes",
+    "mesh_from_scale_cfg",
+    "model_size",
     "parse_mesh_shape",
+    "validate_mesh_buckets",
 ]

@@ -2,10 +2,8 @@
 ``nerf_replication_tpu/scale/options.py``; config/config.py declares the
 defaults; docs/scaleout.md is the operator reference).
 
-Mesh serving (``scale.mesh`` / ``scale.mesh_shape``) is not ported yet
-(ROADMAP item 9c): :func:`check_mesh_serving` validates both keys with
-the JAX package's parsing and messages and refuses every configuration
-that would build a mesh there, so none serves on one device silently."""
+``scale.mesh`` / ``scale.mesh_shape`` are parsed here and turned into a
+serving mesh by :func:`.mesh_dispatch.mesh_from_scale_cfg`."""
 
 from __future__ import annotations
 
@@ -17,11 +15,6 @@ class MeshShapeError(ValueError):
 
     Defined here (not in a dispatch layer) so config parsing can raise it
     without importing one."""
-
-
-class MeshDispatchError(ValueError):
-    """The ``scale:`` block asks for a mesh the engine cannot serve on
-    (an unknown ``scale.mesh`` mode, or any mesh before ROADMAP item 9c)."""
 
 
 def parse_mesh_shape(raw) -> "tuple[int, int] | None":
@@ -131,13 +124,12 @@ class ScaleOptions:
     heartbeat_interval_s: float = 2.0
     heartbeat_timeout_s: float = 10.0
     drain_timeout_s: float = 60.0
-    # mesh-sharded dispatch (JAX: each executable's ray chunks over the
-    # data-parallel mesh). "auto" asks for it when >1 device is visible;
-    # "force" even on one device; "off" serves without a mesh. The port
-    # refuses every mode that would build one (check_mesh_serving).
+    # mesh-sharded dispatch (scale/mesh_dispatch.py: each bucket's ray
+    # chunks over the mesh's data axis). "auto" asks for it when >1 device
+    # is visible; "force" even on one device; "off" serves without a mesh.
     mesh: str = "off"
-    # 2-D mesh shape [data, model] for model-parallel serving (JAX: None
-    # keeps all devices on data; model > 1 shards the param tree).
+    # 2-D mesh shape [data, model] for model-parallel serving (None keeps
+    # all devices on data; model > 1 shards each scene at rest).
     mesh_shape: "tuple[int, int] | None" = None
     # scene placement planner (scale/placement.py)
     placement: PlacementOptions = field(default_factory=PlacementOptions)
@@ -166,41 +158,6 @@ class ScaleOptions:
         )
 
 
-def check_mesh_serving(options: ScaleOptions, n_devices: int) -> None:
-    """Refuse a ``scale:`` block the port cannot serve: raises
-    :class:`MeshDispatchError` for a mode other than ``off|auto|force``,
-    :class:`MeshShapeError` for a ``mesh_shape`` the ``n_devices`` visible
-    devices cannot hold (both in the JAX package's words,
-    ``mesh_dispatch.mesh_from_scale_cfg``), and :class:`MeshDispatchError`
-    for every configuration that would build a mesh there (``force``,
-    ``auto`` over more than one device, a ``mesh_shape`` that fits): mesh
-    serving is ROADMAP item 9c. ``off``, and ``auto`` on one device,
-    return: they serve without a mesh, as in the JAX package."""
-    mode = options.mesh
-    if mode not in ("off", "auto", "force"):
-        raise MeshDispatchError(
-            f"scale.mesh must be off|auto|force, got {mode!r}"
-        )
-    n_dev = int(n_devices)
-    if mode == "off" or (mode == "auto" and n_dev <= 1):
-        return
-    if options.mesh_shape is not None:
-        d, m = options.mesh_shape
-        if n_dev % m:
-            raise MeshShapeError(
-                f"scale.mesh_shape ({d}, {m}): model size {m} does not "
-                f"divide the {n_dev} visible devices"
-            )
-        want = (n_dev // m if d == -1 else d) * m
-        if want > n_dev:
-            raise MeshShapeError(
-                f"scale.mesh_shape ({d}, {m}) needs {want} devices, only "
-                f"{n_dev} visible"
-            )
-    shape = ("all devices on data" if options.mesh_shape is None
-             else f"mesh_shape {list(options.mesh_shape)}")
-    raise MeshDispatchError(
-        f"scale.mesh {mode!r} ({shape}, {n_dev} visible device(s)) asks for "
-        "mesh serving, which the PyTorch port does not have yet (ROADMAP "
-        "item 9c): set scale.mesh off"
-    )
+
+# defined beside the dispatcher; kept importable from here
+from .mesh_dispatch import MeshDispatchError  # noqa: E402,F401

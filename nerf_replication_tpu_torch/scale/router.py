@@ -315,6 +315,7 @@ class Router:
         a 5xx/transport failure. The root ``route.submit`` span plus a
         ``route.dispatch`` span per attempt make the router's share of
         the wall time explicit in the merged fleet trace."""
+        import http.client
         import urllib.error
 
         trs = get_tracer()
@@ -345,7 +346,10 @@ class Router:
                                           len(cands) - i - 1, scene, t_try)
                     continue
                 except (ReplicaUnavailableError, urllib.error.URLError,
-                        OSError) as exc:
+                        OSError, http.client.HTTPException) as exc:
+                    # HTTPException: a child killed mid-reply cuts its
+                    # body short (IncompleteRead); a pose render is
+                    # idempotent, so it goes to the next candidate
                     last_exc = exc
                     self._record_failover(trs, replica, exc,
                                           len(cands) - i - 1, scene, t_try)

@@ -63,11 +63,27 @@ under the engine's lock and only when the slots hold another scene; the
 engine's own checkpoint is one more scene (``default_scene``), so a switch
 back restores it. After warm-up no scene, switch or publish adds a
 capture or a route build (``route_builds``, ``captures`` in :meth:`stats`).
-Without a mesh a scene is placed by a plain copy to the card (from pinned
-host memory, on a side stream, with an event the copy into the slots
-waits on) and ``param_shards`` is 1; mesh serving comes with ROADMAP
-item 9c, and until then ``engine_from_cfg`` refuses a ``scale:`` block
-that asks for a mesh (``scale.options.check_mesh_serving``).
+Placement, a switch and the byte counts run through
+``scale.mesh_dispatch`` with or without a mesh: without one the engine's
+layout is a ``(1, 1)`` mesh over its device, one lane on the current
+stream, every tensor whole, and ``param_shards`` is 1. A scene is placed
+by a copy to the card from pinned host memory, on a side stream, with
+events the copy into the slots waits on.
+
+Mesh serving (``mesh=``, a ``scale.mesh_dispatch.ServeMesh`` led by the
+engine's device; JAX ``engine.py:151-185``): the slots, routes, graphs and
+a stream of their own make one **lane** a data index, on its device ``(d,
+0)`` (``scale.mesh_dispatch.Lane``). A bucket's whole chunks split over the
+lanes, every lane's replay or route is launched, then every lane's outputs
+are copied back in chunk order: every family is bitwise equal to the
+mesh-less engine. Under a model axis ``M > 1`` every scene (the engine's
+own checkpoint included, once a fleet is attached) lives sharded at rest
+by the rule table, about ``1/M`` of its bytes a device
+(``scene_shard_nbytes``, what the fleet admits against; ``param_shards``
+is ``M``), and a switch gathers the pieces into each lane's slots. The
+lanes' full slots are the fixed working set the engine holds besides
+(``stats()["mesh"]["slot_bytes"]`` a lane). ``route_builds`` and
+``captures`` sum over the lanes.
 
 Each request dispatch passes the ``serve.dispatch`` fault point and runs
 under ``serve.dispatch`` (the host's part) and ``serve.device`` (the wait
@@ -135,12 +151,26 @@ class RenderEngine:
     dispatches)."""
 
     def __init__(self, cfg, network, near, far, grid=None, bbox=None,
-                 device="cuda", warmup_families: tuple[str, ...] | None = None):
+                 device="cuda", warmup_families: tuple[str, ...] | None = None,
+                 mesh=None):
         from ..renderer.accelerated import MarchOptions
         from ..renderer.volume import RenderOptions, eval_packed_cap
+        from ..scale.mesh_dispatch import make_serve_mesh
         from ..utils.platform import resolve_device
 
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            lead = mesh.devices[0, 0]
+            if lead.type != self.device.type or (
+                    lead.type == "cuda"
+                    and resolve_device(lead) != self.device):
+                raise ValueError(f"the mesh's lead device {lead} is not the "
+                                 f"engine's device {self.device}")
+        # where scenes are placed and the lanes run: the mesh, else one
+        # device (one lane, no split dimension)
+        self.layout = (mesh if mesh is not None
+                       else make_serve_mesh(1, 1, [self.device]))
         self.network = network.to(self.device).eval()
         self.has_proposal = _has_proposal_branch(self.network)
         # under fused_trunk the staged and proposal routes' MLP runs the
@@ -164,15 +194,15 @@ class RenderEngine:
         self.chunk = (self.march_options.chunk_size if self.use_grid
                       else self.eval_options.chunk_size)
         self.buckets = _normalize_buckets(self.options.buckets, self.chunk)
+        if mesh is not None:
+            from ..scale.mesh_dispatch import validate_mesh_buckets
+
+            validate_mesh_buckets(self.buckets, self.chunk, mesh)
         self.cache = PoseCache(
             capacity=self.options.cache_entries,
             decimals=self.options.pose_decimals,
         )
-        self._fns: dict[tuple[int, str], object] = {}
         self.route_builds = 0
-        # K5's packed weights, one per family (the slots a scene switch
-        # repacks)
-        self._fused: dict[str, object] = {}
         # multi-scene residency: the attached manager, the default scene's
         # name and own tensors, and the scene the slots hold (None: the
         # engine's own)
@@ -183,13 +213,15 @@ class RenderEngine:
         self.slot_switches = 0
         self._slot_events: list = []
         self._slot_wall_ms: list = []
+        self._lane_events: list = []
         # CUDA graphs of the routes (None: compile.aot off; disabled on the
         # CPU); a replay's outputs are static buffers, so one dispatch at a
         # time replays and copies them out
         from ..compile import registry_from_cfg
 
         self.aot = registry_from_cfg(cfg, self.device)
-        self._captured: dict[tuple[int, str], object] = {}
+        self.lanes = self._make_lanes(cfg)
+        self._fns = self.lanes[0].fns  # lane 0's routes
         self._lock = threading.Lock()
         self.warm_source = "compiled"
         self.warm_captures = 0  # the registry's captures at warm-up's end
@@ -207,6 +239,36 @@ class RenderEngine:
         self.default_camera: dict | None = None
         if self.options.warmup:
             self.warm_up(warmup_families)
+
+    def _make_lanes(self, cfg) -> list:
+        """One lane a data index of the layout: lane 0 holds the engine's
+        network, grid and bbox; lane ``d`` a copy on the mesh device ``(d,
+        0)`` with its own registry. On a mesh on a card each lane has its
+        own stream; without a mesh the one lane runs on the current
+        stream."""
+        import copy
+
+        from ..compile import registry_from_cfg
+        from ..scale.mesh_dispatch import Lane
+        from ..utils.platform import resolve_device
+
+        lanes = []
+        for d in range(self.layout.shape["data"]):
+            dev = resolve_device(self.layout.devices[d, 0])
+            if d == 0:
+                net, grid, bbox, aot = (self.network, self.grid, self.bbox,
+                                        self.aot)
+            else:
+                net = copy.deepcopy(self.network).to(dev).eval()
+                grid = None if self.grid is None else self.grid.to(
+                    dev, copy=True)
+                bbox = None if self.bbox is None else self.bbox.to(
+                    dev, copy=True)
+                aot = registry_from_cfg(cfg, dev)
+            stream = (torch.cuda.Stream(device=dev) if dev.type == "cuda"
+                      and self.mesh is not None else None)
+            lanes.append(Lane(d, dev, net, grid, bbox, aot, stream))
+        return lanes
 
     # -- route construction --------------------------------------------------
 
@@ -243,14 +305,16 @@ class RenderEngine:
             return replace(base, n_importance=base.n_importance // 2)
         return replace(base, n_importance=0)  # coarse-only
 
-    def _family_network(self, family: str):
+    def _family_network(self, family: str, lane=None):
+        network = (lane or self.lanes[0]).network
         if family != "bf16":
-            return self.network
-        return self.network.clone(compute_dtype=torch.bfloat16)
+            return network
+        return network.clone(compute_dtype=torch.bfloat16)
 
-    def _build_fn(self, bucket: int, family: str):
-        """``fn(rays [bucket, 6] on device) -> dict of tensors``; the grid
-        routes add per-chunk traversal stats ([bucket // chunk] each)."""
+    def _build_fn(self, bucket: int, family: str, lane=None):
+        """``fn(rays [bucket / D, 6] on the lane's device) -> dict of
+        tensors`` for ``lane`` (default: lane 0); the grid routes add
+        per-chunk traversal stats ([bucket // chunk / D] each)."""
         from ..ops.fused_march import (
             FusedWeights,
             compositing_tile,
@@ -265,7 +329,8 @@ class RenderEngine:
             staged_march_fn,
         )
 
-        network = self._family_network(family)
+        lane = lane or self.lanes[0]
+        network = self._family_network(family, lane)
         near, far, chunk = self.near, self.far, self.chunk
         model = "coarse" if family == "coarse" else "fine"
 
@@ -281,7 +346,7 @@ class RenderEngine:
                 def apply_p(pts, viewdirs, m):
                     return network(pts, viewdirs, model=m)
             march = proposal_march_fn(
-                apply_p, near, far, self.grid, self.bbox,
+                apply_p, near, far, lane.grid, lane.bbox,
                 self._family_march_options(family),
                 self._family_eval_options(family), self.packed_cap)
             return lambda rays: map_chunks(march, rays, chunk)
@@ -297,14 +362,14 @@ class RenderEngine:
                 rays, chunk)
 
         options = self._family_march_options(family)
-        grid, bbox = self.grid, self.bbox
+        grid, bbox = lane.grid, lane.bbox
 
         if options.march_fused == "full":
-            weights = self._fused.get(family)
+            weights = lane.fused.get(family)
             if weights is None:
                 weights = FusedWeights(fused_spec_for(network),
                                        getattr(network, model))
-                self._fused[family] = weights
+                lane.fused[family] = weights
             k_tile = compositing_tile(options, chunk)
             xyz_enc, dir_enc = network.xyz_encoder, network.dir_encoder
 
@@ -333,18 +398,31 @@ class RenderEngine:
                                 self.packed_cap)
         return lambda rays: map_chunks(march, rays, chunk)
 
-    def _get_fn(self, bucket: int, family: str):
+    def _get_fn(self, bucket: int, family: str, lane=None):
+        lane = lane or self.lanes[0]
         key = (bucket, family)
-        fn = self._fns.get(key)
+        fn = lane.fns.get(key)
         if fn is None:
-            fn = self._build_fn(bucket, family)
-            self._fns[key] = fn
+            fn = self._build_fn(bucket, family, lane)
+            lane.fns[key] = fn
             self.route_builds += 1
         return fn
 
+    @property
+    def model_parallel(self) -> bool:
+        """Whether scenes are sharded over a model axis ``M > 1``."""
+        from ..scale.mesh_dispatch import model_size
+
+        return model_size(self.layout) > 1
+
     def _fn_name(self, bucket: int, family: str) -> str:
-        """The registry's name of one route (the JAX engine's)."""
-        return f"serve/{family}/b{bucket}"
+        """The registry's name of one route (the JAX engine's: a
+        model-parallel mesh adds its shape)."""
+        base = f"serve/{family}/b{bucket}"
+        if self.model_parallel:
+            d, m = self.layout.shape["data"], self.layout.shape["model"]
+            return f"{base}/mesh{d}x{m}"
+        return base
 
     def _capturable(self, family: str) -> bool:
         """Every route but ``gather`` (its ``nonzero`` compaction)."""
@@ -355,7 +433,7 @@ class RenderEngine:
         """Build every (bucket, family) route and run it once on an
         all-zero bucket (zero rays are inert padding). Builds the kernels on
         first use and packs each family's weights; with a registry on the
-        card, then captures every route but ``gather`` (JAX
+        card, then captures every route but ``gather`` on every lane (JAX
         ``engine.py:462``). Returns the dispatches."""
         if families is None:
             families = self._families_for_params()
@@ -366,29 +444,39 @@ class RenderEngine:
                 self._render_bucket(zeros, bucket, family, warm=True)
                 self.warmup_dispatches += 1
         if self.aot is not None and self.aot.enabled:
-            names = {}
-            for bucket in self.buckets:
-                for family in families:
-                    if not self._capturable(family):
-                        continue
-                    names[(bucket, family)] = name = self._fn_name(bucket,
-                                                                   family)
-                    static = torch.zeros((bucket, 6), dtype=torch.float32,
-                                         device=self.device)
-                    self.aot.register(name, self._inference(bucket, family),
-                                      (static,))
-            self.aot.compile_all()
-            for key, name in names.items():
-                fn = self.aot.take(name)
-                if fn is not None:  # a failed capture stays eager
-                    self._captured[key] = fn
+            # each lane captures its share of every bucket in its own
+            # registry (a pool of its own: lanes replay side by side)
+            for lane in self.lanes:
+                names = {}
+                for bucket in self.buckets:
+                    for family in families:
+                        if not self._capturable(family):
+                            continue
+                        names[(bucket, family)] = name = self._fn_name(
+                            bucket, family)
+                        static = torch.zeros((bucket // len(self.lanes), 6),
+                                             dtype=torch.float32,
+                                             device=lane.device)
+                        lane.aot.register(
+                            name, self._inference(bucket, family, lane),
+                            (static,))
+                lane.aot.compile_all()
+                for key, name in names.items():
+                    fn = lane.aot.take(name)
+                    if fn is not None:  # a failed capture stays eager
+                        lane.captured[key] = fn
             self.warm_source = self.aot.warm_source()
-            self.warm_captures = self.aot.captures
+            self.warm_captures = self._captures()
         self.warmup_wall_s += time.perf_counter() - t0
         return self.warmup_dispatches
 
-    def _inference(self, bucket: int, family: str):
-        fn = self._get_fn(bucket, family)
+    def _captures(self) -> int:
+        """Graphs captured on every lane."""
+        return sum(lane.aot.captures for lane in self.lanes
+                   if lane.aot is not None)
+
+    def _inference(self, bucket: int, family: str, lane=None):
+        fn = self._get_fn(bucket, family, lane)
 
         def route(rays):
             with torch.inference_mode():
@@ -399,19 +487,31 @@ class RenderEngine:
     # -- rendering -----------------------------------------------------------
 
     def _dispatch(self, rays_b: np.ndarray, bucket: int, family: str,
-                  scene=None) -> dict:
-        """One route call on exactly ``bucket`` rays (already padded): the
-        captured route's replay (its static outputs), else the route.
-        ``scene`` (a pinned SceneData, None: the engine's own) is copied
-        into the slots first when they hold another (caller holds the
-        lock)."""
+                  scene=None) -> list:
+        """One route call a lane on its share of exactly ``bucket`` rays
+        (already padded): the captured route's replay (its static outputs),
+        else the route; the lanes' device outputs, launched, not waited
+        for. ``scene`` (a pinned SceneData, None: the engine's own) is
+        copied into the slots first when they hold another (caller holds
+        the lock)."""
+        from ..scale.mesh_dispatch import launch_lanes
+
         self._install_scene(scene)
         rays_h = torch.from_numpy(np.ascontiguousarray(rays_b))
-        captured = self._captured.get((bucket, family))
-        if captured is not None:
-            return captured(rays_h)
-        with torch.inference_mode():
-            return self._get_fn(bucket, family)(rays_h.to(self.device))
+
+        def call(lane, rays):
+            captured = lane.captured.get((bucket, family))
+            if captured is not None:
+                return captured(rays)
+            with torch.inference_mode():
+                return self._get_fn(bucket, family, lane)(
+                    rays.to(lane.device))
+
+        events = []  # (start, end) of each lane that has a stream
+        outs = launch_lanes(self.lanes, rays_h, call, events)
+        if events:
+            self._lane_events = (self._lane_events + [events])[-64:]
+        return outs
 
     def _render_bucket(self, rays: np.ndarray, bucket: int, family: str,
                        warm: bool = False, scene=None) -> dict:
@@ -428,13 +528,16 @@ class RenderEngine:
                     # chaos hook: an injected dispatch failure drives the
                     # batcher's breaker without touching the routes
                     fault_point("serve.dispatch")
-                out = dict(self._dispatch(rays_b, bucket, family, scene))
+                outs = self._dispatch(rays_b, bucket, family, scene)
             with trs.span("serve.device", stage="device", bucket=int(bucket)):
+                from ..scale.mesh_dispatch import lanes_to_host
+
+                out = lanes_to_host(self.lanes, outs)
                 # per-chunk traversal stats (the packed and fused routes)
-                stats = {k: out.pop(k).cpu().numpy() for k in (
+                stats = {k: out.pop(k) for k in (
                     "march_candidates", "march_samples_out",
                     "march_coarse_occ", "overflow_frac") if k in out}
-                out = {k: v.cpu().numpy()[:n] for k, v in out.items()}
+                out = {k: v[:n] for k, v in out.items()}
         trunc = out.pop("truncated", None)
         if not warm:
             if stats:
@@ -573,24 +676,15 @@ class RenderEngine:
     # -- multi-scene residency (fleet/) ---------------------------------------
 
     def place_scene_tree(self, tree):
-        """A scene's host ``(params, grid, bbox)`` on the engine's device:
-        ``(device tree, ready event)``. On a card the copy runs on a side
-        stream from the (pinned) host tensors and records the event the
-        slot copy waits on; on the CPU the host tensors are the scene."""
-        params, grid, bbox = tree
-        if self.device.type != "cuda":
-            return (params, grid, bbox), None
-        stream = torch.cuda.Stream(device=self.device)
-        with torch.cuda.stream(stream):
-            def put(t):
-                return None if t is None else t.to(self.device,
-                                                   non_blocking=True)
+        """A scene's host ``(params, grid, bbox)`` on the layout
+        (``scale.mesh_dispatch.place_tree``): ``(device tree, ready
+        events)``, one grid and bbox a data index, the params sharded by the
+        rule table over a model axis. On a card the copies run on side
+        streams from the (pinned) host tensors and record the events the
+        slot copies wait on."""
+        from ..scale.mesh_dispatch import place_tree
 
-            out = ({k: put(v) for k, v in params.items()}, put(grid),
-                   put(bbox))
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        return out, ready
+        return place_tree(self.layout, tree)
 
     def pin_scene_tree(self, data):
         """``data`` with its host tensors page-locked (a card's async
@@ -603,17 +697,19 @@ class RenderEngine:
                        grid=pin(data.grid), bbox=pin(data.bbox))
 
     def scene_shard_nbytes(self, tree) -> int:
-        """Bytes one device holds once :meth:`place_scene_tree` placed
-        ``tree`` (no mesh: every tensor whole)."""
-        params, grid, bbox = tree
-        return sum(int(t.numel()) * int(t.element_size())
-                   for t in (*params.values(), grid, bbox) if t is not None)
+        """Bytes the largest device holds once :meth:`place_scene_tree`
+        placed ``tree``, the figure fleet admission checks."""
+        from ..scale.mesh_dispatch import scene_nbytes
+
+        return scene_nbytes(self.layout, tree)
 
     @property
     def param_shards(self) -> int:
-        """How many ways scene params split across devices (1: no serving
-        mesh)."""
-        return 1
+        """How many ways scene params split across devices (1: replicated,
+        or no serving mesh): the mesh's model size."""
+        from ..scale.mesh_dispatch import model_size
+
+        return model_size(self.layout)
 
     def attach_fleet(self, residency, default_scene: str = "default") -> None:
         """Install a :class:`~..fleet.ResidencyManager`: its compat check,
@@ -629,14 +725,16 @@ class RenderEngine:
             if self._own is None:
                 from ..fleet.residency import SceneData
 
+                host = {k: v.detach().cpu() for k, v in
+                        self.network.state_dict().items()}
+                placed, ready = self.place_scene_tree(
+                    (host, None if self.grid is None else self.grid.cpu(),
+                     None if self.bbox is None else self.bbox.cpu()))
                 self._own = SceneData(
-                    scene_id=str(default_scene),
-                    params={k: v.detach().clone() for k, v in
-                            self.network.state_dict().items()},
-                    grid=None if self.grid is None else self.grid.clone(),
-                    bbox=None if self.bbox is None else self.bbox.clone(),
-                    near=self.near, far=self.far)
-                self._slot_scene = self._own
+                    scene_id=str(default_scene), params=placed[0],
+                    grid=placed[1], bbox=placed[2], near=self.near,
+                    far=self.far, ready=ready)
+                self._slot_scene = self._own  # the slots hold it already
         self.fleet = residency
         self.default_scene = str(default_scene)
 
@@ -718,10 +816,14 @@ class RenderEngine:
     @torch.inference_mode()
     def _install_scene(self, scene) -> None:
         """Copy ``scene`` (None: the default scene) into the slots unless
-        they hold it: parameters, K5's packed weights, grid, bbox — on the
-        serving stream, after the scene's placement event (caller holds
-        the lock). Inference mode: the packed buffers were made by a warm-up
-        inside it."""
+        they hold it (caller holds the lock): lane ``d`` fills its
+        parameters from data index ``d``'s pieces (``gather_into``: under a
+        model axis, the all-gather), its grid and bbox, and repacks its K5
+        weights, on its stream after the scene's placement events.
+        Inference mode: the packed buffers were made by a warm-up inside
+        it. The timing events span every lane's copies."""
+        from ..scale.mesh_dispatch import gather_into
+
         if self._own is None:
             return  # no fleet: the slots hold the engine's own weights
         data = self._own if scene is None else scene
@@ -730,32 +832,55 @@ class RenderEngine:
         t0 = time.perf_counter()
         cuda = self.device.type == "cuda"
         if cuda:
-            stream = torch.cuda.current_stream(self.device)
-            if data.ready is not None:
-                stream.wait_event(data.ready)
+            # the timing starts once the placement is done; a lane on
+            # another card waits for it on its own stream below
+            main = torch.cuda.current_stream(self.device)
+            for ev in data.ready or ():
+                main.wait_event(ev)
             start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-        pairs = [(v, data.params[k]) for k, v in
-                 self.network.state_dict().items()]
-        if self.use_grid:
-            pairs += [(self.grid, data.grid), (self.bbox, data.bbox)]
-        for dst, src in pairs:
-            dst.copy_(src)
-            if cuda and src.device.type == "cuda":
-                # the allocator must not hand this memory out again before
-                # the serving stream's copy has read it
-                src.record_stream(stream)
-        for family, weights in self._fused.items():
-            model = "coarse" if family == "coarse" else "fine"
-            weights.refresh(getattr(self._family_network(family), model))
+            start.record(main)
+        for lane in self.lanes:
+            with lane.on_stream():
+                stream = None
+                if cuda:
+                    # the allocator must not hand a source's memory out
+                    # again before this stream's copy has read it
+                    stream = torch.cuda.current_stream(lane.device)
+                    for ev in data.ready or ():
+                        stream.wait_event(ev)
+                gather_into(lane.network.state_dict(), data.params,
+                            lane.index, stream)
+                if lane.grid is not None:
+                    for dst, src in ((lane.grid, data.grid[lane.index]),
+                                     (lane.bbox, data.bbox[lane.index])):
+                        dst.copy_(src)
+                        if stream is not None and src.device.type == "cuda":
+                            src.record_stream(stream)
+                for family, weights in lane.fused.items():
+                    model = "coarse" if family == "coarse" else "fine"
+                    weights.refresh(getattr(
+                        self._family_network(family, lane), model))
         if cuda:
-            end.record(stream)
+            for lane in self.lanes:
+                if lane.stream is not None:
+                    main.wait_stream(lane.stream)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(main)
             self._slot_events = (self._slot_events + [(start, end)])[-256:]
         self._slot_wall_ms = (self._slot_wall_ms + [
             (time.perf_counter() - t0) * 1e3])[-256:]
         self._slot_scene = data
         self.slot_switches += 1
+
+    def lane_overlap_ms(self) -> dict | None:
+        """The last mesh dispatch's lanes on the card: ``{lanes_ms,
+        span_ms, overlap_ms}`` (``scale.mesh_dispatch.overlap_ms``); None
+        without one."""
+        if not self._lane_events:
+            return None
+        from ..scale.mesh_dispatch import overlap_ms
+
+        return overlap_ms(self._lane_events[-1])
 
     def slot_copy_ms(self) -> list[float]:
         """Device ms of the recent slot switches (CUDA events; the host's
@@ -775,8 +900,7 @@ class RenderEngine:
         store (``compile/artifacts.py``) and captured nothing since."""
         from ..ops import kernels
 
-        captures = 0 if self.aot is None else self.aot.captures
-        return int(kernels.builds) + captures - self.warm_captures
+        return int(kernels.builds) + self._captures() - self.warm_captures
 
     def stats(self) -> dict:
         from ..ops.fused_march import LAUNCHES
@@ -822,11 +946,11 @@ class RenderEngine:
             # nvcc), the graphs captured (constant after warm-up) and the
             # registry's summary (None: compile.aot off)
             "warm_source": self.warm_source,
-            "captures": 0 if self.aot is None else self.aot.captures,
+            "captures": self._captures(),
             "total_compiles": self.total_compiles(),
-            "compile": None if self.aot is None else self.aot.summary(),
+            "compile": self._compile_summary(),
             "captured_routes": sorted(
-                self._fn_name(b, f) for b, f in self._captured),
+                self._fn_name(b, f) for b, f in self.lanes[0].captured),
             "route_builds": self.route_builds,
             "cache": self.cache.stats(),
             # multi-scene residency (None: single-scene serving) and the
@@ -834,7 +958,33 @@ class RenderEngine:
             "fleet": None if self.fleet is None else self.fleet.stats(),
             "slots": {"switches": self.slot_switches,
                       "param_shards": self.param_shards},
+            # mesh-sharded dispatch (None: no mesh); slot_bytes is one
+            # lane's full slots, held once a data index besides the scenes
+            "mesh": None if self.mesh is None else {
+                "devices": int(self.mesh.size),
+                "axes": dict(self.mesh.shape),
+                "model_parallel": self.model_parallel,
+                "param_shards": self.param_shards,
+                "slot_bytes": self.lanes[0].slot_nbytes(),
+            },
         }
+
+    def _compile_summary(self) -> dict | None:
+        """The registry's summary summed over the lanes (None: compile.aot
+        off)."""
+        if self.aot is None:
+            return None
+        if len(self.lanes) == 1:
+            return self.aot.summary()
+        out = {"entries": 0, "sources": {}, "wall_s": 0.0, "errors": []}
+        for lane in self.lanes:
+            s = lane.aot.summary()
+            out["entries"] += s["entries"]
+            out["wall_s"] = round(out["wall_s"] + s["wall_s"], 3)
+            out["errors"] += [f"{e}@lane{lane.index}" for e in s["errors"]]
+            for k, v in s["sources"].items():
+                out["sources"][k] = out["sources"].get(k, 0) + v
+        return out
 
 
 def _has_proposal_branch(network) -> bool:
@@ -853,20 +1003,25 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
     the JAX engine's message. The weights come from the port's checkpoint
     in ``cfg.trained_model_dir`` (else the seeded init, as ``load_network``
     leaves it), the camera from the test split's ``transforms_test.json``.
-    A ``scale:`` block that asks for a mesh, or an invalid one, raises
-    before anything loads (``scale.options.check_mesh_serving``, devices
-    counted as ``torch.cuda.device_count()`` on the card, 1 on the CPU)."""
+    A ``scale:`` block that asks for a mesh serves on it
+    (``scale.mesh_dispatch.mesh_from_scale_cfg`` over the visible cards
+    from ``device`` on, or the one CPU device with ``device="cpu"``); an
+    invalid one raises before anything loads, in the JAX package's
+    words."""
     import os
 
     from ..datasets import make_camera
     from ..renderer.occupancy import default_grid_path, load_occupancy_pyramid
-    from ..scale.options import ScaleOptions, check_mesh_serving
+    from ..scale.mesh_dispatch import default_devices, mesh_from_scale_cfg
     from ..utils.setup import load_trained_network
     from ..utils.platform import resolve_device
 
     dev = resolve_device(device)
-    check_mesh_serving(ScaleOptions.from_cfg(cfg),
-                       torch.cuda.device_count() if dev.type == "cuda" else 1)
+    mesh = mesh_from_scale_cfg(
+        cfg, default_devices(dev) if dev.type == "cuda" else [dev])
+    if mesh is not None:
+        print(f"serving mesh: {dict(mesh.shape)} over {mesh.size} "
+              "device(s)")
     grid = bbox = None
     if bool(cfg.task_arg.get("accelerated_renderer", False)):
         path = default_grid_path(cfg_file or "config")
@@ -883,7 +1038,7 @@ def engine_from_cfg(cfg, cfg_file: str | None = None,
     test_ds = make_camera(cfg, "test")
     network, _ = load_trained_network(cfg, dev)
     engine = RenderEngine(cfg, network, near=test_ds.near, far=test_ds.far,
-                          grid=grid, bbox=bbox, device=dev)
+                          grid=grid, bbox=bbox, device=dev, mesh=mesh)
     engine.default_camera = {
         "H": int(test_ds.H), "W": int(test_ds.W), "focal": float(test_ds.focal),
     }

@@ -53,8 +53,10 @@ def test_registry_maps_config_modules_to_the_port():
     assert mod.__name__ == "nerf_replication_tpu_torch.datasets.blender"
     # a role the port does not have yet names the missing module
     with pytest.raises(ImportError,
-                       match="nerf_replication_tpu_torch.scale.mesh_dispatch"):
-        resolve_module("nerf_replication_tpu.scale.mesh_dispatch")
+                       match="nerf_replication_tpu_torch.analysis.sanitizer"):
+        resolve_module("nerf_replication_tpu.analysis.sanitizer")
+    assert resolve_module("nerf_replication_tpu.scale.mesh_dispatch") \
+        .__name__ == "nerf_replication_tpu_torch.scale.mesh_dispatch"
     assert resolve_module("nerf_replication_tpu.scale.router").__name__ \
         == "nerf_replication_tpu_torch.scale.router"
     assert resolve_module("nerf_replication_tpu.fleet.registry").__name__ \

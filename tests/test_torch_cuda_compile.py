@@ -22,6 +22,9 @@ Needs an NVIDIA card and ``nvcc``; skips elsewhere. It imports no JAX:
   above 5; ~30 trained):
   within 3e-6 of max|raw| of the float64 function (the truncating split
   and the tensor cores' own sums put it at 1.1-1.8e-5).
+* Mesh serving: a size-1 mesh and (2, 1) / (1, 2) meshes over the card
+  twice serve the ``full`` (K5) and packed (K3a) routes' families bitwise
+  the mesh-less engine, with nothing captured after warm-up.
 """
 
 import os
@@ -253,3 +256,99 @@ def test_k1_f32_lands_within_3e6_of_float64(dev):
     err = forward_errors(spec, x.contiguous(), v.contiguous(), flat, m)
     assert err["max_abs_raw"] > 5.0, err
     assert err["k1_rel_f64"] <= TOL_K1_F64_REL, err
+
+
+def test_mesh_engines_are_bitwise_on_the_card(dev):
+    """A size-1 mesh and meshes laid out over the card twice ((2, 1): two
+    lanes, two graph sets, two streams; (1, 2): the scene sharded and
+    gathered into the lane) serve every family of the ``full`` (K5) and
+    packed (K3a) routes bitwise the mesh-less engine, each route captured,
+    nothing captured or built after warm-up. The mesh engines render a
+    fleet copy of the scene after another scene held their slots: every
+    slot is gathered from the copy's placed pieces."""
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.models.nerf.network import init_params
+    from nerf_replication_tpu_torch.scale.mesh_dispatch import make_serve_mesh
+    from nerf_replication_tpu_torch.serve import RenderEngine
+
+    grid = np.zeros((64, 64, 64), bool)
+    grid[16:48, 16:48, 16:48] = True
+    bbox = np.asarray([[-1.5] * 3, [1.5] * 3], np.float32)
+    rng = np.random.default_rng(3)
+    rays = np.concatenate([np.tile([0.0, 0.0, 4.0], (3000, 1)),
+                           np.array([0.0, 0.0, -1.0])
+                           + rng.normal(0, 0.15, (3000, 3))], -1)
+    rays = rays.astype(np.float32)
+    for route in ("full", "off"):
+        cfg = make_cfg(LEGO, [
+            "network.nerf.W", "64", "network.nerf.D", "4",
+            "network.nerf.skips", "[1]", "network.nerf.fused_trunk", "true",
+            "network.nerf.fused_tile", "64", "task_arg.march_coarse_block",
+            "8", "task_arg.march_fused", route, "task_arg.march_chunk_size",
+            "512", "serve.buckets", "[1024, 4096]"])
+        net = make_network(cfg)
+        init_params(net, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for p in net.parameters():
+                if p.dim() == 1:
+                    p.normal_(0.0, 0.3, generator=torch.Generator()
+                              .manual_seed(p.numel()))
+        engines = {label: RenderEngine(
+            cfg, _copy_net(net), 2.0, 6.0, grid=grid, bbox=bbox,
+            device="cuda", mesh=mesh)
+            for label, mesh in (("none", None),
+                                ("1x1", make_serve_mesh(1, 1, [dev])),
+                                ("2x1", make_serve_mesh(2, 1, [dev, dev])),
+                                ("1x2", make_serve_mesh(1, 2, [dev, dev])))}
+        for label in ("1x1", "2x1", "1x2"):
+            engines[label].attach_fleet(_copy_fleet(net, grid, bbox))
+            engines[label].render_request(rays[:8], 2.0, 6.0, emit=False,
+                                          scene="other")
+        before = {k: (e.stats()["captures"], e.route_builds)
+                  for k, e in engines.items()}
+        for label, eng in engines.items():
+            st = eng.stats()
+            assert st["captures"] > 0 and not st["compile"]["errors"], st
+        for n in (37, 1024, 3000):
+            for tier in ("full", "bf16", "reduced_k", "coarse"):
+                ref = engines["none"].render_request(rays[:n], 2.0, 6.0,
+                                                     tier=tier, emit=False)
+                assert float(ref["acc_map_f"].max()) > 0.1
+                for label in ("1x1", "2x1", "1x2"):
+                    out = engines[label].render_request(
+                        rays[:n], 2.0, 6.0, tier=tier, emit=False,
+                        scene="copy")
+                    for k in ("rgb_map_f", "depth_map_f", "acc_map_f"):
+                        assert np.array_equal(out[k], ref[k]), (
+                            route, label, tier, k, n)
+        for label, eng in engines.items():
+            assert (eng.stats()["captures"], eng.route_builds) == \
+                before[label], (route, label)
+        assert engines["2x1"].lane_overlap_ms()["span_ms"] > 0
+        assert all(engines[k].slot_switches == 2
+                   for k in ("1x1", "2x1", "1x2"))
+
+
+def _copy_fleet(net, grid, bbox):
+    """A residency of two scenes on the host: ``copy`` (``net``'s weights)
+    and ``other`` (the weights scaled by 1.01)."""
+    from nerf_replication_tpu_torch import fleet
+
+    params = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    scenes = {"copy": params,
+              "other": {k: v * 1.01 for k, v in params.items()}}
+
+    def loader(rec):
+        return fleet.SceneData(rec.scene_id, scenes[rec.scene_id],
+                               torch.from_numpy(grid), torch.from_numpy(bbox),
+                               2.0, 6.0)
+
+    return fleet.ResidencyManager(
+        fleet.SceneRegistry([fleet.SceneRecord(s) for s in scenes]), loader,
+        budget_bytes=1 << 30, verify_checksums=False)
+
+
+def _copy_net(net):
+    import copy
+
+    return copy.deepcopy(net)

@@ -37,6 +37,7 @@ from test_torch_helpers import sample_rays as _rays
 
 from nerf_replication_tpu_torch import fleet as pf
 from nerf_replication_tpu_torch.config import make_cfg
+from nerf_replication_tpu_torch.scale.mesh_dispatch import gather_into
 from nerf_replication_tpu_torch.serve import MicroBatcher, RenderEngine
 
 SERVE = SMALL_NET + [
@@ -504,9 +505,12 @@ def test_checkpoint_loader_and_fleet_from_cfg(weights, tmp_path):
     mgr = pf.fleet_from_cfg(cfg2, engine)
     assert engine.fleet is mgr and mgr.registry.ids() == ["lego"]
     with engine.scene_lease("lego") as data:
+        # placed on the engine's one-device layout: gathered back whole
+        slots = {k: torch.empty_like(v) for k, v in net.state_dict().items()}
+        gather_into(slots, data.params, 0)
         for k, v in net.state_dict().items():
-            assert torch.equal(data.params[k], v), k
-        assert data.grid.dtype == torch.bool
+            assert torch.equal(slots[k], v), k
+        assert len(data.grid) == 1 and data.grid[0].dtype == torch.bool
     out = engine.render_request(_rays(30), NEAR, FAR, scene="lego")
     ref = _engine(cfg, net, _grid(2)).render_request(_rays(30), NEAR, FAR)
     np.testing.assert_array_equal(out["rgb_map_f"], ref["rgb_map_f"])

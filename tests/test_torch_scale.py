@@ -3,11 +3,10 @@ replica runtime over real port engines and the scale row kinds.
 
 * ``ScaleOptions`` / ``parse_mesh_shape`` read the same ``scale:`` block
   and raise the same errors in the same words as the JAX package's.
-* Until ROADMAP item 9c ports mesh dispatch, ``engine_from_cfg`` refuses
-  every ``scale.mesh`` / ``scale.mesh_shape`` that the JAX package would
-  build a mesh for, and every invalid one with JAX's own message
-  (``mesh_from_scale_cfg`` at the same device count); ``off``, and
-  ``auto`` on one device, serve.
+* ``mesh_from_scale_cfg`` builds the mesh the JAX package's builds at the
+  same device count, or raises its error in its words; ``engine_from_cfg``
+  on the CPU serves on the one-device mesh it asks for (``force``), or on
+  none (``off``, and ``auto`` on one device).
 * Drain-before-retire and kill + failover run on ``InProcessReplica`` s
   over a tiny port CPU engine and micro-batcher, and over the JAX engine
   with the same weights: the same failures (zero for a drain), states,
@@ -86,25 +85,25 @@ def test_scale_options_match_jax():
         assert ours == _err(jopt.parse_mesh_shape, raw), raw
 
 
-# -- the scale.mesh refusal (until ROADMAP item 9c) --------------------------
+# -- scale.mesh: the mesh JAX builds, or its error --------------------------
 
 # case -> (opts, what the JAX package does with 8 devices, what the port's
 # engine_from_cfg does on the CPU's one device)
 MESH_CASES = {
-    "bad_mode": (["scale.mesh", "sideways"], "error", "MeshDispatchError"),
+    "bad_mode": (["scale.mesh", "sideways"], "error", "error"),
     "malformed_shape": (["scale.mesh", "force", "scale.mesh_shape",
-                         "[1, 2, 3]"], "error", "MeshShapeError"),
+                         "[1, 2, 3]"], "error", "error"),
     "shape_not_dividing": (["scale.mesh", "force", "scale.mesh_shape",
-                            "[1, 3]"], "error", "MeshShapeError"),
+                            "[1, 3]"], "error", "error"),
     "shape_too_big": (["scale.mesh", "force", "scale.mesh_shape",
-                       "[16, 1]"], "error", "MeshShapeError"),
-    "force": (["scale.mesh", "force"], "mesh", "9c"),
+                       "[16, 1]"], "error", "error"),
+    "force": (["scale.mesh", "force"], "mesh", "mesh"),
     "shape_fits": (["scale.mesh", "force", "scale.mesh_shape", "[1, 1]"],
-                   "mesh", "9c"),
-    "auto": (["scale.mesh", "auto"], "mesh", "serves"),
+                   "mesh", "mesh"),
+    "auto": (["scale.mesh", "auto"], "mesh", "none"),
     # quoted: a bare off is YAML's false
     "off": (["scale.mesh", "'off'", "scale.mesh_shape", "[1, 2]"], "none",
-            "serves"),
+            "none"),
 }
 
 
@@ -119,52 +118,103 @@ def camera_root(tmp_path_factory):
     return str(root)
 
 
+def _axes(mesh):
+    return None if mesh is None else dict(mesh.shape)
+
+
 @pytest.mark.parametrize("case", list(MESH_CASES))
-def test_engine_from_cfg_refuses_mesh_until_9c(case, camera_root,
-                                               tmp_path, monkeypatch):
-    from nerf_replication_tpu.scale.mesh_dispatch import mesh_from_scale_cfg
-    from nerf_replication_tpu_torch.scale import (
-        MeshDispatchError,
-        MeshShapeError,
-        ScaleOptions,
-        check_mesh_serving,
+def test_engine_from_cfg_builds_the_jax_mesh(case, camera_root, tmp_path,
+                                             monkeypatch):
+    """``mesh_from_scale_cfg`` over 8 devices builds JAX's layout or raises
+    JAX's error in JAX's words; ``engine_from_cfg`` on the CPU (one
+    device) serves on the mesh the same function builds there (``force``
+    and a fitting shape: ``(1, 1)``; ``auto`` and ``off``: none), or
+    raises its error, and a mesh engine serves the mesh-less maps."""
+    from nerf_replication_tpu.scale.mesh_dispatch import (
+        mesh_from_scale_cfg as jax_mesh_from_scale_cfg,
     )
+    from nerf_replication_tpu_torch.scale import mesh_from_scale_cfg
     from nerf_replication_tpu_torch.serve import engine_from_cfg
 
     opts, jax_does, port_does = MESH_CASES[case]
     opts = opts + SMALL_NET + [
         "test_dataset.data_root", camera_root, "test_dataset.H", "8",
-        "test_dataset.W", "8", "serve.buckets", "[64]",
-        "serve.warmup", "False", "trained_model_dir", str(tmp_path / "none")]
+        "test_dataset.W", "8", "serve.buckets", "[64]", "serve.warmup",
+        "False", "task_arg.N_samples", "8", "task_arg.N_importance", "8",
+        "trained_model_dir", str(tmp_path / "none")]
     import jax
+    import torch
 
     n_jax = len(jax.devices())
     assert n_jax == 8  # conftest's virtual CPU platform
     jcfg, pcfg = both_cfgs(opts)
-    # JAX's verdict at 8 devices, and the port's at the same count
-    ref = _err(mesh_from_scale_cfg, jcfg)
-    ours = _err(lambda: check_mesh_serving(ScaleOptions.from_cfg(pcfg),
-                                           n_jax))
+    ref = _err(jax_mesh_from_scale_cfg, jcfg)
+    ours = _err(lambda: mesh_from_scale_cfg(
+        pcfg, [torch.device("cpu")] * n_jax))
     if jax_does == "error":
         assert isinstance(ref, tuple) and ours == ref
-    elif jax_does == "mesh":
-        assert ref is not None and not isinstance(ref, tuple)
-        assert ours[0] == "MeshDispatchError" and "item 9c" in ours[1]
     else:
-        assert ref is None and ours is None
+        assert not isinstance(ours, tuple) and _axes(ours) == _axes(ref)
+        assert (ref is None) == (jax_does == "none")
     # the port's entry point on the CPU (one device)
+    want = _err(lambda: mesh_from_scale_cfg(pcfg, [torch.device("cpu")]))
     monkeypatch.chdir(tmp_path)
-    if port_does == "serves":
-        engine = engine_from_cfg(pcfg, cfg_file=LEGO, device="cpu")
-        assert engine.param_shards == 1 and engine.device.type == "cpu"
+    if port_does == "error":
+        assert isinstance(want, tuple)
+        with pytest.raises(Exception) as exc:
+            engine_from_cfg(pcfg, cfg_file=LEGO, device="cpu")
+        assert (type(exc.value).__name__, str(exc.value)) == want
         return
-    err = MeshShapeError if port_does == "MeshShapeError" \
-        else MeshDispatchError
-    with pytest.raises(err) as exc:
-        engine_from_cfg(pcfg, cfg_file=LEGO, device="cpu")
-    if port_does == "9c":
-        assert "ROADMAP item 9c" in str(exc.value)
-        assert "1 visible device" in str(exc.value)
+    engine = engine_from_cfg(pcfg, cfg_file=LEGO, device="cpu")
+    assert engine.device.type == "cpu" and engine.param_shards == 1
+    assert _axes(engine.mesh) == _axes(want)
+    assert (engine.mesh is None) == (port_does == "none")
+    if engine.mesh is not None:
+        assert engine.stats()["mesh"]["axes"] == {"data": 1, "model": 1}
+        _, plain_cfg = both_cfgs(opts[2:] if case == "force" else opts[4:])
+        plain = engine_from_cfg(plain_cfg, cfg_file=LEGO, device="cpu")
+        assert plain.mesh is None
+        rays = sample_rays(40)
+        a = plain.render_request(rays, NEAR, FAR, emit=False)
+        b = engine.render_request(rays, NEAR, FAR, emit=False)
+        for k in ("rgb_map_c", "rgb_map_f", "depth_map_f", "acc_map_f"):
+            if k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_serving_mesh_is_led_by_the_engines_device(monkeypatch):
+    """A mesh whose ``(0, 0)`` is not the engine's device is refused, never
+    swapped in for it; ``engine_from_cfg``'s default layout starts at the
+    card it was asked for (four cards faked on the CPU: nothing launches)."""
+    import torch
+
+    from nerf_replication_tpu_torch.scale.mesh_dispatch import (
+        default_devices,
+        make_serve_mesh,
+        mesh_from_scale_cfg,
+    )
+    from nerf_replication_tpu_torch.serve import RenderEngine
+
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    with pytest.raises(ValueError, match="lead device cuda:0 is not the "
+                                         "engine's device cpu"):
+        RenderEngine(None, None, NEAR, FAR, device="cpu",
+                     mesh=make_serve_mesh(1, 1, [cuda0]))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(ValueError, match="lead device cuda:0 is not the "
+                                         "engine's device cuda:1"):
+        RenderEngine(None, None, NEAR, FAR, device="cuda:1",
+                     mesh=make_serve_mesh(2, 1, [cuda0, cuda0]))
+    with pytest.raises(ValueError, match="lead device cpu is not"):
+        RenderEngine(None, None, NEAR, FAR, device="cuda:1",
+                     mesh=make_serve_mesh(1, 1, [cpu]))
+    assert [d.index for d in default_devices("cuda:1")] == [1, 2, 3, 0]
+    assert [d.index for d in default_devices()] == [0, 1, 2, 3]
+    _, pcfg = both_cfgs(["scale.mesh", "force", "scale.mesh_shape",
+                         "[2, 1]"])
+    mesh = mesh_from_scale_cfg(pcfg, default_devices(torch.device("cuda", 2)))
+    assert [d.index for d in mesh.devices[:, 0]] == [2, 3]
 
 
 # -- replicas over real engines ----------------------------------------------

@@ -314,3 +314,54 @@ def test_supervisor_matches_jax(script, tmp_path):
     if script == "flight_dump":
         assert sorted(out["dumps"]) == ["flight_scale_in.json",
                                         "flight_scale_out.json"]
+
+
+def test_router_fails_over_a_reply_cut_short():
+    """A child killed while it writes a reply leaves the router an
+    ``http.client.IncompleteRead`` (an ``HTTPException``, not an
+    ``OSError``): the pose render goes to the next child, counted as a
+    failover, and no request is lost (chip_smoke.py phase 20's kill)."""
+    import http.client
+
+    from _torch_ops_pair import PORT_PKG, Side, isolated
+
+    with isolated(Side(PORT_PKG)) as side:
+        _cut_reply_failover(side, http.client)
+
+
+def _cut_reply_failover(side, http_client):
+    class PoseReplica:
+        def __init__(self, rid, load, fail):
+            self.replica_id, self._load, self.fail = rid, load, fail
+            self.state = side.scale.ReplicaState.READY
+            self.bodies = []
+
+        def accepting(self):
+            return self.state == side.scale.ReplicaState.READY
+
+        def load(self):
+            return self._load
+
+        def heartbeat(self):
+            return {"replica": self.replica_id, "state": self.state,
+                    "ok": True, "load": self._load, "scenes": []}
+
+        def resident_scenes(self):
+            return []
+
+        def render(self, body, timeout_s=30.0):
+            self.bodies.append(body)
+            if self.fail:
+                raise http_client.IncompleteRead(b"", 16500)
+            return {"image": self.replica_id}
+
+    cut = PoseReplica("r0", 0, True)
+    live = PoseReplica("r1", 5, False)
+    router = _router(side, FakeClock(), cut, live)
+    out = router.render({"theta": 40.0})
+    assert out == {"image": "r1"}
+    assert len(cut.bodies) == len(live.bodies) == 1
+    assert router.stats()["n_failovers"] == 1
+    # the cut child is marked dead, then the request fails over
+    assert [r["event"] for r in side.rows if r["kind"] == "router"] == [
+        "dead", "failover"]
