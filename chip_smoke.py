@@ -301,6 +301,25 @@ imports nothing of JAX. Phases, each fatal on failure:
    nerf_replication_tpu_torch.tools.colmap2nerf`` on it, and
    ``capture.yaml`` (fused trunk: K1/K2) trained for a few steps on the
    ``transforms.json`` it writes, the loss finite.
+22. graftlint and the sanitizers (``analysis/``): (a) ``python -m
+   nerf_replication_tpu_torch.tools.graftlint`` on this checkout (exit 0
+   against the committed baseline, a valid ``lint_run`` row; no torch or
+   JAX in its process) and on a seeded host-sync hazard (exit 1), started
+   together; (b) phase 6's trained checkpoint and grid on the ``full``
+   route (K5): a worker-threaded ``MicroBatcher`` behind an
+   ``InProcessReplica`` and a ``Router``, a ``TieredResidencyManager``
+   over three scenes, a ``LockOrderRecorder`` on their three locks; one
+   warm request, then 24 routed requests of 37-4,096 rays from 4 threads
+   under ``sanitizer(engine, syncs=None)`` while the manager prefetches,
+   acquires, releases and sweeps: no compile, every reply bitwise the
+   direct render, the lock order acyclic, a valid ``lock_order`` row,
+   the routed p50 / p95; (c) phase 5's lego step on the trained weights
+   (K1/K2), captured by the trainer's registry, replayed 20 times under
+   ``sanitizer(tracker, syncs="error")``: clean and no capture; a host
+   tensor copied into the step's input and ``.item()`` on the loss each
+   raise naming the sync, the mode back at 0 after each; then 30 steps of
+   the fit loop (``log_interval`` 10) in mode "warn", the syncs of one
+   logging interval counted and printed with their sites, not gated.
 
 Then the port bench (``python -m nerf_replication_tpu_torch.bench``, bf16,
 4096 rays, ``scan_steps 32``, the median of three timed windows) runs once
@@ -327,7 +346,9 @@ the ``parallel`` path of phase 18, summed over its ranks; the ``tensor``
 path of phase 19 (K1, K2, K6, K6b, summed over its ranks) and its
 ``fleet`` path (K5, K4, K3a, K1), the ``scale`` path of phase 20 (K4 and
 K5 in the serve children, from their ``/stats``), the ``mesh`` path of
-phase 21 (K5, K4, K1, K3a) and its ``jpeg_capture`` path (K1, K2); K6
+phase 21 (K5, K4, K1, K3a) and its ``jpeg_capture`` path (K1, K2), the
+``analysis`` path of phase 22 (K5 on the live stack, K1/K2 in the replays
+under the sync guard); K6
 and K6b also
 carry their ms and bound at D = 2 and 4), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -796,7 +817,7 @@ def phase_serve(torch, np, dev, tmp):
             except Exception as err:  # surfaced below, the phase fails
                 errors.append(repr(err))
 
-        threads = [threading.Thread(target=client, args=(k,))
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
                    for k in range(8)]
         t1 = time.perf_counter()
         for t in threads:
@@ -2662,6 +2683,7 @@ def _graphed_views(torch, np, label, make, register, views):
         torch.cuda.reset_peak_memory_stats()
         reg = None
         if mode == "graphed":
+            # graftlint: ok(retrace: one registry for each view compared)
             reg = AOTRegistry(device=torch.device(DEVICE))
             register(render, reg)
             require(reg.captures == 1 and not reg.summary()["errors"],
@@ -2836,6 +2858,7 @@ def phase_eval_graphs(torch, np, tmp, data, ngp_run):
         if mode == "graphed":
             from nerf_replication_tpu_torch.compile import AOTRegistry
 
+            # graftlint: ok(retrace: the graphed one of two trainers compared)
             trainer.aot = AOTRegistry(device=torch.device(DEVICE))
             trainer.aot_register_render(state, n_rays)
             require(trainer.aot.captures == 1 and not
@@ -4055,6 +4078,7 @@ def _dp_nccl1(torch, np, spec):
     runs = {}
     for label, m in (("single", None), ("dp", mesh)):
         _, _, trainer, state = _lego_parts(torch, cfg, m)
+        # graftlint: ok(retrace: one registry for each trainer compared)
         trainer.aot = AOTRegistry(torch.device(DEVICE),
                                   enabled=DEVICE == "cuda")
         trainer.aot_register_steps(state, bank)
@@ -5190,6 +5214,7 @@ SCALE_ALERT_WAIT_S = 60.0  # fire and clear within this
 SCALE_FAULT_AFTER = 8
 SCALE_FAULT_TIMES = 10
 SCALE_PHASE_S = 240.0  # phase 20's own deadline
+SCALE_FAILOVER_WAIT_S = 10.0  # traffic to reach a child; its death found
 # a serve child whose fault plan is installed before the server's main:
 # the launcher's ``python`` (the plan is the child's input, not a switch
 # of the server)
@@ -5585,7 +5610,8 @@ def phase_scale(torch, np, tmp, data):
                     with lock:
                         results.append((sid, c2w, out))
 
-            threads = [threading.Thread(target=client, args=(i,))
+            threads = [threading.Thread(target=client, args=(i,),
+                                        daemon=True)
                        for i in range(SCALE_THREADS)]
             for t in threads:
                 t.start()
@@ -5697,7 +5723,12 @@ def phase_scale(torch, np, tmp, data):
                           4000.0) as tr:
                 time.sleep(1.0)
                 # the child this traffic goes to (affinity can leave a
-                # child idle, and an idle child's death fails nothing over)
+                # child idle, and an idle child's death fails nothing
+                # over): wait until the traffic has reached one
+                wait_until = time.perf_counter() + SCALE_FAILOVER_WAIT_S
+                while (max(r.n_submitted - sent[r.replica_id] for r in live)
+                       == 0 and time.perf_counter() < wait_until):
+                    time.sleep(0.1)
                 doomed = max(live, key=lambda r: r.n_submitted
                              - sent[r.replica_id])
                 scale_counts["K5"] += child_steady(doomed, ready_b[
@@ -5705,6 +5736,13 @@ def phase_scale(torch, np, tmp, data):
                 t_kill = time.perf_counter()
                 doomed.proc.kill()
                 time.sleep(2.0)
+                # the router finds the death at the next request it routes
+                # there
+                wait_until = time.perf_counter() + SCALE_FAILOVER_WAIT_S
+                while ((router.n_failovers == fo_before
+                        or doomed.state != ReplicaState.DEAD)
+                       and time.perf_counter() < wait_until):
+                    time.sleep(0.1)
             require(not tr.errors, f"scale: {len(tr.errors)} requests lost "
                     f"at the kill: {tr.errors[:3]}")
             require(router.n_failovers > fo_before
@@ -6255,6 +6293,339 @@ def phase_mesh_jpeg(torch, np, tmp, data, hash_runs):
     return mesh_counts, jpeg_counts, report
 
 
+ANALYSIS_SIZES = (37, 64, 128, 256, 512, 1024, 2048, 4096)  # rays
+ANALYSIS_REQUESTS = 24  # routed requests under the sanitizer, sizes cycled
+ANALYSIS_THREADS = 4
+ANALYSIS_REPLAYS = 20  # replays of the captured train step under "error"
+ANALYSIS_LOG_INTERVAL = 10  # steps a logging interval of the fit loop
+# the port CLI's seeded hazard: a captured step that reads its loss
+ANALYSIS_HAZARD = (
+    "import torch\n"
+    "def step(x):\n"
+    "    return x.sum().item()\n"
+    "def warm(aot, x):\n"
+    "    aot.register('step', step, (x,))\n"
+)
+
+
+def _graftlint_on_card(tmp, report):
+    """(a) ``python -m nerf_replication_tpu_torch.tools.graftlint`` on this
+    checkout against the committed port baseline (exit 0, a valid
+    ``lint_run`` row), and on a seeded hazard (exit 1 naming host-sync),
+    the two processes started together."""
+    from nerf_replication_tpu_torch.obs.schema import validate_row
+
+    adir = os.path.join(tmp, "analysis")
+    os.makedirs(adir, exist_ok=True)
+    seeded = os.path.join(adir, "seeded_hazard.py")
+    with open(seeded, "w") as f:
+        f.write(ANALYSIS_HAZARD)
+    telem = os.path.join(adir, "lint.jsonl")
+    cmd = [sys.executable, "-m", "nerf_replication_tpu_torch.tools.graftlint"]
+    t0 = time.perf_counter()
+    gate = subprocess.Popen(cmd + ["--telemetry", telem], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    bad = subprocess.Popen(cmd + [seeded, "--no-telemetry"], cwd=REPO,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        out, err = gate.communicate(timeout=120)
+        wall = time.perf_counter() - t0
+        bad_out, bad_err = bad.communicate(timeout=120)
+    finally:
+        for proc in (gate, bad):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(gate.returncode == 0, f"graftlint on the port tree exited "
+            f"{gate.returncode}:\n{out[-3000:]}\n{err[-2000:]}")
+    summary = [line for line in out.splitlines()
+               if line.startswith("graftlint: ") and "file(s)" in line]
+    require(summary, f"graftlint printed no summary: {out[-2000:]}")
+    print(f"graftlint (a): {summary[-1]} (exit 0, {wall:.2f} s of "
+          "process wall time)")
+    with open(telem) as f:
+        row = json.loads(f.read().splitlines()[-1])
+    require(row["kind"] == "lint_run" and validate_row(row) == []
+            and row["exit_code"] == 0 and row["n_new"] == 0,
+            f"lint_run row {row}")
+    require(bad.returncode == 1 and "host-sync" in bad_out,
+            f"graftlint on a seeded hazard exited {bad.returncode}:\n"
+            f"{bad_out[-2000:]}\n{bad_err[-2000:]}")
+    print("graftlint (a): the seeded hazard exits 1: "
+          + next(line for line in bad_out.splitlines() if "host-sync" in line))
+    report["cli"] = {"summary": summary[-1], "wall_s": round(wall, 3),
+                     "tool_s": row["duration_s"]}
+
+
+def _live_stack(torch, np, tmp, data, report):
+    """(b) phase 6's trained lego checkpoint and grid on the ``full`` route
+    (K5): a worker-threaded ``MicroBatcher`` behind an ``InProcessReplica``
+    and a ``Router``, a ``TieredResidencyManager`` over three scenes, their
+    locks recorded; one warm request, then routed requests from client
+    threads under ``sanitizer(engine, syncs=None)`` while the manager
+    prefetches, acquires, releases and sweeps. The stream keeps to the
+    full tier (shedding would serve other families), so each reply is held
+    bitwise to the engine's direct render of the same rays."""
+    from nerf_replication_tpu_torch.analysis import (
+        LockOrderRecorder,
+        sanitizer,
+    )
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.fleet import (
+        SceneData,
+        SceneRecord,
+        SceneRegistry,
+        TieredResidencyManager,
+    )
+    from nerf_replication_tpu_torch.obs.schema import validate_row
+    from nerf_replication_tpu_torch.ops import fused_march as fm
+    from nerf_replication_tpu_torch.scale import InProcessReplica, Router
+    from nerf_replication_tpu_torch.serve import (
+        MicroBatcher,
+        engine_from_cfg,
+    )
+    from nerf_replication_tpu_torch.serve.policy import DegradationPolicy
+    from nerf_replication_tpu_torch.tools.slice_inputs import SLICE_OPTS
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    cfg = make_cfg(lego, _eval_opts(data, tmp, SLICE_OPTS + [
+        "compile.aot", "true", "serve.warmup", "false"]), default_task="run")
+    engine = engine_from_cfg(cfg, cfg_file=lego, device=DEVICE)
+    require(engine.use_grid, "analysis (b): the engine found no grid")
+    engine.warm_up(("full",))
+    near, far = engine.near, engine.far
+    require(not engine.stats()["compile"]["errors"],
+            f"analysis (b): registry errors {engine.stats()['compile']}")
+    batcher = MicroBatcher(engine, policy=DegradationPolicy(
+        thresholds=(1 << 20,)))
+    replica = InProcessReplica("r0", engine, batcher)
+    router = Router(heartbeat_timeout_s=30.0)
+    router.register(replica)
+    router.sweep()
+
+    def loader(record):
+        return SceneData(scene_id=record.scene_id,
+                         params={"w": torch.full((256,), 1.0)})
+
+    mgr = TieredResidencyManager(
+        SceneRegistry(SceneRecord(scene_id=s) for s in ("a", "b", "c")),
+        loader, budget_bytes=3000, staging_budget_bytes=8192,
+        verify_checksums=False)
+    recorder = LockOrderRecorder()
+    recorder.instrument(batcher, "_cond")
+    recorder.instrument(mgr, "_cond")
+    recorder.instrument(router, "_lock")
+    sizes = [ANALYSIS_SIZES[i % len(ANALYSIS_SIZES)]
+             for i in range(ANALYSIS_REQUESTS)]
+    rays = [_mesh_rays(np, engine.default_camera, n, 100 + i)
+            for i, n in enumerate(sizes)]
+    replies, lat = {}, {}
+    try:
+        router.submit(rays[-1], near, far).result(timeout=60.0)
+        torch.cuda.synchronize()
+        before = fm.LAUNCHES["fused_march_full"]
+
+        def client(k):
+            for i in range(k, len(sizes), ANALYSIS_THREADS):
+                t0 = time.perf_counter()
+                replies[i] = router.submit(rays[i], near, far).result(
+                    timeout=60.0)
+                lat[i] = time.perf_counter() - t0
+
+        with sanitizer(engine, syncs=None, name="live stack") as probe:
+            clients = [threading.Thread(target=client, args=(k,),
+                                        daemon=True)
+                       for k in range(ANALYSIS_THREADS)]
+            for th in clients:
+                th.start()
+            require(mgr.prefetch("b"), "analysis (b): prefetch refused")
+            for i in range(4):
+                got = mgr.acquire("a" if i % 2 else "c")
+                mgr.release(got.scene_id)
+            mgr.sweep()
+            router.sweep()
+            for th in clients:
+                th.join(timeout=120.0)
+        launches = fm.LAUNCHES["fused_march_full"] - before
+    finally:
+        batcher.close(drain=False)
+    # total_compiles counts this process's nvcc builds too: the region's
+    # change is what must be 0
+    require(probe.compiles == 0, f"analysis (b): {probe.compiles} compiles "
+            f"in the region ({engine.total_compiles()} in all)")
+    require(sorted(replies) == list(range(len(sizes))),
+            f"analysis (b): {len(replies)} of {len(sizes)} replies")
+    require(launches > 0, "analysis (b): the stream never launched K5")
+    for i, n in enumerate(sizes):
+        require(replies[i]["tier"] == "full",
+                f"analysis (b): request {i} served at {replies[i]['tier']}")
+        direct = engine.render_request(rays[i], near, far, emit=False)
+        for k, v in direct.items():
+            if k != "tier":
+                require(np.array_equal(np.asarray(replies[i][k]), v),
+                        f"analysis (b): request {i} ({n} rays) {k} differs "
+                        "from the direct render")
+    recorder.assert_acyclic()
+    rows = []
+
+    class _Tap:
+        def emit(self, kind, **fields):
+            rows.append({"kind": kind, **fields})
+
+    row = recorder.emit(emitter=_Tap(), source="chip_smoke")
+    require(row["acyclic"] is True and row["n_locks"] >= 3 and {
+        "MicroBatcher._cond", "TieredResidencyManager._cond",
+        "Router._lock"} <= set(row["locks"]), f"lock_order row {row}")
+    full = {"v": 1, "t": time.time(), **rows[0]}
+    require(validate_row(full) == [], f"lock_order row invalid: "
+            f"{validate_row(full)}")
+    report["live_stack"] = {
+        "requests": len(sizes), "threads": ANALYSIS_THREADS,
+        "rays": [min(sizes), max(sizes)], "compiles": probe.compiles,
+        "K5_launches": launches, "routed_p50_ms": _pct(lat.values(), 0.5),
+        "routed_p95_ms": _pct(lat.values(), 0.95), "lock_order": row}
+    print("analysis (b): " + json.dumps(report["live_stack"]))
+    return launches
+
+
+def _sync_guard(torch, np, tmp, data, trained, report):
+    """(c) phase 5's lego step (fused trunk, K1/K2) on the trained f32
+    weights, captured by the trainer's registry, replayed on device inputs
+    under ``sanitizer(tracker, syncs="error")``; then a host tensor copied
+    into the step's input and ``.item()`` on the loss must each raise in
+    the same region, with the mode back at 0 after each; then the syncs of
+    one logging interval of the real fit loop, counted in mode "warn"."""
+    import warnings
+
+    from nerf_replication_tpu_torch.analysis import sanitizer
+    from nerf_replication_tpu_torch.compile import AOTRegistry
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.datasets import make_dataset
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.ops import fused_mlp as fmlp
+    from nerf_replication_tpu_torch.registry import load_attr
+    from nerf_replication_tpu_torch.train.recorder import make_recorder
+    from nerf_replication_tpu_torch.train.trainer import (
+        Trainer,
+        make_train_state,
+    )
+
+    lego = os.path.join(REPO, "configs", "nerf", "lego.yaml")
+    cfg = make_cfg(lego, _train_opts(data, os.path.join(tmp, "out_a"), "a")
+                   + ["task_arg.precrop_iters", "0", "ep_iter",
+                      str(3 * ANALYSIS_LOG_INTERVAL), "log_interval",
+                      str(ANALYSIS_LOG_INTERVAL)])
+    net = make_network(cfg)
+    tr = Trainer(cfg, net, load_attr(cfg.loss_module, "make_loss")(cfg, net))
+    state = make_train_state(cfg, net, DEVICE)
+    net.load_state_dict(trained.state_dict())  # after the seeded init
+    bank = tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in make_dataset(cfg, "train").ray_bank())
+    tr.aot = AOTRegistry(device=torch.device(DEVICE), tracker=tr.tracker)
+    tr.aot_register_steps(state, bank)
+    st = tr.aot.status()
+    require(not st["errors"] and st["captures"] == st["entries"] > 0,
+            f"analysis (c): captures failed: {st}")
+    tr.step(state, *bank)  # one replay outside the region
+    torch.cuda.synchronize()
+    mode0 = torch.cuda.get_sync_debug_mode()
+    before = dict(fmlp.LAUNCHES)
+    t0 = time.perf_counter()
+    with sanitizer(tr.tracker, syncs="error", name="replays") as probe:
+        for _ in range(ANALYSIS_REPLAYS):
+            state, stats = tr.step(state, *bank)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / ANALYSIS_REPLAYS
+    counts = {"K1": fmlp.LAUNCHES["fused_mlp_fwd"] - before["fused_mlp_fwd"],
+              "K2": fmlp.LAUNCHES["fused_mlp_bwd"] - before["fused_mlp_bwd"]}
+    require(probe.compiles == 0, f"analysis (c): {probe.compiles} compiles")
+    require(counts["K1"] > 0 and counts["K2"] > 0,
+            f"analysis (c): the replays launched {counts}")
+    require(torch.cuda.get_sync_debug_mode() == mode0 == 0,
+            f"analysis (c): sync debug mode {torch.cuda.get_sync_debug_mode()}"
+            " after the region")
+    require(bool(torch.isfinite(stats["loss"]).item()),
+            "analysis (c): the replayed loss is not finite")
+    host = bank[0].cpu()
+    raised = {}
+    for label in ("host input", ".item()"):
+        try:
+            with sanitizer(tr.tracker, syncs="error", name=label):
+                if label == "host input":
+                    bank[0].copy_(host)  # the step's input, from the host
+                state, stats = tr.step(state, *bank)
+                if label == ".item()":
+                    stats["loss"].item()
+        except RuntimeError as exc:
+            raised[label] = str(exc).splitlines()[0]
+        torch.cuda.synchronize()
+        require(label in raised, f"analysis (c): {label} did not raise")
+        require("synchroniz" in raised[label], f"analysis (c): {label} "
+                f"raised without naming the sync: {raised[label]}")
+        require(torch.cuda.get_sync_debug_mode() == 0,
+                f"analysis (c): the mode is "
+                f"{torch.cuda.get_sync_debug_mode()} after {label}")
+    # one logging interval of the real fit loop, counted (not gated)
+    marks = []
+    step = tr.step
+
+    def counted(*args, **kwargs):
+        marks.append(len(seen))
+        return step(*args, **kwargs)
+
+    tr.step = counted
+    recorder = make_recorder(cfg)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        with sanitizer(tr.tracker, syncs="warn", name="fit interval"):
+            state, _ = tr.train_epoch(state, 0, bank, recorder,
+                                      log=lambda _s: None)
+    tr.step = step
+    L = ANALYSIS_LOG_INTERVAL
+    require(len(marks) == 3 * L, f"analysis (c): {len(marks)} steps")
+    # from after the log of step L to after the log of step 2L
+    sync = "called a synchronizing CUDA operation"
+    interval = [w for w in seen[marks[L + 1]:marks[2 * L + 1]]
+                if sync in str(w.message)]
+    seen = [w for w in seen if sync in str(w.message)]
+    where = {}
+    for w in interval:
+        key = f"{os.path.basename(w.filename)}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    report["sync_guard"] = {
+        "replays": ANALYSIS_REPLAYS, "replay_ms": round(replay_ms, 3),
+        "compiles": probe.compiles, "launches": counts, "raised": raised,
+        "fit_interval_steps": L, "fit_interval_syncs": len(interval),
+        "fit_interval_sync_sites": where, "fit_syncs_all": len(seen)}
+    print("analysis (c): " + json.dumps(report["sync_guard"]))
+    return counts
+
+
+def phase_analysis(torch, np, tmp, data, trained):
+    """Phase 22: the port's graftlint and sanitizers on the card (cwd: tmp,
+    where phase 6 saved its grid): (a) the CLI, (b) the live serving stack
+    (K5), (c) the sync guard over the captured train step (K1/K2)."""
+    t0 = time.perf_counter()
+    os.chdir(tmp)
+    report = {}
+    _graftlint_on_card(tmp, report)
+    t_a = time.perf_counter() - t0
+    k5 = _live_stack(torch, np, tmp, data, report)
+    t_b = time.perf_counter() - t0 - t_a
+    counts = _sync_guard(torch, np, tmp, data, trained, report)
+    counts["K5"] = k5
+    report["wall_s"] = {"a": round(t_a, 1), "b": round(t_b, 1),
+                        "c": round(time.perf_counter() - t0 - t_a - t_b, 1),
+                        "all": round(time.perf_counter() - t0, 1)}
+    report["card"] = smi_line()
+    print("analysis phase: " + json.dumps(
+        {k: v for k, v in report.items()
+         if k not in ("live_stack", "sync_guard")}))
+    return counts, report
+
+
 def run_bench():
     """``python -m nerf_replication_tpu_torch.bench`` once, as a user runs
     it (no BENCH_* overrides); its one JSON line."""
@@ -6335,6 +6706,8 @@ def main() -> int:
             scale_counts, _ = phase_scale(torch, np, tmp, data)
             mesh_counts, jpeg_counts, _ = phase_mesh_jpeg(torch, np, tmp,
                                                           data, hash_runs)
+            analysis_counts, _ = phase_analysis(torch, np, tmp, data,
+                                                f32["state"].network)
         finally:
             os.chdir(cwd)
     run_bench()
@@ -6402,6 +6775,10 @@ def main() -> int:
             paths["mesh"] = mesh_counts[kernel]
         if kernel in jpeg_counts:
             paths["jpeg_capture"] = jpeg_counts[kernel]
+        # phase 22: the live serving stack under the sanitizer (K5) and the
+        # captured train step's replays under the sync guard (K1, K2)
+        if kernel in analysis_counts:
+            paths["analysis"] = analysis_counts[kernel]
         if kernel in ("K6", "K6b"):
             kind = "fwd" if kernel == "K6" else "bwd"
             for d in (2, 4):

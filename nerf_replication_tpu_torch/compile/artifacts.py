@@ -55,6 +55,7 @@ def artifact_key(name: str, sources, extra: str = "", *,
     h = hashlib.sha256(
         "\x1f".join([name, " ".join(flags), toolchain, extra]).encode())
     for path in sources:
+        # graftlint: ok(blocking-under-lock: hashes the kernel sources under the build lock — one build per source at a time)
         with open(path, "rb") as fh:
             h.update(fh.read())
     return f"{name}_{h.hexdigest()[:16]}"

@@ -283,6 +283,7 @@ class ResidencyManager:
                                        stage="load", scene=scene_id,
                                        source="prefetch"):
                     self._load_and_commit(scene_id, source="prefetch")
+            # graftlint: ok(swallow: error re-raised on the joining acquire; load_errors counted here)
             except BaseException as err:
                 load.error = err
                 with self._cond:

@@ -136,6 +136,7 @@ class SceneStore:
                     f"unknown scene {scene_id!r} ({known} scenes in "
                     f"store {self.root})",
                 )
+            # graftlint: ok(blocking-under-lock: single-flight page-in — the lock intentionally serializes shard parses so concurrent readers of one shard never duplicate the I/O)
             records = self._page_in(shard)
             record = records.get(scene_id)
             if record is None:
@@ -190,6 +191,7 @@ class SceneStore:
         with self._lock:
             shard = self._shard_of.get(sid)
             if shard is not None:
+                # graftlint: ok(blocking-under-lock: write-through shard rewrite must be atomic w.r.t. concurrent gets; hot publishes are rare)
                 records = dict(self._page_in(shard))
                 records[sid] = record
                 SceneRegistry(records.values()).to_manifest(

@@ -61,6 +61,7 @@ _SIGNATURES = {
 
 
 def _lib_path(name: str) -> str:
+    # graftlint: ok(blocking-under-lock: hashes the source under the build lock — one build per source at a time)
     with open(os.path.join(_DIR, f"{name}.cpp"), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     tag = f"cpy{sys.version_info.major}{sys.version_info.minor}-" \
@@ -78,6 +79,7 @@ def _compile(name: str, out: str) -> bool:
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
            os.path.join(_DIR, f"{name}.cpp"), "-o", tmp]
     try:
+        # graftlint: ok(blocking-under-lock: the build lock is deliberate — one g++ build per source at a time)
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=120)
         if proc.returncode != 0:

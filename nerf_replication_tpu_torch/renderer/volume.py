@@ -582,6 +582,7 @@ def map_chunks(fn, rays: torch.Tensor, chunk_size: int) -> dict:
     pad = n_chunks * chunk - n
     if pad:
         rays = torch.cat([rays, rays.new_zeros((pad, rays.shape[-1]))], 0)
+    # graftlint: ok(retrace: every slice is `chunk` rays — the rays are padded to n_chunks x chunk)
     outs = [fn(rays[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
     return {k: (torch.cat([o[k] for o in outs], 0)[:n] if outs[0][k].dim()
                 else torch.stack([o[k] for o in outs]))

@@ -340,6 +340,7 @@ def lanes_to_host(lanes, outs) -> dict:
     host = []
     for lane, out in zip(lanes, outs):
         with lane.on_stream():
+            # graftlint: ok(blocking-under-lock: a replay's static outputs are read back under the engine's lock — the next replay overwrites them)
             host.append({k: v.cpu().numpy() for k, v in out.items()})
     if len(host) == 1:
         return host[0]

@@ -429,6 +429,7 @@ class RenderEngine:
         return not (self.use_grid and family != "proposal"
                     and self.march_options.march_fused == "gather")
 
+    # graftlint: hot
     def warm_up(self, families: tuple[str, ...] | None = None) -> int:
         """Build every (bucket, family) route and run it once on an
         all-zero bucket (zero rays are inert padding). Builds the kernels on
@@ -522,13 +523,16 @@ class RenderEngine:
             # the dispatch span is the host's part (copy in, replay or
             # launch); the device's work lands in the device span, at the
             # copy back that waits for it
+            # graftlint: ok(blocking-under-lock: the span times the locked dispatch; its row is written only with tracing on)
             with trs.span("serve.dispatch", stage="dispatch", family=family,
                           bucket=int(bucket)):
                 if not warm:
                     # chaos hook: an injected dispatch failure drives the
                     # batcher's breaker without touching the routes
+                    # graftlint: ok(blocking-under-lock: a chaos hook, inert unless a fault plan is armed)
                     fault_point("serve.dispatch")
                 outs = self._dispatch(rays_b, bucket, family, scene)
+            # graftlint: ok(blocking-under-lock: the span times the locked copy back; its row is written only with tracing on)
             with trs.span("serve.device", stage="device", bucket=int(bucket)):
                 from ..scale.mesh_dispatch import lanes_to_host
 
@@ -568,6 +572,7 @@ class RenderEngine:
         through the same routes; None: the engine's own checkpoint."""
         if family == "proposal" and not self.has_proposal:
             family = "reduced_k"
+        # graftlint: ok(host-sync: the request's rays arrive on the host)
         rays = np.asarray(rays, np.float32)
         if rays.ndim != 2:
             raise ValueError(f"rays must be [N, C], got shape {rays.shape}")
@@ -599,6 +604,7 @@ class RenderEngine:
         }
         return out, info
 
+    # graftlint: hot
     def render_request(self, rays, near, far, tier: str = "full",
                        emit: bool = True, scene=None) -> dict:
         """Render one request at ``tier``; bounds must match the baked ones.
@@ -610,6 +616,7 @@ class RenderEngine:
         check_baked_bounds(self.near, self.far, near, far,
                            surface="serve engine")
         family, stride = TIER_IMPL[tier]
+        # graftlint: ok(host-sync: the request's rays arrive on the host)
         rays = np.asarray(rays, np.float32)
         n = rays.shape[0]
         t0 = time.perf_counter()
@@ -622,6 +629,7 @@ class RenderEngine:
         if emit:
             fields = ({} if self._is_default_scene(scene)
                       else {"scene": str(scene)})
+            # graftlint: ok(emit-hot: per-request completion record, post-sync)
             get_emitter().emit(
                 "serve_request", latency_s=latency, n_rays=n, tier=tier,
                 status="ok", n_buckets=len(info["buckets"]),
@@ -629,6 +637,7 @@ class RenderEngine:
         out["tier"] = tier
         return out
 
+    # graftlint: hot
     def render_view(self, c2w, H: int, W: int, focal: float,
                     tier: str = "full", via=None,
                     scene=None) -> tuple[np.ndarray, dict]:
@@ -653,11 +662,13 @@ class RenderEngine:
             # a hit does no device work, but it is a served request: the
             # alert engine and the capacity ledger count it
             fields = {} if scene is None else {"scene": str(scene)}
+            # graftlint: ok(emit-hot: cache-hit record, no device work at all)
             get_emitter().emit(
                 "serve_request", latency_s=time.perf_counter() - t0,
                 n_rays=H * W, tier=served_tier, status="ok",
                 cache_hit=True, **fields)
             return image, {"tier": served_tier, "cache_hit": True}
+        # graftlint: ok(host-sync: the pose arrives on the host)
         rays_o, rays_d = get_rays_np(H, W, float(focal), np.asarray(c2w))
         rays = np.concatenate([rays_o, rays_d], -1).reshape(-1, 6)
         if via is not None:
@@ -668,6 +679,7 @@ class RenderEngine:
         served_tier = out.get("tier", tier)
         # the grid-less coarse tier renders coarse only
         rgb_key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
+        # graftlint: ok(host-sync: render_flat returned host arrays)
         rgb = np.clip(np.asarray(out[rgb_key]).reshape(H, W, 3), 0.0, 1.0)
         image = (rgb * 255).astype(np.uint8)
         cache.put(key, (image, served_tier))
@@ -721,15 +733,19 @@ class RenderEngine:
         residency.param_shards = self.param_shards
         if self.device.type == "cuda":
             residency.pin = self.pin_scene_tree
+        # the engine's own weights copied to the host before the lock is
+        # taken (the copy waits for the card); _own is set once
+        host = None
+        if self._own is None:
+            host = ({k: v.detach().cpu() for k, v in
+                     self.network.state_dict().items()},
+                    None if self.grid is None else self.grid.cpu(),
+                    None if self.bbox is None else self.bbox.cpu())
         with self._lock:
             if self._own is None:
                 from ..fleet.residency import SceneData
 
-                host = {k: v.detach().cpu() for k, v in
-                        self.network.state_dict().items()}
-                placed, ready = self.place_scene_tree(
-                    (host, None if self.grid is None else self.grid.cpu(),
-                     None if self.bbox is None else self.bbox.cpu()))
+                placed, ready = self.place_scene_tree(host)
                 self._own = SceneData(
                     scene_id=str(default_scene), params=placed[0],
                     grid=placed[1], bbox=placed[2], near=self.near,

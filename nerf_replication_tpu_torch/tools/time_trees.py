@@ -278,6 +278,7 @@ def child(tree: str, cases: list[str], iters: int, warm: bool) -> int:
         kinds = {c.partition("_")[0] for c in cases}
         if kinds <= set(CASE_SOURCES):
             for kind in kinds:
+                # graftlint: ok(retrace: one load per distinct source)
                 kernels.load(CASE_SOURCES[kind])
         else:
             kernels.build_all()

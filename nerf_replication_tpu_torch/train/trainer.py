@@ -203,6 +203,7 @@ def agreed_stop(guard, mesh) -> bool:
     from ..parallel.collectives import all_reduce_
 
     flag = torch.full((1,), float(guard.triggered), device=mesh.device)
+    # graftlint: ok(host-sync: every rank agrees on the SIGTERM flag at each burst boundary; the mesh path only)
     return bool(all_reduce_(flag, mesh, "max").item())
 
 
@@ -377,6 +378,7 @@ class Trainer:
             state, stats = self.step(state, bank_rays, bank_rgbs)
         return state, stats
 
+    # graftlint: hot
     def train_epoch(self, state: TrainState, epoch: int, bank,
                     recorder: Recorder, index_pool=None, log=print):
         """One epoch of steps, from ``state.epoch_it`` (a resumed mid-epoch
@@ -435,6 +437,7 @@ class Trainer:
                 log(recorder.console_line(
                     epoch, min(it + k - 1, max_iter - 1), max_iter, lr, mem))
                 recorder.record("train")
+                # graftlint: ok(emit-hot: inside the should_log gate — one row per logging cadence, after the stats read)
                 emitter.emit(
                     "step", step=state.step, epoch=epoch, k=k,
                     step_time_s=recorder.batch_time.median,

@@ -51,10 +51,12 @@ def test_registry_maps_config_modules_to_the_port():
         "nerf_replication_tpu_torch.datasets.blender"
     mod = resolve_module("nerf_replication_tpu.datasets.blender")
     assert mod.__name__ == "nerf_replication_tpu_torch.datasets.blender"
-    # a role the port does not have yet names the missing module
+    # a role the port has no counterpart for names the missing module
     with pytest.raises(ImportError,
-                       match="nerf_replication_tpu_torch.analysis.sanitizer"):
-        resolve_module("nerf_replication_tpu.analysis.sanitizer")
+                       match="nerf_replication_tpu_torch.parallel.compat"):
+        resolve_module("nerf_replication_tpu.parallel.compat")
+    assert resolve_module("nerf_replication_tpu.analysis.sanitizer") \
+        .__name__ == "nerf_replication_tpu_torch.analysis.sanitizer"
     assert resolve_module("nerf_replication_tpu.scale.mesh_dispatch") \
         .__name__ == "nerf_replication_tpu_torch.scale.mesh_dispatch"
     assert resolve_module("nerf_replication_tpu.scale.router").__name__ \
