@@ -221,9 +221,11 @@ ROW_KINDS: dict[str, tuple[dict, dict]] = {
     # one per finished span: a timed unit of work in the serve pipeline,
     # joinable into a per-request tree via (trace_id, parent_id). start_s
     # is on the tracer's clock (perf_counter), NOT unix time — only
-    # differences and within-run ordering are meaningful. stage tags the
-    # latency taxonomy (queue | acquire | load | dispatch | device |
-    # scatter | route | failover); joined/source attribute prefetch joins
+    # differences and within-run ordering are meaningful (obs/trace.py's
+    # wall_offset_ns maps it onto unix time). stage tags the latency
+    # taxonomy (queue | acquire | load | dispatch | device | scatter |
+    # route | failover; the port adds rays | render | handoff | image, the
+    # rest of a served view); joined/source attribute prefetch joins
     # in fleet residency. remote_parent marks a span whose parent ctx was
     # restored from a Traceparent header (the cross-process join point —
     # trace_view --fleet resolves it in the merged file set, so it is not
@@ -236,7 +238,10 @@ ROW_KINDS: dict[str, tuple[dict, dict]] = {
          "tenant": (str, type(None)), "n_rays": _NUM, "n_requests": _NUM,
          "joined": (str,), "source": (str,), "family": (str,),
          "bucket": _NUM, "queue_depth": _NUM, "detail": (str,),
-         "remote_parent": (bool, int), "replica": (str,)},
+         "remote_parent": (bool, int), "replica": (str,),
+         # the port's alone: serve.queue's wait behind other batches, and
+         # train.step's step count
+         "behind_s": _NUM, "step": _NUM},
     ),
     # one per live-aggregation dump (obs/metrics.py snapshot()): the
     # counters/gauges/histograms behind GET /metrics, serialized for

@@ -25,6 +25,9 @@ invariant (asserted with tracing ON in tests/test_serve.py).
 Span identities come from a process-local counter, not ``uuid4`` — runs
 are deterministic under a seeded test and ids stay 8 hex chars. Clocks
 are injectable (tests pass a fake; production uses ``perf_counter``).
+:func:`wall_offset_ns` maps the production clock onto the Unix clock that
+``torch.profiler``'s trace is stamped on, so span rows and device
+operations can share one timeline.
 """
 
 from __future__ import annotations
@@ -295,6 +298,23 @@ _tracer = Tracer(enabled=False)
 def get_tracer() -> Tracer:
     """The process's tracer (disabled until :func:`configure_tracing`)."""
     return _tracer
+
+
+def wall_offset_ns(reads: int = 5) -> int:
+    """``time.time_ns() - time.perf_counter_ns()`` in ns: add it to a span's
+    ``start_s * 1e9`` (the production clock) to place the span on the Unix
+    clock, the time base of a ``torch.profiler`` trace (its
+    ``trace_start_ns()`` plus each event's relative µs). Of ``reads``
+    paired readings (a wall reading between two counter readings) the pair
+    read closest together gives the offset, against the counters' mean."""
+    best = None
+    for _ in range(reads):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
 
 
 def configure_tracing(enabled: bool = True, clock=None,

@@ -20,8 +20,15 @@ The ops layers, as in the JAX batcher:
   watchdog (:meth:`MicroBatcher.ensure_worker`, on every submit and
   health probe) that restarts a worker thread that died, failing its
   stranded batch at once;
-* spans: each request's queue wait and scatter, and the batch, parented to
-  the request that submitted it (the context captured at ``submit``);
+* spans, each parented to the request that submitted it (the context
+  captured at ``submit``): its queue wait (``serve.queue``, with
+  ``behind_s``: the part of the wait the worker spent on other batches,
+  from its busy intervals; the rest is the batch edge's), its time from
+  the cut to its own slice (``serve.render``), its slice
+  (``serve.scatter``) and the hand-off to the client thread
+  (``serve.handoff``: from the future's result to ``result()``
+  returning); and the batch (``serve.batch``), parented to its first
+  request;
 * telemetry rows ``serve_request`` / ``serve_batch`` / ``serve_shed``,
   ``fault`` rows, and the live metrics behind ``GET /metrics``.
 
@@ -84,18 +91,25 @@ class BatcherClosedError(RuntimeError):
 
 
 class ServeFuture:
-    """Completion handle for one submitted request."""
+    """Completion handle for one submitted request. ``ctx`` (the request's
+    span context) parents the ``serve.handoff`` span that :meth:`result`
+    records, with tracing on, from :meth:`set_result` to its return."""
 
-    def __init__(self, n_rays: int):
+    def __init__(self, n_rays: int, ctx=None):
         self.n_rays = n_rays
+        self.ctx = ctx
         self._event = threading.Event()
         self._result: dict | None = None
         self._error: BaseException | None = None
+        self._t_set: float | None = None  # set_result, on the tracer's clock
 
     def done(self) -> bool:
         return self._event.is_set()
 
     def set_result(self, result: dict) -> None:
+        trs = get_tracer()
+        if trs.enabled:
+            self._t_set = trs.now()
         self._result = result
         self._event.set()
 
@@ -110,6 +124,10 @@ class ServeFuture:
             )
         if self._error is not None:
             raise self._error
+        if self._t_set is not None:
+            t_set, self._t_set = self._t_set, None
+            get_tracer().record("serve.handoff", start_s=t_set,
+                                parent=self.ctx, stage="handoff")
         return self._result
 
 
@@ -163,6 +181,9 @@ class MicroBatcher:
         self.worker_restarts = 0
         self._inflight: list[_Pending] = []
         self._worker_dead = False
+        # the worker's busy intervals (cut to last reply of each batch) on
+        # the tracer's clock, oldest first; kept with tracing on only
+        self._busy: deque[tuple[float, float]] = deque()
         self._last_dispatch_t: float | None = None
         self._thread: threading.Thread | None = None
         self._started = start
@@ -255,9 +276,9 @@ class MicroBatcher:
         else:
             self.engine.require_scene(scene)   # 404 before queueing
             self.engine.prefetch_scene(scene)  # overlap its copy to the card
-        pending = _Pending(rays, ServeFuture(rays.shape[0]), self.clock(),
-                           scene=scene, tenant=tenant,
-                           ctx=ctx if ctx is not None else current_ctx(),
+        ctx = ctx if ctx is not None else current_ctx()
+        pending = _Pending(rays, ServeFuture(rays.shape[0], ctx),
+                           self.clock(), scene=scene, tenant=tenant, ctx=ctx,
                            t_trace=get_tracer().now())
         with self._cond:
             if self._stop:
@@ -376,7 +397,33 @@ class MicroBatcher:
         cut = self._cut_batch()
         if cut is None:
             return 0
-        return self._render_batch(*cut)
+        trs = get_tracer()
+        t_cut = trs.now()
+        try:
+            return self._render_batch(*cut, t_cut)
+        finally:
+            if trs.enabled:
+                self._note_busy(t_cut, trs.now())
+
+    def _note_busy(self, start: float, end: float) -> None:
+        """Keep one busy interval; forget those that ended before any
+        request still waiting could have been submitted (a request older
+        than twice its timeout has failed at its cut)."""
+        self._busy.append((start, end))
+        horizon = end - 2.0 * self.options.request_timeout_s
+        while self._busy and self._busy[0][1] < horizon:
+            self._busy.popleft()
+
+    def _behind_s(self, t_submit: float, t_cut: float) -> float:
+        """Seconds of ``[t_submit, t_cut]`` the worker spent on other
+        batches (the busy intervals, newest first, until one ends before
+        the submit)."""
+        behind = 0.0
+        for start, end in reversed(self._busy):
+            if end <= t_submit:
+                break
+            behind += max(0.0, min(end, t_cut) - max(start, t_submit))
+        return behind
 
     def _worker(self) -> None:
         while True:
@@ -410,11 +457,13 @@ class MicroBatcher:
                                  else None), tier=tier, **labels)
 
     # graftlint: hot
-    def _render_batch(self, batch: list[_Pending], queue_depth: int) -> int:
+    def _render_batch(self, batch: list[_Pending], queue_depth: int,
+                      t_cut: float) -> int:
+        """Render one cut batch; ``t_cut``: the cut, on the tracer's clock
+        (each request's queue wait ends there)."""
         emitter = get_emitter()
         trs = get_tracer()
         now = self.clock()
-        t_cut = trs.now()  # queue wait ends here, on the tracer's clock
         live: list[_Pending] = []
         for p in batch:
             waited = now - p.t_enqueued
@@ -427,6 +476,7 @@ class MicroBatcher:
                 self._request_row(p, "timeout", "none", waited, waited)
                 trs.record("serve.queue", start_s=p.t_trace, end_s=t_cut,
                            parent=p.ctx, stage="queue", n_rays=p.n_rays,
+                           behind_s=self._behind_s(p.t_trace, t_cut),
                            status="timeout")
             else:
                 live.append(p)
@@ -435,6 +485,7 @@ class MicroBatcher:
         for p in live:
             trs.record("serve.queue", start_s=p.t_trace, end_s=t_cut,
                        parent=p.ctx, stage="queue", n_rays=p.n_rays,
+                       behind_s=self._behind_s(p.t_trace, t_cut),
                        **({} if p.tenant is None else {"tenant": p.tenant}))
 
         # a single-tenant batch (the fair pop's usual cut) charges that
@@ -546,6 +597,10 @@ class MicroBatcher:
         t_done = self.clock()
         for p, (start, length) in zip(live, segments):
             t_sc = trs.now()
+            # the cut to this request's own slice: the batch's assembly and
+            # render, and the slices cut before its own
+            trs.record("serve.render", start_s=t_cut, end_s=t_sc,
+                       parent=p.ctx, stage="render", n_requests=len(live))
             sliced = {k: v[start:start + length] for k, v in out.items()}
             if stride > 1:
                 sliced = {k: np.repeat(v, stride, axis=0)[:p.n_rays]

@@ -87,7 +87,9 @@ lanes' full slots are the fixed working set the engine holds besides
 
 Each request dispatch passes the ``serve.dispatch`` fault point and runs
 under ``serve.dispatch`` (the host's part) and ``serve.device`` (the wait
-at the copy back) spans (``obs/trace.py``).
+at the copy back) spans (``obs/trace.py``). :meth:`RenderEngine.render_view`
+runs under ``serve.view`` (the whole call), with ``serve.rays`` (pose to
+rays) and ``serve.image`` (reply to image and cache put) inside it.
 """
 
 from __future__ import annotations
@@ -649,40 +651,48 @@ class RenderEngine:
         and render target."""
         from ..datasets.rays import get_rays_np
 
-        if self._is_default_scene(scene):
-            cache, scene = self.cache, None
-        else:
-            self.require_scene(scene)
-            cache = self.fleet.pose_cache(scene)
-        key = cache.key(c2w, H, W, focal)
-        t0 = time.perf_counter()
-        cached = cache.get(key)
-        if cached is not None:
-            image, served_tier = cached
-            # a hit does no device work, but it is a served request: the
-            # alert engine and the capacity ledger count it
-            fields = {} if scene is None else {"scene": str(scene)}
-            # graftlint: ok(emit-hot: cache-hit record, no device work at all)
-            get_emitter().emit(
-                "serve_request", latency_s=time.perf_counter() - t0,
-                n_rays=H * W, tier=served_tier, status="ok",
-                cache_hit=True, **fields)
-            return image, {"tier": served_tier, "cache_hit": True}
-        # graftlint: ok(host-sync: the pose arrives on the host)
-        rays_o, rays_d = get_rays_np(H, W, float(focal), np.asarray(c2w))
-        rays = np.concatenate([rays_o, rays_d], -1).reshape(-1, 6)
-        if via is not None:
-            out = via(rays, self.near, self.far)
-        else:
-            out = self.render_request(rays, self.near, self.far, tier=tier,
-                                      emit=True, scene=scene)
-        served_tier = out.get("tier", tier)
-        # the grid-less coarse tier renders coarse only
-        rgb_key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
-        # graftlint: ok(host-sync: render_flat returned host arrays)
-        rgb = np.clip(np.asarray(out[rgb_key]).reshape(H, W, 3), 0.0, 1.0)
-        image = (rgb * 255).astype(np.uint8)
-        cache.put(key, (image, served_tier))
+        trs = get_tracer()
+        # the view's span: the root of its trace, or a child of the HTTP
+        # handler's serve.request; the batcher's spans join it via submit
+        with trs.span("serve.view", n_rays=int(H) * int(W)):
+            if self._is_default_scene(scene):
+                cache, scene = self.cache, None
+            else:
+                self.require_scene(scene)
+                cache = self.fleet.pose_cache(scene)
+            key = cache.key(c2w, H, W, focal)
+            t0 = time.perf_counter()
+            cached = cache.get(key)
+            if cached is not None:
+                image, served_tier = cached
+                # a hit does no device work, but it is a served request:
+                # the alert engine and the capacity ledger count it
+                fields = {} if scene is None else {"scene": str(scene)}
+                # graftlint: ok(emit-hot: cache-hit record, no device work at all)
+                get_emitter().emit(
+                    "serve_request", latency_s=time.perf_counter() - t0,
+                    n_rays=H * W, tier=served_tier, status="ok",
+                    cache_hit=True, **fields)
+                return image, {"tier": served_tier, "cache_hit": True}
+            with trs.span("serve.rays", stage="rays"):
+                # graftlint: ok(host-sync: the pose arrives on the host)
+                pose = np.asarray(c2w)
+                rays_o, rays_d = get_rays_np(H, W, float(focal), pose)
+                rays = np.concatenate([rays_o, rays_d], -1).reshape(-1, 6)
+            if via is not None:
+                out = via(rays, self.near, self.far)
+            else:
+                out = self.render_request(rays, self.near, self.far,
+                                          tier=tier, emit=True, scene=scene)
+            with trs.span("serve.image", stage="image"):
+                served_tier = out.get("tier", tier)
+                # the grid-less coarse tier renders coarse only
+                rgb_key = "rgb_map_f" if "rgb_map_f" in out else "rgb_map_c"
+                # graftlint: ok(host-sync: render_flat returned host arrays)
+                rgb = np.clip(np.asarray(out[rgb_key]).reshape(H, W, 3),
+                              0.0, 1.0)
+                image = (rgb * 255).astype(np.uint8)
+                cache.put(key, (image, served_tier))
         return image, {"tier": served_tier, "cache_hit": False}
 
     # -- multi-scene residency (fleet/) ---------------------------------------

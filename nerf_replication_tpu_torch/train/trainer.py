@@ -92,6 +92,7 @@ from ..obs import (
     ProfileWindow,
     annotate,
     get_emitter,
+    get_tracer,
     init_run,
     sample_memory,
 )
@@ -308,17 +309,21 @@ class Trainer:
         """One optimization step: ``(state, stats)`` (stats stay tensors on
         the device; reading them is the caller's synchronisation). Replays
         the captured step when the registry has it; over a mesh, the
-        data-parallel step."""
+        data-parallel step. One process's step runs under a ``train.step``
+        span (its host part: the seed, lr and step count, the replay's
+        launch and the stats' copy; an eager step's launches)."""
         if self._dp is not None:
             stats = self._dp.one_step(state, bank_rays, bank_rgbs, index_pool)
             return state, stats
-        self._prepare(state, bank_rays.device)
-        fn = (None if self.aot is None
-              else self.aot.take(self._entry_name(index_pool is not None)))
-        if fn is not None:
-            stats = {k: v.clone() for k, v in fn().items()}
-        else:
-            stats = self._step_body(state, bank_rays, bank_rgbs, index_pool)
+        with get_tracer().span("train.step", step=state.step):
+            self._prepare(state, bank_rays.device)
+            fn = (None if self.aot is None
+                  else self.aot.take(self._entry_name(index_pool is not None)))
+            if fn is not None:
+                stats = {k: v.clone() for k, v in fn().items()}
+            else:
+                stats = self._step_body(state, bank_rays, bank_rgbs,
+                                        index_pool)
         state.step += 1
         return state, stats
 

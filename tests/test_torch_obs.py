@@ -75,14 +75,21 @@ def port_run(scene, tmp_path_factory):
     return cfg, _rows(os.path.join(cfg.record_dir, "telemetry.jsonl"))
 
 
+# optional fields the port's rows add to JAX's: the torch version, and the
+# span attributes of spans the JAX package has not (serve.queue's wait
+# behind other batches, train.step's step count)
+PORT_ONLY = {"run_meta": {"torch_version"}, "span": {"behind_s", "step"}}
+
+
 def test_row_kinds_equal_jax_except_torch_version():
     assert schema.SCHEMA_VERSION == jax_schema.SCHEMA_VERSION
     assert set(schema.ROW_KINDS) == set(jax_schema.ROW_KINDS)
     for kind, (req, opt) in schema.ROW_KINDS.items():
         jreq, jopt = jax_schema.ROW_KINDS[kind]
         assert req == jreq, kind
-        if kind == "run_meta":
-            opt = {k: v for k, v in opt.items() if k != "torch_version"}
+        extra = PORT_ONLY.get(kind, set())
+        assert extra <= set(opt) and not extra & set(jopt), kind
+        opt = {k: v for k, v in opt.items() if k not in extra}
         assert opt == jopt, kind
 
 

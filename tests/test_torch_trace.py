@@ -192,7 +192,8 @@ def test_batcher_spans_descend_from_the_submitting_request(telem):
     mine = [s for s in spans if s["trace_id"] == root.context.trace_id]
     by_id = {s["span_id"]: s for s in spans}
     assert {s["name"] for s in mine} == {
-        "serve.request", "serve.queue", "serve.batch", "serve.scatter"}
+        "serve.request", "serve.queue", "serve.batch", "serve.render",
+        "serve.scatter", "serve.handoff"}
     for s in mine:
         if s["name"] != "serve.request":  # each chain ends at the root
             p = s
