@@ -19,21 +19,43 @@
 // the FMAs of the same 8 warps. This design splits the work by what bounds
 // each part:
 //
-//  * K2a (`fused_mlp_bwd_rows_kernel`): one CTA per 64-row tile, as K1. It
-//    recomputes the tile forward (mlp_tile_forward's chain, in the compute
-//    type), runs the dX chain (relu masks from the recomputed activations,
-//    the float32 `dotT` products; dx/dv only when asked for) and writes
-//    every float32 operand the weight gradients need to a global scratch,
-//    one block per tile (GradScratch): the activations a_0 .. a_{D-1}, f,
-//    vh, the masked cotangents dz_0 .. dz_{D-1}, df, dvh, and the tile's x,
-//    v and draw (* valid), ~21.6 KB a row at lego width, written once, each
-//    tile by one bulk copy from shared memory as soon as it is there (per
-//    row copies, or stores from registers, stalled the chain); the relu
-//    masks the chain needs stay in shared memory as bits. Bound:
-//    operations (the recompute at the compute type's peak, the dX chain's
-//    float32 products). Under MASKED a tile with no valid row writes zero
-//    dx/dv rows and a 0 into its live flag, and skips its chain; every
-//    other tile writes a 1.
+//  * K2a (`fused_mlp_bwd_rows_kernel`): one CTA per 64-row tile on the
+//    Hopper chain of mlp_chain_sm90.cuh, the one K1 and K5 run: two
+//    consumer warpgroups each take half of every product's columns (the
+//    chain's kCols) with wgmma products, A from registers, while a producer
+//    warpgroup gives its registers to them and one of its threads streams
+//    the weights through a TMA ring of mbarrier stages (no consumer thread
+//    copies a weight, no CTA-wide barrier per slice). It recomputes the
+//    tile forward in the compute type — bf16 m64nNk16, or float32 as K1
+//    computes it (3xTF32 into IEEE sums, so its relu masks are K1's) —
+//    from pack_for_chain's image, keeping every activation in float32 for
+//    the scratch. Then it runs the dX chain, dz @ w^T for the forward's
+//    weights in reverse, as 3xTF32 wgmma products with the truncating split;
+//    each w^T is split and packed once a call on the host
+//    (ops/fused_mlp.pack_for_dx_chain) and streams after the forward's image
+//    through the same ring (a bf16 weight's TF32 low part is zero: the bf16
+//    family streams the high parts alone and reads the low one from zeros
+//    in shared memory, half the bytes). The epilogues run from the
+//    accumulators: bias, relu and the relu-mask bits (kept in shared memory
+//    for the dX chain), the masked dz, the alpha head's draw @ Wa^T on
+//    dz_{D-1}, dx / dv rows (only when asked for). It writes every float32
+//    operand the weight gradients need to a global scratch, one block per
+//    tile (GradScratch): the activations a_0 .. a_{D-1}, f, vh, the masked
+//    cotangents dz_0 .. dz_{D-1}, df, dvh, and the tile's x, v and draw (*
+//    valid), ~21.6 KB a row at lego width, written once, each tile by one
+//    bulk copy from shared memory as soon as it is there. One activation
+//    buffer, rewritten in place once both warpgroups' products and the copy
+//    of what it held have read it; the shared memory a second one would
+//    take goes to the ring.
+//    Bound: operations (the recompute at the compute type's peak, the dX
+//    chain's float32 products as three TF32 products), then the scratch
+//    bytes (22.6 GB a lego step at 3.35 TB/s, ~0.8 of the operations'
+//    time); the bulk copies overlap them with the products. Measured on the
+//    H100, the ring sets the pace: about one 8 KB stage per ~950 cycles of
+//    an SM, whether the stage feeds one bf16 product or three TF32 ones
+//    (PERF.md). Under MASKED a
+//    tile with no valid row writes zero dx/dv rows and a 0 into its live
+//    flag, and skips its chain; every other tile writes a 1.
 //  * K2b (`fused_mlp_bwd_dw_kernel`): dW = A^T Z and db = sum Z for every
 //    tensor of the flatten order, reduced over all rows of the chunk as
 //    long-K products. Grid (job, split): a job is one DW_T x DW_T tile of
@@ -51,17 +73,20 @@
 //
 // The float32 products of the dX chain and of K2b run as 3xTF32 on the
 // tensor cores: each float32 operand is split into a TF32 high part and a
-// remainder, and three mma.sync.m16n8k8 products (small terms first)
-// replace one float32 product, CUTLASS's OpMultiplyAddFastF32 scheme. On
-// the H100 that measured faster than float32 FMAs on the CUDA cores in both
-// places (PERF.md). Plain 1xTF32 (~3 digits) is not used: it is not the
-// float32 backward.
+// remainder (chain::split_trunc), and three products (small terms first)
+// replace one float32 product, CUTLASS's OpMultiplyAddFastF32 scheme: K2a's
+// with wgmma m64nNk8, K2b's with mma.sync.m16n8k8. On the H100 that
+// measured faster than float32 FMAs on the CUDA cores (PERF.md). Plain
+// 1xTF32 (~3 digits) is not used: it is not the float32 backward.
 //
 // No atomics: every sum runs in a fixed order, so two calls on the same
 // inputs give bitwise-equal gradients. The host (ops/fused_mlp.
 // mlp_backward) splits the rows into chunks of at most MAX_CHUNK_TILES
 // tiles (the scratch holds one chunk: 2.8 GB at lego width), runs K2a + K2b
 // per chunk into its own partials, and reduces once.
+#include <type_traits>
+
+#include "mlp_chain_sm90.cuh"
 #include "mlp_rows.cuh"
 
 namespace {
@@ -83,29 +108,6 @@ struct ParamOffsets {
   long long total;
   long long off[MAX_PARAMS];
 };
-
-// indices into ParamOffsets of one configuration
-struct ParamIndex {
-  int w0, b0, wa, ba, wf, bf, wvf, wvv, bv, wr, br;
-};
-
-__host__ __device__ inline ParamIndex param_index(const MlpDesc& md) {
-  int n = 2;
-  for (int i = 1; i < md.D; ++i) n += (i == md.skip + 1) ? 3 : 2;
-  ParamIndex p;
-  p.w0 = 0;
-  p.b0 = 1;
-  p.wa = n;
-  p.ba = n + 1;
-  p.wf = n + 2;
-  p.bf = n + 3;
-  p.wvf = n + 4;
-  p.wvv = n + 5;
-  p.bv = n + 6;
-  p.wr = n + 7;
-  p.br = n + 8;
-  return p;
-}
 
 ParamOffsets param_offsets(const MlpDesc& md) {
   const long long W = md.W, W2 = md.W / 2, cin = md.c_in_pad,
@@ -251,28 +253,9 @@ __host__ __device__ inline TilePicker pick_tile(const MlpDesc& md, int want) {
   return t;
 }
 
-// -- 3xTF32 on the tensor cores --------------------------------------------
-
-// x = hi + lo: hi is x truncated to TF32 (its low 13 mantissa bits
-// cleared), lo = x - hi exactly (|lo| < 2^-10 |x|); the tensor core reads
-// lo's TF32 part (it ignores the low 13 bits), so hi + lo keeps ~21 bits of
-// x. Two instructions, where rounding each part (cvt.rna) takes several.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // -- K2a ----------------------------------------------------------------------
+
+using namespace chain;
 
 // words of the relu-mask bits of one [MLP_M, W] activation: word (row,
 // col / 32), bit col % 32, set when the activation is > 0
@@ -280,129 +263,157 @@ __host__ __device__ inline int mask_words(const MlpDesc& md) {
   return MLP_M * (md.W / 32);
 }
 
-// K2a's shared memory: K1's tile, then the mask bits of the D trunk outputs
-__host__ __device__ inline size_t rows_smem_bytes(const MlpDesc& md) {
-  return tile_smem_bytes(md) +
-         static_cast<size_t>(md.D) * mask_words(md) * sizeof(uint32_t);
-}
-
-bool rows_shape_ok(const MlpDesc& md) {
-  return shape_ok(md) && rows_smem_bytes(md) <= 232448;
-}
-
-// Copies `floats` contiguous floats of shared memory (a whole tile, pads
-// included) to the scratch through the bulk-copy engine: asynchronous, no
-// registers or load/store slots of the chain. All threads call it after
-// writing the tile: each fences its shared writes for the async proxy, a
-// barrier, then thread 0 issues one copy as one bulk group. floats * 4 is a
-// multiple of 16.
-__device__ __forceinline__ void save_tile(float* g, const float* src,
-                                          long long floats) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
-            "l"(g), "r"(s), "r"(static_cast<unsigned>(floats * 4))
-        : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  }
-}
-
-// waits until at most N of the latest save_tile copies still read shared
-// memory, then a barrier: the tiles of the older ones may be overwritten
-template <int N>
-__device__ __forceinline__ void saved_read() {
-  if (threadIdx.x == 0)
-    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-  __syncthreads();
-}
-
-// the relu-mask bits of a shared [MLP_M, W] activation (pitch ld); after a
-// barrier that made the rows visible
-__device__ __forceinline__ void relu_bits(const float* act, int ld, int W,
-                                          uint32_t* bits) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wpr = W / 32;
-  for (int q = warp; q < MLP_M * wpr; q += MLP_WARPS) {
-    const int row = q / wpr, c = q - row * wpr;
-    const unsigned b =
-        __ballot_sync(0xffffffffu, act[row * ld + 32 * c + lane] > 0.0f);
-    if (lane == 0) bits[q] = b;
-  }
-}
-
-// mlp_tile_forward (mlp_tile.cuh) with the backward's saves: each
-// activation leaves for the scratch by save_tile as soon as it is in shared
-// memory (slot s at save + s * slot_floats: the D trunk outputs, the
-// feature, the views branch), the relu-mask bits of the trunk outputs stay
-// in shared memory, and a buffer is overwritten only once its copy has read
-// it. Returns the buffer that holds vh; the other one holds f.
+// K2a's shared memory before the ring: the activation buffer H [MLP_M, W],
+// x, v and draw of the tile (each at its scratch pitch, so that one bulk
+// copy moves a tile), the D relu-mask tiles, and for the bf16 family the
+// zero part its dX chain reads as B's low part (32 W bytes)
 template <typename CT>
-__device__ float* forward_saving(const MlpDesc& md, const CT* __restrict__ ws,
-                                 const float* __restrict__ wh,
-                                 const float* xs, const float* vs, float* hA,
-                                 float* hB, float* wst, float* raw,
-                                 float* save, uint32_t* bits) {
-  const int W = md.W, W2 = md.W / 2, cin = md.c_in_pad, cvp = md.c_views_pad;
-  const int ldh = W + MLP_PAD, ldx = cin + MLP_PAD, ldv = cvp + MLP_PAD;
-  const CT* p = ws;
-  TileAcc<CT> acc;
-  const long long tile = slot_floats(md);
-  auto slot = [&](int s) { return save + s * tile; };
+__host__ __device__ inline size_t rows_fixed_bytes(const MlpDesc& md) {
+  const size_t floats =
+      static_cast<size_t>(MLP_M) * ((md.W + MLP_PAD) +
+                                    (md.c_in_pad + MLP_PAD) +
+                                    (md.c_views_pad + MLP_PAD) + 8) +
+      static_cast<size_t>(md.D) * mask_words(md) +
+      (kDxParts<CT> == 1 ? 8 * md.W : 0);
+  return (floats * 4 + 127) / 128 * 128;
+}
+template <typename CT>
+int rows_stages(const MlpDesc& md) {
+  const long long room = 232448 -
+                         static_cast<long long>(rows_fixed_bytes<CT>(md)) -
+                         2 * CH_MAX_STAGES * 8;
+  const long long fit = room / CH_STAGE_BYTES;
+  return static_cast<int>(fit < CH_MAX_STAGES ? fit : CH_MAX_STAGES);
+}
+// whether the ring holds a whole group of the dX chain's widest product
+// (all its parts are waited for before its first product) and the
+// recompute's CH_MIN_STAGES
+template <typename CT>
+bool rows_ring_ok(const MlpDesc& md) {
+  const int group = kDxGroup * kDxParts<CT> * 32 * md.W / CH_STAGE_BYTES;
+  return rows_stages<CT>(md) >= max(CH_MIN_STAGES, group);
+}
 
-  zero_acc(acc.v);
-  gemm_acc(acc.v, xs, ldx, cin, p, W, wst);
-  p += static_cast<size_t>(cin) * W;
-  store_act(acc.v, p, W, true, hA, ldh);
-  p += W;
-  save_tile(slot(0), hA, tile);
-  relu_bits(hA, ldh, W, bits);
-  float* cur = hA;
-  float* nxt = hB;
-  for (int i = 1; i < md.D; ++i) {
-    zero_acc(acc.v);
-    if (i == md.skip + 1) {
-      gemm_acc(acc.v, xs, ldx, cin, p, W, wst);
-      p += static_cast<size_t>(cin) * W;
-    }
-    gemm_acc(acc.v, cur, ldh, W, p, W, wst);
-    p += static_cast<size_t>(W) * W;
-    saved_read<1>();  // nxt's copy, two saves back
-    store_act(acc.v, p, W, true, nxt, ldh);
-    p += W;
-    save_tile(slot(i), nxt, tile);
-    relu_bits(nxt, ldh, W, bits + i * mask_words(md));
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+// K2a's shapes: the chain's with D >= 2, and x / v widths whose dx / dv
+// column halves are products of the chain (c_in_pad 32 or 64, c_views_pad
+// 32), with a ring beside the buffers that rows_ring_ok takes (every D the
+// chain takes: 14 stages float32, 13 bf16 at lego's shape)
+bool rows_shape_ok(const MlpDesc& md) {
+  return chain_shape_ok(md) && md.D >= 2 && md.c_in_pad % 32 == 0 &&
+         md.c_views_pad == 32 && rows_ring_ok<float>(md) &&
+         rows_ring_ok<__nv_bfloat16>(md);
+}
+
+// barrier among the consumers after each wrote its part of a tile in
+// shared memory, with its writes fenced for the async proxy (the bulk copy)
+__device__ __forceinline__ void publish() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+}
+// thread 0: `floats` (a multiple of 4) contiguous floats of shared memory
+// to global memory through the bulk-copy engine, in the open bulk group
+__device__ __forceinline__ void bulk_store(float* g, const float* src,
+                                           long long floats) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(g),
+      "r"(smem_u32(src)), "r"(static_cast<unsigned>(floats * 4))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// before a write of H: every bulk copy has read its source, and both
+// warpgroups' products have read H
+__device__ __forceinline__ void copies_read() {
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  consumers_sync();
+}
+
+// dst[r, 0:C] (pitch C + MLP_PAD) = src[row0 + r, 0:C] for the MLP_M rows
+// (zeros past m); the consumers' 256 threads
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int C,
+                                          int row0, int m) {
+  const int c4 = C / 4;
+  for (int e = threadIdx.x; e < MLP_M * c4; e += CH_CONSUMERS) {
+    const int r = e / c4, q = e - r * c4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < m)
+      val = *reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(row0 + r) * C + 4 * q);
+    *reinterpret_cast<float4*>(dst + r * (C + MLP_PAD) + 4 * q) = val;
   }
-  // alpha head: column 3 of Wa / ba (save_tile's barrier made cur complete)
-  head_f32(cur, ldh, W, wh, wh + W * 8, 3, 1, 3, raw);
-  // feature (no activation) into nxt
-  zero_acc(acc.v);
-  gemm_acc(acc.v, cur, ldh, W, p, W, wst);
-  p += static_cast<size_t>(W) * W;
-  saved_read<1>();
-  store_act(acc.v, p, W, false, nxt, ldh);
-  p += W;
-  save_tile(slot(md.D), nxt, tile);
-  // views: relu(f @ Wvf + v @ Wvv + bv) into cur (the trunk output is dead:
-  // gemm_acc's barriers order the alpha head's reads before these writes)
-  zero_acc(acc.v);
-  gemm_acc(acc.v, nxt, ldh, W, p, W2, wst);
-  p += static_cast<size_t>(W) * W2;
-  gemm_acc(acc.v, vs, ldv, cvp, p, W2, wst);
-  p += static_cast<size_t>(cvp) * W2;
-  saved_read<1>();
-  store_act(acc.v, p, W2, true, cur, ldh);
-  save_tile(slot(md.D + 1), cur, tile);
-  // rgb head: columns 0-2 of Wr / br
-  const float* wr = wh + W * 8 + 8;
-  head_f32(cur, ldh, W2, wr, wr + W2 * 8, 0, 3, 0, raw);
-  __syncthreads();
-  return cur;
+}
+
+// zero rows row0 .. row0 + MLP_M (those below m) of a global [M, C] array
+__device__ __forceinline__ void zero_rows(float* __restrict__ out, int C,
+                                          int row0, int m) {
+  for (int e = threadIdx.x; e < MLP_M * C; e += blockDim.x)
+    if (row0 + e / C < m) out[static_cast<size_t>(row0) * C + e] = 0.0f;
+}
+
+// The recompute's product in the compute type: float32 as K1 (3xTF32 into
+// IEEE sums), bf16 from the float32 activations
+template <typename CT, int NC>
+__device__ __forceinline__ void fwd_gemm(float (&acc)[NC / 2], const float* A,
+                                         int lda, int K, int N, int col0,
+                                         bool accumulate, const Ring& r,
+                                         RingPos& pos) {
+  if constexpr (std::is_same<CT, float>::value)
+    chain_gemm<float, NC, true>(acc, A, lda, K, N, col0, accumulate, r, pos);
+  else
+    bwd_gemm<false, NC>(acc, A, lda, K, N, col0, accumulate, 0, r, pos);
+}
+
+// An activation from the accumulator: v = acc + bias (relu'd when asked)
+// into H at this warpgroup's columns, and with kBits its relu-mask words
+// into `bits` (the four lanes of a row hold 8 bits of a word each j-group
+// of four; NC a multiple of 32).
+template <int NC, bool kBits>
+__device__ __forceinline__ void act_epilogue(const float (&acc)[NC / 2],
+                                             const float* __restrict__ bias,
+                                             int col0, bool relu, float* H,
+                                             int ldh, uint32_t* bits,
+                                             int wpr) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+  constexpr int kWords = kBits ? NC / 32 : 1;
+  uint32_t w[2][kWords];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) w[h][q] = 0u;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
+    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h] + b0;
+      float v1 = acc[4 * j + 2 * h + 1] + b1;
+      if (relu) {
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+      }
+      store2(H + (r0 + 8 * h) * ldh + col, v0, v1);
+      if constexpr (kBits)
+        w[h][j / 4] |= (static_cast<uint32_t>(v0 > 0.0f) |
+                        (static_cast<uint32_t>(v1 > 0.0f) << 1))
+                       << (8 * (j % 4) + 2 * t);
+    }
+  }
+  if constexpr (kBits) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < kWords; ++q) {
+        uint32_t b = w[h][q];
+        b |= __shfl_xor_sync(0xffffffffu, b, 1);
+        b |= __shfl_xor_sync(0xffffffffu, b, 2);
+        if (t == 0) bits[(r0 + 8 * h) * wpr + col0 / 32 + q] = b;
+      }
+  }
 }
 
 struct NoExtra {
@@ -411,274 +422,295 @@ struct NoExtra {
   }
 };
 
-// the relu-mask bits of `n` columns from col (within one word) of a row;
-// all set without a mask
-__device__ __forceinline__ unsigned row_bits(const uint32_t* bits, int wpr,
-                                             int row, int col, int n) {
-  if (bits == nullptr) return (1u << n) - 1u;
-  return (bits[row * wpr + (col >> 5)] >> (col & 31)) & ((1u << n) - 1u);
+// A cotangent from the accumulator: extra(row, col, acc), zeroed where the
+// relu-mask bit is clear (no mask: `bits` null), into H
+template <int NC, typename Extra>
+__device__ __forceinline__ void dz_epilogue(const float (&acc)[NC / 2],
+                                            int col0, const uint32_t* bits,
+                                            int wpr, float* H, int ldh,
+                                            Extra extra) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h;
+      float v0 = extra(row, col, acc[4 * j + 2 * h]);
+      float v1 = extra(row, col + 1, acc[4 * j + 2 * h + 1]);
+      if (bits != nullptr) {
+        const unsigned keep = bits[row * wpr + (col >> 5)] >> (col & 31);
+        if (!(keep & 1u)) v0 = 0.0f;
+        if (!(keep & 2u)) v1 = 0.0f;
+      }
+      store2(H + row * ldh + col, v0, v1);
+    }
+  }
 }
 
-// The dX chain's products, dotT(dz, w) = dz @ w^T as
-// acc = A[0:64, 0:K] @ Wg[0:K, 0:N] (Wg = w^T row-major, global), in
-// 3xTF32, with their epilogues: store_dz (shared, relu mask, an extra term)
-// and store_rows (dx / dv rows in global memory). Warp w owns rows
-// 32(w & 1) .. +31 (2 m16 tiles) and columns 64(w >> 1) .. +63 (8 n8 tiles)
-// of the [64, N] product. Weight slices [MLP_KS][N] are staged with
-// cp.async at pitch N + 8 (conflict-free B fragments; A's pitch W + MLP_PAD
-// is 8 mod 32 as well), two buffers in the staging region, as gemm_acc does
-// (four buffers, three slices ahead, measured no faster on the H100).
-struct DxTf32x3 {
-  float acc[2][8][4];
-  __device__ __forceinline__ void gemm(const float* A, int lda, int K,
-                                       const float* __restrict__ Wg, int N,
-                                       float* wst) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = 32 * (warp & 1), c0 = 64 * (warp >> 1);
-    const bool active = c0 < N;  // warp-uniform
-    const int ldb = N + 8, n4 = N / 4, ns = K / MLP_KS;
+// dx / dv rows from the accumulator (those below m) into out [M, N];
+// `add` adds them to what the same thread wrote there before
+template <int NC>
+__device__ __forceinline__ void store_rows(const float (&acc)[NC / 2],
+                                           int col0, int N,
+                                           float* __restrict__ out, int row0,
+                                           int m, bool add) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < NC / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
-    auto stage = [&](int s) {
-      float* dst = wst + (s & 1) * MLP_KS * ldb;
-      const float* src = Wg + static_cast<size_t>(s) * MLP_KS * N;
-      for (int e = threadIdx.x; e < MLP_KS * n4; e += MLP_THREADS) {
-        const int r = e / n4, q = e - r * n4;
-        cp_async16(dst + r * ldb + 4 * q, src + r * N + 4 * q);
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * warp + g + 8 * h;
+      if (row >= m) continue;
+      float2* dst =
+          reinterpret_cast<float2*>(out + static_cast<size_t>(row) * N + col);
+      float2 val = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (add) {
+        const float2 old = *dst;
+        val.x = old.x + val.x;
+        val.y = old.y + val.y;
       }
-      cp_async_commit();
-    };
-    stage(0);
-    for (int s = 0; s < ns; ++s) {
-      if (s + 1 < ns) {
-        stage(s + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // slice s (and the caller's A) visible to all
-      const float* bs = wst + (s & 1) * MLP_KS * ldb;
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < MLP_KS; kk += 8) {
-          uint32_t ah[2][4], al[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float* ap =
-                A + (r0 + 16 * i + g) * lda + s * MLP_KS + kk + t;
-            split_tf32(ap[0], ah[i][0], al[i][0]);            // (g, t)
-            split_tf32(ap[8 * lda], ah[i][1], al[i][1]);      // (g + 8, t)
-            split_tf32(ap[4], ah[i][2], al[i][2]);            // (g, t + 4)
-            split_tf32(ap[8 * lda + 4], ah[i][3], al[i][3]);  // (g+8, t+4)
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int n = c0 + 8 * j;
-            if (n >= N) break;
-            const float* bp = bs + (kk + t) * ldb + n + g;
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(bp[0], bh0, bl0);
-            split_tf32(bp[4 * ldb], bh1, bl1);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              mma_tf32(acc[i][j], al[i], bh0, bh1);
-              mma_tf32(acc[i][j], ah[i], bl0, bl1);
-              mma_tf32(acc[i][j], ah[i], bh0, bh1);
-            }
-          }
-        }
-      }
-      __syncthreads();  // buffer s & 1 is free for slice s + 2
+      *dst = val;
     }
   }
-  template <typename Extra>
-  __device__ __forceinline__ void store_dz(int N, const uint32_t* bits,
-                                           int wpr, float* out, int ldo,
-                                           Extra extra) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r0 = 32 * (warp & 1) + (lane >> 2), c0 = 64 * (warp >> 1);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + 8 * j + 2 * (lane & 3);
-      if (col >= N) break;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = r0 + 16 * i + 8 * h;
-          const unsigned keep = row_bits(bits, wpr, row, col, 2);
-          float v0 = extra(row, col, acc[i][j][2 * h]);
-          float v1 = extra(row, col + 1, acc[i][j][2 * h + 1]);
-          if (!(keep & 1u)) v0 = 0.0f;
-          if (!(keep & 2u)) v1 = 0.0f;
-          *reinterpret_cast<float2*>(out + row * ldo + col) =
-              make_float2(v0, v1);
-        }
-      }
-    }
-  }
-  __device__ __forceinline__ void store_rows(int N, float* __restrict__ out,
-                                             int row0, int m,
-                                             bool add) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r0 = 32 * (warp & 1) + (lane >> 2), c0 = 64 * (warp >> 1);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = c0 + 8 * j + 2 * (lane & 3);
-      if (col >= N) break;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + r0 + 16 * i + 8 * h;
-          if (row >= m) continue;
-          float2* dst = reinterpret_cast<float2*>(
-              out + static_cast<size_t>(row) * N + col);
-          float2 val = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-          if (add) {
-            const float2 old = *dst;
-            val.x = old.x + val.x;
-            val.y = old.y + val.y;
-          }
-          *dst = val;
-        }
-      }
-    }
-  }
-};
+}
 
-// K2a (MASKED = false, valid unused) and its K3b twin (MASKED = true). wt:
-// every tensor of the flatten order as float32, 2-D ones transposed to
-// [out, in] (the B operand of `dotT`); scratch: one GradScratch block per
-// tile of this chunk, written only by bulk copies from shared memory; live:
-// one flag per tile. Two shared [MLP_M, W] buffers alternate: each product
-// writes the one whose copy is the older, after saved_read<1>.
-template <typename CT, bool MASKED>
-__global__ void __launch_bounds__(MLP_THREADS, 1)
+// out rows = A (H, the tile's dz or dvh, K wide) @ the next product of the
+// stream (K x N: dx or dv), each warpgroup half of the N columns
+template <int NH>
+__device__ __forceinline__ void rows_product(const float* A, int lda, int K,
+                                             int N, float* out, int row0,
+                                             int m, bool add, uint32_t zero_lo,
+                                             const Ring& r, RingPos& pos) {
+  const int col0 = (threadIdx.x >> 7) * NH;
+  float acc[NH / 2];
+  bwd_gemm<true, NH>(acc, A, lda, K, N, col0, false, zero_lo, r, pos);
+  store_rows<NH>(acc, col0, N, out, row0, m, add);
+}
+__device__ __forceinline__ void dx_product(const float* A, int lda, int K,
+                                           int N, float* out, int row0, int m,
+                                           bool add, uint32_t zero_lo,
+                                           const Ring& r, RingPos& pos) {
+  if (N == 64)
+    rows_product<32>(A, lda, K, N, out, row0, m, add, zero_lo, r, pos);
+  else
+    rows_product<16>(A, lda, K, N, out, row0, m, add, zero_lo, r, pos);
+}
+
+// K2a (MASKED = false, valid unused) and its K3b twin (MASKED = true), for
+// a width W. wmat / bias / wh: pack_for_chain's weight image, biases and
+// float32 heads; wdx: pack_for_dx_chain's image; scratch: one GradScratch
+// block per tile of this chunk, written only by bulk copies from shared
+// memory; live: one flag per tile. The consumers' warpgroup wg takes
+// columns [wg W/2, (wg + 1) W/2) of every W-wide product (W/4 of the views),
+// half of dx's and dv's.
+template <typename CT, int W, bool MASKED>
+__global__ void __launch_bounds__(CH_THREADS_WS, 1)
     fused_mlp_bwd_rows_kernel(const float* __restrict__ x,
                               const float* __restrict__ v,
                               const float* __restrict__ valid,
                               const float* __restrict__ draw, int m,
-                              MlpDesc md, const CT* __restrict__ ws,
+                              MlpDesc md,
+                              const unsigned char* __restrict__ wmat,
+                              const float* __restrict__ bias,
                               const float* __restrict__ wh,
-                              const float* __restrict__ wt, ParamOffsets po,
-                              float* __restrict__ scratch,
+                              const unsigned char* __restrict__ wdx,
+                              int n_stages, float* __restrict__ scratch,
                               int* __restrict__ live, float* __restrict__ dx,
                               float* __restrict__ dv) {
-  extern __shared__ __align__(16) float smem[];
-  const TileSmem s = carve(smem, md);
-  uint32_t* bits = reinterpret_cast<uint32_t*>(smem) + tile_smem_bytes(md) / 4;
-  const int W = md.W, W2 = md.W / 2, cin = md.c_in_pad, cvp = md.c_views_pad;
-  const int ldh = W + MLP_PAD, ldx = cin + MLP_PAD, ldv = cvp + MLP_PAD;
-  const int wpr = W / 32;
-  const ParamIndex ix = param_index(md);
-  const GradScratch gs = grad_scratch(md);
+  constexpr int W2 = W / 2, NC = W / 2, NV = W / 4;
+  constexpr int ldh = W + MLP_PAD, wpr = W / 32;
+  const int cin = md.c_in_pad, cvp = md.c_views_pad;
+  const int ldx = cin + MLP_PAD, ldv = cvp + MLP_PAD;
+  extern __shared__ __align__(128) unsigned char rows_smem[];
+  float* H = reinterpret_cast<float*>(rows_smem);
+  float* xs = H + MLP_M * ldh;
+  float* vs = xs + MLP_M * ldx;
+  float* d8 = vs + MLP_M * ldv;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(d8 + MLP_M * 8);
+  float* zeros = reinterpret_cast<float*>(bits + md.D * mask_words(md));
+  unsigned char* ring_mem = rows_smem + rows_fixed_bytes<CT>(md);
+  Ring ring{reinterpret_cast<uint64_t*>(ring_mem + n_stages * CH_STAGE_BYTES),
+            nullptr, smem_u32(ring_mem), n_stages};
+  ring.empty = ring.full + n_stages;
+
+  const int tid = threadIdx.x;
   const int tile_id = blockIdx.x, row0 = tile_id * MLP_M;
-  if (MASKED && !tile_has_valid(valid, row0, m)) {
-    // a dead tile: zero dx/dv rows, nothing into the scratch
-    if (dx != nullptr) zero_rows(dx, cin, row0, m);
-    if (dv != nullptr) zero_rows(dv, cvp, row0, m);
-    if (threadIdx.x == 0) live[tile_id] = 0;
+  if (MASKED) {
+    const bool mine =
+        tid < MLP_M && row0 + tid < m && valid[row0 + tid] != 0.0f;
+    if (!__syncthreads_or(mine)) {  // block-uniform: a dead tile
+      if (dx != nullptr) zero_rows(dx, cin, row0, m);
+      if (dv != nullptr) zero_rows(dv, cvp, row0, m);
+      if (tid == 0) live[tile_id] = 0;
+      return;
+    }
+  }
+  if (tid == 0) {
+    live[tile_id] = 1;
+    ring_init(ring);
+  }
+  __syncthreads();
+  RingPos pos;
+  if (tid >= CH_CONSUMERS) {  // the producer warpgroup: one thread copies
+    producer_regs();
+    if (tid == CH_CONSUMERS)
+      produce_backward<CT>(md, wmat, wdx, dx != nullptr, dv != nullptr, ring,
+                           pos);
     return;
   }
-  if (threadIdx.x == 0) live[tile_id] = 1;
+  consumer_regs();
+  const int wg = tid >> 7;
+  const int col0 = wg * NC, colv0 = wg * NV;
+  const GradScratch gs = grad_scratch(md);
   float* blk = scratch + static_cast<long long>(tile_id) * gs.tile;
-  const long long tile = slot_floats(md);
-  auto dzs = [&](int i) { return blk + gs.dz + i * tile; };
-  const float* wa = wh;              // [W, 8]
-  const float* wr = wh + W * 8 + 8;  // [W2, 8]
-  DxTf32x3 p;  // the dX chain's products
+  const long long slot = slot_floats(md);
+  // H's tile written: fence, barrier, its copy to `dst` as one bulk group
+  auto save_h = [&](float* dst) {
+    publish();
+    if (tid == 0) {
+      bulk_store(dst, H, slot);
+      bulk_commit();
+    }
+  };
 
-  load_rows(s.xs, x, cin, row0, m);
-  load_rows(s.vs, v, cvp, row0, m);
-  for (int e = threadIdx.x; e < MLP_M * 8; e += MLP_THREADS) {
+  // B's low part of the bf16 family's dX chain (32 W zero bytes)
+  constexpr bool kZeroLo = kDxParts<CT> == 1;
+  const uint32_t zero_lo = kZeroLo ? smem_u32(zeros) : 0u;
+  if constexpr (kZeroLo)
+    for (int e = tid; e < 8 * W; e += CH_CONSUMERS) zeros[e] = 0.0f;
+  load_rows(xs, x, cin, row0, m);
+  load_rows(vs, v, cvp, row0, m);
+  for (int e = tid; e < MLP_M * 8; e += CH_CONSUMERS) {
     const int r = e >> 3;
     float d = row0 + r < m ? draw[static_cast<size_t>(row0) * 8 + e] : 0.0f;
     if (MASKED && row0 + r < m) d = d * valid[row0 + r];  // draw * valid
-    s.d8[e] = d;
+    d8[e] = d;
   }
-  save_tile(blk + gs.x, s.xs, MLP_M * ldx);
-  save_tile(blk + gs.v, s.vs, MLP_M * ldv);
-  save_tile(blk + gs.d8, s.d8, MLP_M * 8);
-  // recompute: every activation leaves for the scratch; X holds vh, Y f
-  float* X = forward_saving<CT>(md, ws, wh, s.xs, s.vs, s.b1, s.b2, s.wst,
-                                s.raw, blk + gs.act, bits);
-  float* Y = X == s.b1 ? s.b2 : s.b1;
-
-  // rgb head: dvh = (draw @ Wr^T) * (vh > 0) into Y (f's copy has read it)
-  saved_read<1>();
-  for (int e = threadIdx.x; e < MLP_M * W2; e += MLP_THREADS) {
-    const int r = e / W2, k = e - r * W2;
-    float t = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) t = fmaf(s.d8[r * 8 + c], wr[k * 8 + c], t);
-    Y[r * ldh + k] = X[r * ldh + k] > 0.0f ? t : 0.0f;
+  publish();
+  if (tid == 0) {
+    bulk_store(blk + gs.x, xs, MLP_M * ldx);
+    bulk_store(blk + gs.v, vs, MLP_M * ldv);
+    bulk_store(blk + gs.d8, d8, MLP_M * 8);
+    bulk_commit();
   }
-  save_tile(blk + gs.dvh, Y, tile);
 
-  // views branch: dv = dvh @ Wvv^T, df = dvh @ Wvf^T into X
-  if (dv != nullptr) {
-    p.gemm(Y, ldh, W2, wt + po.off[ix.wvv], cvp, s.wst);
-    p.store_rows(cvp, dv, row0, m, false);
-  }
-  p.gemm(Y, ldh, W2, wt + po.off[ix.wvf], W, s.wst);
-  saved_read<1>();
-  p.store_dz(W, nullptr, 0, X, ldh, NoExtra());
-  save_tile(blk + gs.df, X, tile);
-
-  // feature + alpha heads: dz_{D-1} = (df @ Wf^T + draw @ Wa^T) masked by
-  // the last trunk relu, into Y
-  p.gemm(X, ldh, W, wt + po.off[ix.wf], W, s.wst);
-  saved_read<1>();
-  {
-    const float* d8 = s.d8;
-    p.store_dz(W, bits + (md.D - 1) * mask_words(md), wpr, Y, ldh,
-               [d8, wa](int row, int col, float a) {
-                 float t = 0.0f;
-#pragma unroll
-                 for (int c = 0; c < 8; ++c)
-                   t = fmaf(d8[row * 8 + c], wa[col * 8 + c], t);
-                 return a + t;
-               });
-  }
-  save_tile(dzs(md.D - 1), Y, tile);
-
-  // trunk in reverse: `cur` holds dz_i, dz_{i-1} goes to the other buffer
-  float* cur = Y;
-  float* nxt = X;
-  int pi = po.n - 9;  // one past the last trunk tensor
-  for (int i = md.D - 1; i >= 1; --i) {
-    const bool skip = i == md.skip + 1;
-    const int i_w = pi - 2, i_wx = skip ? pi - 3 : -1;
-    pi -= skip ? 3 : 2;
-    if (skip && dx != nullptr) {
-      p.gemm(cur, ldh, W, wt + po.off[i_wx], cin, s.wst);
-      p.store_rows(cin, dx, row0, m, false);
+  // the recompute: every activation into H in place, then to the scratch
+  float acc[NC / 2];
+  const float* b = bias;
+  fwd_gemm<CT, NC>(acc, xs, ldx, cin, W, col0, false, ring, pos);
+  copies_read();
+  act_epilogue<NC, true>(acc, b, col0, true, H, ldh, bits, wpr);
+  save_h(blk + gs.act);
+  b += W;
+  for (int i = 1; i < md.D; ++i) {
+    if (i == md.skip + 1) {
+      fwd_gemm<CT, NC>(acc, xs, ldx, cin, W, col0, false, ring, pos);
+      fwd_gemm<CT, NC>(acc, H, ldh, W, W, col0, true, ring, pos);
+    } else {
+      fwd_gemm<CT, NC>(acc, H, ldh, W, W, col0, false, ring, pos);
     }
-    p.gemm(cur, ldh, W, wt + po.off[i_w], W, s.wst);
-    saved_read<1>();
-    p.store_dz(W, bits + (i - 1) * mask_words(md), wpr, nxt, ldh, NoExtra());
-    save_tile(dzs(i - 1), nxt, tile);
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    copies_read();
+    act_epilogue<NC, true>(acc, b, col0, true, H, ldh,
+                           bits + i * mask_words(md), wpr);
+    save_h(blk + gs.act + i * slot);
+    b += W;
   }
-  // first layer: dx += dz0 @ W0^T
-  if (dx != nullptr) {
-    p.gemm(cur, ldh, W, wt + po.off[ix.w0], cin, s.wst);
-    p.store_rows(cin, dx, row0, m, md.skip >= 0);
+  // the feature (no activation)
+  fwd_gemm<CT, NC>(acc, H, ldh, W, W, col0, false, ring, pos);
+  copies_read();
+  act_epilogue<NC, false>(acc, b, col0, false, H, ldh, nullptr, wpr);
+  save_h(blk + gs.act + md.D * slot);
+  b += W;
+  // the views, vh = relu(f @ Wvf + v @ Wvv + bv), and from it the rgb
+  // head's cotangent dvh = (draw @ Wr^T) * (vh > 0), kept in registers
+  float dvh[NV / 2];
+  {
+    float accv[NV / 2];
+    fwd_gemm<CT, NV>(accv, H, ldh, W, W2, colv0, false, ring, pos);
+    fwd_gemm<CT, NV>(accv, vs, ldv, cvp, W2, colv0, true, ring, pos);
+    copies_read();
+    act_epilogue<NV, false>(accv, b, colv0, true, H, ldh, nullptr,
+                           wpr);
+    const float* wr = wh + W * 8 + 8;  // [W2, 8]
+    const int lane = tid & 31, r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int row = r0 + 8 * h, col = colv0 + 8 * j + 2 * (lane & 3) + c2;
+          float s = 0.0f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            s = fmaf(d8[row * 8 + c], __ldg(wr + col * 8 + c), s);
+          const int e = 4 * j + 2 * h + c2;
+          dvh[e] = accv[e] + __ldg(b + col) > 0.0f ? s : 0.0f;
+        }
+      }
+    }
   }
+  save_h(blk + gs.act + (md.D + 1) * slot);
+  copies_read();
+  dz_epilogue<NV>(dvh, colv0, nullptr, wpr, H, ldh, NoExtra());
+  save_h(blk + gs.dvh);
+
+  // the dX chain: dv = dvh @ Wvv^T, df = dvh @ Wvf^T
+  if (dv != nullptr)
+    rows_product<16>(H, ldh, W2, cvp, dv, row0, m, false, zero_lo, ring,
+                     pos);
+  bwd_gemm<true, NC>(acc, H, ldh, W2, W, col0, false, zero_lo, ring, pos);
+  copies_read();
+  dz_epilogue<NC>(acc, col0, nullptr, wpr, H, ldh, NoExtra());
+  save_h(blk + gs.df);
+  // dz_{D-1} = (df @ Wf^T + draw @ Wa^T) masked by the last trunk relu
+  bwd_gemm<true, NC>(acc, H, ldh, W, W, col0, false, zero_lo, ring, pos);
+  copies_read();
+  {
+    const float* wa = wh;  // [W, 8]
+    dz_epilogue<NC>(acc, col0, bits + (md.D - 1) * mask_words(md), wpr, H,
+                    ldh, [d8, wa](int row, int col, float a) {
+                      float s = 0.0f;
+#pragma unroll
+                      for (int c = 0; c < 8; ++c)
+                        s = fmaf(d8[row * 8 + c], __ldg(wa + col * 8 + c), s);
+                      return a + s;
+                    });
+  }
+  save_h(blk + gs.dz + (md.D - 1) * slot);
+  // the trunk in reverse: H holds dz_i, dz_{i-1} replaces it
+  for (int i = md.D - 1; i >= 1; --i) {
+    if (i == md.skip + 1 && dx != nullptr)
+      dx_product(H, ldh, W, cin, dx, row0, m, false, zero_lo, ring, pos);
+    bwd_gemm<true, NC>(acc, H, ldh, W, W, col0, false, zero_lo, ring, pos);
+    copies_read();
+    dz_epilogue<NC>(acc, col0, bits + (i - 1) * mask_words(md), wpr, H, ldh,
+                    NoExtra());
+    save_h(blk + gs.dz + (i - 1) * slot);
+  }
+  // first layer: dx (+)= dz_0 @ W0^T
+  if (dx != nullptr)
+    dx_product(H, ldh, W, cin, dx, row0, m, md.skip >= 0, zero_lo, ring,
+               pos);
   // the copies must have read shared memory before the block leaves
-  if (threadIdx.x == 0)
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // -- K2b ----------------------------------------------------------------------
+
+// one float32 product of K2b on the tensor cores, m16n8k8 in TF32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // Compacts the indices of the n live tiles (flag != 0) into list, in order;
 // returns their count. All DW_THREADS threads call it.
@@ -757,16 +789,16 @@ struct DwTf32x3 {
       uint32_t bh[4][2], bl[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        split_tf32(z_t[8 * j], bh[j][0], bl[j][0]);
-        split_tf32(z_t4[8 * j], bh[j][1], bl[j][1]);
+        split_trunc(z_t[8 * j], bh[j][0], bl[j][0]);
+        split_trunc(z_t4[8 * j], bh[j][1], bl[j][1]);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         uint32_t ah[4], al[4];
-        split_tf32(a_t[16 * i], ah[0], al[0]);       // (g, t)
-        split_tf32(a_t[16 * i + 8], ah[1], al[1]);   // (g + 8, t)
-        split_tf32(a_t4[16 * i], ah[2], al[2]);      // (g, t + 4)
-        split_tf32(a_t4[16 * i + 8], ah[3], al[3]);  // (g + 8, t + 4)
+        split_trunc(a_t[16 * i], ah[0], al[0]);       // (g, t)
+        split_trunc(a_t[16 * i + 8], ah[1], al[1]);   // (g + 8, t)
+        split_trunc(a_t4[16 * i], ah[2], al[2]);      // (g, t + 4)
+        split_trunc(a_t4[16 * i + 8], ah[3], al[3]);  // (g + 8, t + 4)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           mma_tf32(acc[i][j], al, bh[j][0], bh[j][1]);
@@ -908,21 +940,52 @@ __global__ void fused_mlp_reduce_kernel(const float* __restrict__ partials,
   }
 }
 
-template <typename CT, bool MASKED>
+template <typename CT, int W, bool MASKED>
 int launch_rows(const float* x, const float* v, const float* valid,
-                const float* draw, int m, const MlpDesc& md, const void* ws,
-                const float* wh, const float* wt, float* scratch, int* live,
-                float* dx, float* dv, cudaStream_t stream) {
-  const size_t smem = rows_smem_bytes(md);
+                const float* draw, int m, const MlpDesc& md, const void* wmat,
+                const float* bias, const float* wh, const void* wdx,
+                float* scratch, int* live, float* dx, float* dv,
+                cudaStream_t stream) {
+  const int ns = rows_stages<CT>(md);
+  const size_t smem = rows_fixed_bytes<CT>(md) +
+                      static_cast<size_t>(ns) * (CH_STAGE_BYTES + 16);
+  auto kernel = fused_mlp_bwd_rows_kernel<CT, W, MASKED>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_rows_kernel<CT, MASKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (m + MLP_M - 1) / MLP_M;
-  fused_mlp_bwd_rows_kernel<CT, MASKED><<<blocks, MLP_THREADS, smem, stream>>>(
-      x, v, valid, draw, m, md, static_cast<const CT*>(ws), wh, wt,
-      param_offsets(md), scratch, live, dx, dv);
+  kernel<<<blocks, CH_THREADS_WS, smem, stream>>>(
+      x, v, valid, draw, m, md, static_cast<const unsigned char*>(wmat), bias,
+      wh, static_cast<const unsigned char*>(wdx), ns, scratch, live, dx, dv);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the rows kernel of md.W (a compile-time width, as K1's launch_width)
+template <typename CT, bool MASKED>
+int launch_rows_width(const float* x, const float* v, const float* valid,
+                      const float* draw, int m, const MlpDesc& md,
+                      const void* wmat, const float* bias, const float* wh,
+                      const void* wdx, float* scratch, int* live, float* dx,
+                      float* dv, cudaStream_t s) {
+  switch (md.W) {
+    case 64:
+      return launch_rows<CT, 64, MASKED>(x, v, valid, draw, m, md, wmat, bias,
+                                         wh, wdx, scratch, live, dx, dv, s);
+    case 128:
+      return launch_rows<CT, 128, MASKED>(x, v, valid, draw, m, md, wmat,
+                                          bias, wh, wdx, scratch, live, dx,
+                                          dv, s);
+    case 192:
+      return launch_rows<CT, 192, MASKED>(x, v, valid, draw, m, md, wmat,
+                                          bias, wh, wdx, scratch, live, dx,
+                                          dv, s);
+    case 256:
+      return launch_rows<CT, 256, MASKED>(x, v, valid, draw, m, md, wmat,
+                                          bias, wh, wdx, scratch, live, dx,
+                                          dv, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_dw(int n_tiles, const MlpDesc& md, const float* scratch,
@@ -959,30 +1022,34 @@ extern "C" int nrt_fused_mlp_bwd_layout(const MlpDesc* md, long long* out) {
   return 0;
 }
 
-// K2a over the m rows of one chunk (K3b's twin when `valid` is given);
-// dx / dv may be null (not asked for)
+// K2a over the m rows of one chunk (K3b's twin when `valid` is given):
+// `wmat` / `bias` / `wh` pack_for_chain's image, biases and heads, `wdx`
+// pack_for_dx_chain's image; dx / dv may be null (not asked for)
 extern "C" int nrt_fused_mlp_bwd_rows(const float* x, const float* v,
                                       const float* valid, const float* draw,
                                       int m, const MlpDesc* md,
-                                      const void* ws, int bf16,
-                                      const float* wh, const float* wt,
-                                      float* scratch, int* live, float* dx,
-                                      float* dv, void* stream) {
+                                      const void* wmat, const float* bias,
+                                      int bf16, const float* wh,
+                                      const void* wdx, float* scratch,
+                                      int* live, float* dx, float* dv,
+                                      void* stream) {
   if (m <= 0) return 0;
   if (!rows_shape_ok(*md) || (m + MLP_M - 1) / MLP_M > MAX_CHUNK_TILES)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return valid ? launch_rows<__nv_bfloat16, true>(
-                       x, v, valid, draw, m, *md, ws, wh, wt, scratch, live,
-                       dx, dv, s)
-                 : launch_rows<__nv_bfloat16, false>(
-                       x, v, valid, draw, m, *md, ws, wh, wt, scratch, live,
-                       dx, dv, s);
-  return valid ? launch_rows<float, true>(x, v, valid, draw, m, *md, ws, wh,
-                                          wt, scratch, live, dx, dv, s)
-               : launch_rows<float, false>(x, v, valid, draw, m, *md, ws, wh,
-                                           wt, scratch, live, dx, dv, s);
+    return valid ? launch_rows_width<__nv_bfloat16, true>(
+                       x, v, valid, draw, m, *md, wmat, bias, wh, wdx,
+                       scratch, live, dx, dv, s)
+                 : launch_rows_width<__nv_bfloat16, false>(
+                       x, v, valid, draw, m, *md, wmat, bias, wh, wdx,
+                       scratch, live, dx, dv, s);
+  return valid ? launch_rows_width<float, true>(x, v, valid, draw, m, *md,
+                                                wmat, bias, wh, wdx, scratch,
+                                                live, dx, dv, s)
+               : launch_rows_width<float, false>(x, v, valid, draw, m, *md,
+                                                 wmat, bias, wh, wdx, scratch,
+                                                 live, dx, dv, s);
 }
 
 // K2b over the chunk K2a just wrote (m rows): `splits` partials from
@@ -992,8 +1059,8 @@ extern "C" int nrt_fused_mlp_bwd_dw(int m, const MlpDesc* md,
                                     int splits, float* partials,
                                     void* stream) {
   const int n_tiles = (m + MLP_M - 1) / MLP_M;
-  if (m <= 0 || !shape_ok(*md) || n_tiles > MAX_CHUNK_TILES || splits < 1 ||
-      splits > 65535)
+  if (m <= 0 || !rows_shape_ok(*md) || n_tiles > MAX_CHUNK_TILES ||
+      splits < 1 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_dw(n_tiles, *md, scratch, live, splits, partials,
                    static_cast<cudaStream_t>(stream));
@@ -1003,7 +1070,7 @@ extern "C" int nrt_fused_mlp_bwd_dw(int m, const MlpDesc* md,
 extern "C" int nrt_fused_mlp_bwd_reduce(const MlpDesc* md,
                                         const float* partials, int n_part,
                                         float* grad, void* stream) {
-  if (!shape_ok(*md) || n_part < 1)
+  if (!rows_shape_ok(*md) || n_part < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long total = param_offsets(*md).total;
   const int threads = 256;

@@ -1,5 +1,6 @@
-// The fused NeRF-MLP forward chain for Hopper: K1/K3a (fused_mlp.cu) and
-// K5 (fused_march_full.cu) run it in both families.
+// The fused NeRF-MLP forward chain for Hopper: K1/K3a (fused_mlp.cu), K5
+// (fused_march_full.cu) and K2a's recompute and dX chain (fused_mlp_bwd.cu)
+// run it in both families.
 //
 // It computes what the TPU tile body `_forward_tile` (nerf_replication_tpu/
 // ops/fused_mlp.py:183) computes, with its rounding points: operands rounded
@@ -21,12 +22,13 @@
 //    both: x ~ hi + lo
 //    with hi = x rounded to TF32 to nearest, lo = x - hi (split_tf32
 //    below; the weights' lo rounded too), ~22 unbiased bits an operand.
-//    K2 (fused_mlp_bwd.cu) keeps its truncating split: measured against
-//    float64 it is as close as the plain version. Weights are split once,
-//    on the host, at pack time (ops/fused_mlp.pack_for_chain; splitting
-//    each staged slice in shared memory by producer warps halves the L2
-//    stream but measured slower on the H100); an activation once per
-//    element as its A fragment goes into registers.
+//    K2a's dX chain (fused_mlp_bwd.cu, the backward's pieces at the end)
+//    runs on the same ring and products with K2's truncating split:
+//    measured against float64 it is as close as the plain version.
+//    Weights are split once, on the host, at pack time (ops/fused_mlp.
+//    pack_for_chain; splitting each staged slice in shared memory by
+//    producer warps halves the L2 stream but measured slower on the H100);
+//    an activation once per element as its A fragment goes into registers.
 //  * Weights through the TMA engine. Host-packed in exactly the
 //    shared-memory image the products read (below), they stream through a
 //    ring of CH_STAGE_BYTES stages: one producer warp issues one
@@ -60,6 +62,8 @@
 // stage holds P = CH_STAGE_BYTES / (32 N) consecutive parts of one product
 // (fewer at its end); producer and consumers walk the same sequence.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -234,24 +238,32 @@ __device__ __forceinline__ void for_each_product(const MlpDesc& md, F&& f) {
   f(md.c_views_pad, W / 2);
 }
 
+// The producer's part of one product with N columns: its `parts` parts of
+// 32 N bytes at `w` through the ring, P parts a stage. Returns the end of
+// the product's image.
+__device__ __forceinline__ const unsigned char* produce_product(
+    int parts, int N, const unsigned char* w, const Ring& r, RingPos& pos) {
+  const int part = 32 * N;
+  const int per = CH_STAGE_BYTES / part;
+  for (int p0 = 0; p0 < parts; p0 += per) {
+    const unsigned bytes = static_cast<unsigned>(min(per, parts - p0) * part);
+    const int slot = pos.q % r.ns;
+    mbar_wait(&r.empty[slot], ((pos.q / r.ns) & 1) ^ 1);
+    mbar_expect_tx(&r.full[slot], bytes);
+    bulk_load(r.base + slot * CH_STAGE_BYTES, w, bytes, &r.full[slot]);
+    w += bytes;
+    ++pos.q;
+  }
+  return w;
+}
+
 // The producer: one lane streams one whole pass of the weights
 // (`w`, pack_for_chain's image) through the ring.
 template <typename CT>
 __device__ void produce_pass(const MlpDesc& md, const unsigned char* w,
                              const Ring& r, RingPos& pos) {
   for_each_product(md, [&](int K, int N) {
-    const int part = 32 * N;
-    const int per = CH_STAGE_BYTES / part;
-    const int parts = Fam<CT>::kParts * K / Fam<CT>::kStep;
-    for (int p0 = 0; p0 < parts; p0 += per) {
-      const unsigned bytes = static_cast<unsigned>(min(per, parts - p0) * part);
-      const int slot = pos.q % r.ns;
-      mbar_wait(&r.empty[slot], ((pos.q / r.ns) & 1) ^ 1);
-      mbar_expect_tx(&r.full[slot], bytes);
-      bulk_load(r.base + slot * CH_STAGE_BYTES, w, bytes, &r.full[slot]);
-      w += bytes;
-      ++pos.q;
-    }
+    w = produce_product(Fam<CT>::kParts * K / Fam<CT>::kStep, N, w, r, pos);
   });
 }
 
@@ -538,6 +550,175 @@ inline bool chain_shape_ok(const MlpDesc& md) {
          md.W <= 256 && md.c_in_pad % 16 == 0 && md.c_in_pad > 0 &&
          md.c_in_pad <= 64 && md.c_views_pad % 16 == 0 &&
          md.c_views_pad > 0 && md.c_views_pad <= 32 && md.skip < md.D - 1;
+}
+
+// -- the backward's pieces (K2a, fused_mlp_bwd.cu) ----------------------------
+//
+// K2a recomputes the forward through the chain (chain_gemm for float32,
+// bwd_gemm<false> for bf16: its activations stay float32 in shared memory
+// for the scratch, rounded to bf16 as each A fragment is loaded, where K1
+// rounds them as it stores them) and then runs the dX chain: dz @ w^T for
+// the weights of the forward in reverse, in 3xTF32 (bwd_gemm<true>). The
+// dX chain's weights are one more image (ops/fused_mlp.pack_for_dx_chain):
+// for every product of for_each_product, in that order, w^T (K = the
+// product's N, N = its K) in the float32 layout above, split truncating
+// (hi = w with its low 13 mantissa bits cleared, lo = w - hi) as K2's
+// products always split; the producer streams the forward's image, then
+// this one's products in the dX chain's order (for_each_dx_product). A
+// bf16 weight is a TF32 value: its lo is zero, so the bf16 family's image
+// holds the hi parts alone and the products read lo from one zero part in
+// shared memory (the three products stay; half the bytes stream from L2).
+
+// x = hi + lo: hi is x truncated to TF32 (its low 13 mantissa bits
+// cleared), lo = x - hi exactly (|lo| < 2^-10 |x|), read by the tensor core
+// as TF32: ~21 bits of x, K2's split (measured against float64 as close as
+// the plain version).
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// what a product of the dX chain writes
+enum DxKind { kDz, kDx, kDv };
+
+// The dX chain's products in stream order, f(j, kind): j indexes the
+// forward product (for_each_product's order) whose weight it transposes.
+// The views' v product (dv), the views' f product, the feature, then the
+// trunk from its last layer down (the skip layer's x product, for dx,
+// before its h product), then layer 0 (dx).
+template <class F>
+__device__ __forceinline__ void for_each_dx_product(const MlpDesc& md,
+                                                    F&& f) {
+  const int n = md.D + (md.skip >= 0 ? 1 : 0) + 3;  // forward products
+  f(n - 1, kDv);
+  f(n - 2, kDz);
+  f(n - 3, kDz);
+  int j = n - 4;  // the last trunk layer's (h) product
+  for (int i = md.D - 1; i >= 1; --i) {
+    if (i == md.skip + 1) {
+      f(j - 1, kDx);
+      f(j, kDz);
+      j -= 2;
+    } else {
+      f(j, kDz);
+      j -= 1;
+    }
+  }
+  f(0, kDx);
+}
+
+// float32 parts a k-step of the dX chain's image: the bf16 family's holds
+// the hi parts alone
+template <typename CT>
+constexpr int kDxParts = std::is_same<CT, float>::value ? 2 : 1;
+// k-steps of the dX chain's products between two waits (bwd_gemm)
+constexpr int kDxGroup = 4;
+
+// K2a's producer: the forward's image `wf` (pack_for_chain), then the dX
+// chain's (`wb`, pack_for_dx_chain) in for_each_dx_product's order, the dx
+// and dv products only when asked for.
+template <typename CT>
+__device__ void produce_backward(const MlpDesc& md, const unsigned char* wf,
+                                 const unsigned char* wb, bool want_dx,
+                                 bool want_dv, const Ring& r, RingPos& pos) {
+  produce_pass<CT>(md, wf, r, pos);
+  // each forward product's (K, N) and the offset of its w^T in wb
+  int fk[32], fn[32];
+  long long off[32];
+  int n = 0;
+  long long o = 0;
+  for_each_product(md, [&](int K, int N) {
+    fk[n] = K;
+    fn[n] = N;
+    off[n++] = o;
+    o += 4LL * kDxParts<CT> * K * N;
+  });
+  for_each_dx_product(md, [&](int j, DxKind kind) {
+    if ((kind == kDx && !want_dx) || (kind == kDv && !want_dv)) return;
+    produce_product(kDxParts<CT> * fn[j] / 8, fk[j], wb + off[j], r, pos);
+  });
+}
+
+// acc (+)= A[rows of this warpgroup, 0:K] @ B[0:K, col0:col0 + NC] for the
+// next product of the stream (K x N), A float32 in shared memory (row pitch
+// lda). kTf32: 3xTF32 with the truncating split (split_trunc; B's parts
+// from the host), a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first,
+// into one accumulator (K2a's dX chain); B's lo from the stream, or with
+// `zero_lo` (the shared address of 32 N zero bytes) from there; else bf16
+// (m64nNk16), A rounded to bf16 to nearest as its fragment is loaded (K2a's
+// bf16 recompute). kG k-steps go out between two waits, their A fragments
+// all loaded before the first product (chain_gemm's kGroup): K % (kG
+// k-steps) == 0.
+template <bool kTf32, int NC>
+__device__ __forceinline__ void bwd_gemm(float (&acc)[NC / 2], const float* A,
+                                         int lda, int K, int N, int col0,
+                                         bool accumulate, uint32_t zero_lo,
+                                         const Ring& r, RingPos& pos) {
+  constexpr int kStep = kTf32 ? 8 : 16, kParts = kTf32 ? 2 : 1;
+  constexpr int kG = kTf32 ? kDxGroup : 2;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int per = CH_STAGE_BYTES / (32 * N);
+  const float* row0 = A + (16 * warp + g) * lda;
+  const float* row1 = row0 + 8 * lda;
+  int part_i = 0;
+  uint32_t stage = 0;
+  auto next_part = [&]() {  // as chain_gemm's
+    if (part_i % per == 0) {
+      const int slot = pos.q % r.ns;
+      mbar_wait(&r.full[slot], (pos.q / r.ns) & 1);
+      stage = r.base + slot * CH_STAGE_BYTES;
+      ++pos.q;
+    }
+    const uint32_t addr = stage + (part_i % per) * 32 * N + 16 * col0;
+    ++part_i;
+    return addr;
+  };
+  auto bf2 = [](const float* p) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);  // .x low
+    return *reinterpret_cast<const uint32_t*>(&h);
+  };
+  for (int k0 = 0; k0 < K; k0 += kG * kStep) {
+    uint32_t a[kG][kParts][4];
+    uint64_t d[kG][kParts];
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi) {
+      const int k = k0 + gi * kStep;
+      if constexpr (kTf32) {
+        split_trunc(row0[k + t], a[gi][0][0], a[gi][1][0]);
+        split_trunc(row1[k + t], a[gi][0][1], a[gi][1][1]);
+        split_trunc(row0[k + t + 4], a[gi][0][2], a[gi][1][2]);
+        split_trunc(row1[k + t + 4], a[gi][0][3], a[gi][1][3]);
+      } else {
+        a[gi][0][0] = bf2(row0 + k + 2 * t);
+        a[gi][0][1] = bf2(row1 + k + 2 * t);
+        a[gi][0][2] = bf2(row0 + k + 8 + 2 * t);
+        a[gi][0][3] = bf2(row1 + k + 8 + 2 * t);
+      }
+      d[gi][0] = b_desc(next_part(), N);
+      if constexpr (kTf32)
+        d[gi][1] = b_desc(zero_lo ? zero_lo + 16 * col0 : next_part(), N);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int gi = 0; gi < kG; ++gi) {
+      const int scale = (accumulate || k0 > 0 || gi > 0) ? 1 : 0;
+      if constexpr (kTf32) {  // small terms first
+        wgmma_tf32<NC>(acc, a[gi][1], d[gi][0], scale);
+        wgmma_tf32<NC>(acc, a[gi][0], d[gi][1], 1);
+        wgmma_tf32<NC>(acc, a[gi][0], d[gi][0], 1);
+      } else {
+        wgmma_bf16<NC>(acc, a[gi][0], d[gi][0], scale);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // retire before the next group's A registers
+    release_upto(r, pos, part_i % per == 0 ? pos.q : pos.q - 1);
+  }
+  fence_regs<NC / 2>(acc);
+  release_upto(r, pos, pos.q);
 }
 
 }  // namespace chain

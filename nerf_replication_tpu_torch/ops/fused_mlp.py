@@ -18,14 +18,20 @@ PyTorch version of the same function:
   plain version :func:`forward_tile`.
 * **K2**, :func:`mlp_backward` (replaces ``_bwd_kernel``, fused_mlp.py:348;
   ``csrc/fused_mlp_bwd.cu``): two kernels and an ordered reduce. **K2a**
-  recomputes the forward per 64-row tile, runs the dX chain and writes
-  every operand of the weight gradients to a scratch (plain version
-  :func:`backward_rows`); **K2b** sums ``dW = A^T Z`` and ``db = sum Z``
-  over all rows as long-K products, each split of the rows into its own
-  partial (plain version :func:`weight_grads`). Rows go through in chunks
-  of at most MAX_CHUNK_TILES x 64 rows (``csrc/fused_mlp_bwd.cu``: bounds
-  the scratch, ~2.8 GB at lego width); one reduce sums every chunk's
-  partials in order. Plain version of the whole: :func:`backward_tile`.
+  recomputes the forward per 64-row tile and runs the dX chain on K1's
+  Hopper chain (wgmma products; the forward's weights in
+  :func:`pack_for_chain`'s image, then each ``w^T`` in
+  :func:`pack_for_dx_chain`'s, through one TMA ring), and writes every
+  operand of the weight gradients to a scratch by bulk copies. Its bound
+  on the card is the operations (the recompute in the compute dtype, the
+  dX chain as three TF32 products a float32 product), then the scratch's
+  bytes (plain version :func:`backward_rows`); **K2b** sums ``dW = A^T
+  Z`` and ``db = sum Z`` over all rows as long-K products, each split of
+  the rows into its own partial (plain version :func:`weight_grads`).
+  Rows go through in chunks of at most MAX_CHUNK_TILES x 64 rows
+  (``csrc/fused_mlp_bwd.cu``: bounds the scratch, ~2.8 GB at lego width);
+  one reduce sums every chunk's partials in order. Plain version of the
+  whole: :func:`backward_tile`.
 
 :class:`FusedMLPFunction` ties them into autograd: its forward launches K1
 and saves only ``(x, v, flat weights)``; its backward launches K2. A wrapper
@@ -179,33 +185,6 @@ class FusedSpec:
         return ia, ia + 1, n - 2, n - 1
 
 
-def pack_for_kernel(spec: FusedSpec, flat: list[torch.Tensor]):
-    """The kernel's two weight buffers: every compute-dtype tensor of the
-    canonical order concatenated flat (``stream``), and the float32 heads
-    ``[Wa, ba, Wr, br]`` concatenated flat (``heads``). The kernel derives
-    each tensor's offset from (D, W, skip, c_in_pad, c_views_pad) in the
-    same order. float32 matrices keep the ``[in, out]`` layout of the
-    CUDA-core GEMM; bfloat16 matrices are stored ``[out, in]``, the layout
-    the tensor cores take their B operand in (``csrc/mlp_tile.cuh``). K2a's
-    forward recompute reads this form; the forward kernels read
-    :func:`pack_for_chain`'s."""
-    heads_at = set(spec.head_indices())
-    out_major = spec.compute_dtype == torch.bfloat16
-
-    def kernel_layout(t):
-        return t.T.contiguous() if out_major and t.shape[0] > 1 else t
-
-    stream = torch.cat([kernel_layout(t).reshape(-1)
-                        for i, t in enumerate(flat)
-                        if i not in heads_at]).contiguous()
-    if stream.dtype != spec.compute_dtype:
-        raise TypeError(f"weights stream as {stream.dtype}, the spec computes "
-                        f"in {spec.compute_dtype}")
-    heads = torch.cat([flat[i].reshape(-1).to(torch.float32)
-                       for i in sorted(heads_at)]).contiguous()
-    return stream, heads
-
-
 def tf32_rna(t: torch.Tensor) -> torch.Tensor:
     """float32 ``t`` rounded to TF32, to nearest with ties away from zero
     (``cvt.rna``; the chain's ``tf32_rna``): half a TF32 ulp added to the
@@ -223,28 +202,40 @@ def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_rna(t - hi)
 
 
-# (geometry, compute dtype, device) -> (gather index, low-part flag) of the
-# chain's weight image; see _chain_layout
+def split_trunc(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t = hi + lo`` exactly, ``hi`` = ``t`` truncated to TF32
+    (its low 13 mantissa bits cleared), ``lo = t - hi`` (|lo| < 2^-10 |t|;
+    the tensor core reads its TF32 part): K2's split, the chain's device
+    ``split_trunc``."""
+    t = t.contiguous()
+    hi = (t.view(torch.int32) & -8192).view(torch.float32)
+    return hi, t - hi
+
+
+# (matrix shapes, values in 16 bytes, parts a step, transposed, device) ->
+# (gather index, low-part flag) of a chain weight image; see _chain_layout
 _CHAIN_LAYOUTS: dict = {}
 
 
-def _chain_layout(spec: FusedSpec, shapes: list[tuple[int, int]], device):
-    """Where each element of :func:`pack_for_chain`'s ``wmat`` comes from:
-    an index into the matrices concatenated flat (each ``[in, out]``
-    row-major, in flatten order) and, for float32, whether the element is a
-    TF32 low part. Built once per geometry, so that packing is one gather
-    and an elementwise split (a handful of kernels), not a chain of small
-    copies per matrix on every forward call."""
-    cd = spec.compute_dtype
-    key = (spec.D, spec.W, spec.skip, spec.c_in_pad, spec.c_views_pad, cd,
-           str(device))
+def _chain_layout(shapes: list[tuple[int, int]], e: int, two_parts: bool,
+                  transposed: bool, device):
+    """Where each element of a chain weight image comes from: an index into
+    the matrices concatenated flat (each ``[in, out]`` row-major, in flatten
+    order) and, with ``two_parts`` (a TF32-high and a low part a k-step),
+    whether the element is a low part. ``e`` values fill 16 bytes (4
+    float32, 8 bf16). ``shapes`` are the products' ``B [K, N]``: the
+    matrices themselves, or (``transposed``) their transposes, read from the
+    untransposed matrices. Built once per geometry, so that packing is one
+    gather and an elementwise split (a handful of kernels), not a chain of
+    small copies per matrix on every call."""
+    key = (tuple(shapes), e, two_parts, transposed, str(device))
     if key not in _CHAIN_LAYOUTS:
-        e = 4 if cd == torch.float32 else 8  # values in 16 bytes
         idx, low, off = [], [], 0
         for k, n in shapes:
-            src = torch.arange(off, off + k * n).reshape(k, n)
+            src = torch.arange(off, off + k * n)
+            src = src.reshape(n, k).T if transposed else src.reshape(k, n)
             steps = src.T.reshape(n, k // (2 * e), 2, e).permute(1, 2, 0, 3)
-            if cd == torch.float32:  # each step: high part, then low part
+            if two_parts:  # each step: high part, then low part
                 steps = torch.stack([steps, steps], 1)
                 part = torch.zeros(steps.shape, dtype=torch.bool)
                 part[:, 1] = True
@@ -256,19 +247,9 @@ def _chain_layout(spec: FusedSpec, shapes: list[tuple[int, int]], device):
     return _CHAIN_LAYOUTS[key]
 
 
-def pack_for_chain(spec: FusedSpec, flat: list[torch.Tensor]):
-    """The forward chain's three buffers (K1/K3a, K5; ``csrc/
-    mlp_chain_sm90.cuh``): ``wmat``, every matrix of the canonical order but
-    the heads, in the shared-memory image its tensor-core products read;
-    ``bias``, every bias but the heads' as float32 (of its compute-dtype
-    value); ``heads``, the float32 ``[Wa, ba, Wr, br]``.
-
-    A matrix ``w [K, N]`` (``[in, out]``) is stored K-major, ``w.T``, as
-    k-steps of 32 bytes (8 float32 or 16 bf16 values of k), each step as
-    ``[2, N, 16 bytes]`` (the two 16-byte halves of its k, every output row
-    n within each: the core-matrix layout of a no-swizzle wgmma operand).
-    float32 steps hold two such parts: the TF32 high part, then the low
-    part (:func:`split_tf32`), split here once instead of per tile."""
+def _chain_matrices(spec: FusedSpec, flat: list[torch.Tensor]):
+    """``(matrices, biases)`` of the canonical order but the heads, each
+    checked to stream in the spec's compute dtype."""
     heads_at = set(spec.head_indices())
     cd = spec.compute_dtype
     if cd not in (torch.float32, torch.bfloat16):
@@ -281,27 +262,55 @@ def pack_for_chain(spec: FusedSpec, flat: list[torch.Tensor]):
             raise TypeError(f"weights stream as {t.dtype}, the spec computes "
                             f"in {cd}")
         (biases if t.shape[0] == 1 else mats).append(t)
-    idx, low = _chain_layout(spec, [tuple(t.shape) for t in mats],
-                             flat[0].device)
+    return mats, biases
+
+
+def pack_for_chain(spec: FusedSpec, flat: list[torch.Tensor]):
+    """The forward chain's three buffers (K1/K3a, K5 and K2a's recompute;
+    ``csrc/mlp_chain_sm90.cuh``): ``wmat``, every matrix of the canonical
+    order but the heads, in the shared-memory image its tensor-core products
+    read;
+    ``bias``, every bias but the heads' as float32 (of its compute-dtype
+    value); ``heads``, the float32 ``[Wa, ba, Wr, br]``.
+
+    A matrix ``w [K, N]`` (``[in, out]``) is stored K-major, ``w.T``, as
+    k-steps of 32 bytes (8 float32 or 16 bf16 values of k), each step as
+    ``[2, N, 16 bytes]`` (the two 16-byte halves of its k, every output row
+    n within each: the core-matrix layout of a no-swizzle wgmma operand).
+    float32 steps hold two such parts: the TF32 high part, then the low
+    part (:func:`split_tf32`), split here once instead of per tile."""
+    mats, biases = _chain_matrices(spec, flat)
+    f32 = spec.compute_dtype == torch.float32
+    idx, low = _chain_layout([tuple(t.shape) for t in mats], 4 if f32 else 8,
+                             f32, False, flat[0].device)
     wmat = torch.cat([t.reshape(-1) for t in mats])[idx]
     if low is not None:
         hi, lo = split_tf32(wmat)
         wmat = torch.where(low, lo, hi)
     heads = torch.cat([flat[i].reshape(-1).to(torch.float32)
-                       for i in sorted(heads_at)])
+                       for i in spec.head_indices()])
     bias = torch.cat([b.reshape(-1) for b in biases]).to(torch.float32)
     return wmat, bias, heads
 
 
-def pack_transposed(flat: list[torch.Tensor]) -> torch.Tensor:
-    """K2's backward weights: every tensor of the canonical order as
-    float32, matrices transposed to ``[out, in]`` (the B operand of
-    ``dotT(dz, w) = dz @ w.T``), concatenated flat; the offsets are those
-    of the gradient buffer."""
-    return torch.cat([
-        (t.T if t.shape[0] > 1 else t).to(torch.float32).reshape(-1)
-        for t in flat
-    ]).contiguous()
+def pack_for_dx_chain(spec: FusedSpec, flat: list[torch.Tensor]):
+    """K2a's dX-chain weights (``csrc/mlp_chain_sm90.cuh``, the backward's
+    pieces): for every matrix of the canonical order but the heads, in that
+    order, ``w.T`` — the B operand of ``dotT(dz, w) = dz @ w.T``, ``[K, N]``
+    = ``[out, in]`` — as float32 in :func:`pack_for_chain`'s float32 layout
+    (K-major k-steps of 8, each a TF32-high part then a low part), split
+    truncating (:func:`split_trunc`, K2's split) whatever the compute dtype:
+    every backward product is float32. A bf16 weight is a TF32 value, its
+    low part zero: the bf16 family's image holds the high parts alone (the
+    kernel reads the low part from zeros in shared memory). The kernel
+    streams the products in the dX chain's order from these offsets."""
+    mats, _ = _chain_matrices(spec, flat)
+    f32 = spec.compute_dtype == torch.float32
+    idx, low = _chain_layout([tuple(t.shape[::-1]) for t in mats], 4, f32,
+                             True, flat[0].device)
+    hi, lo = split_trunc(torch.cat([t.reshape(-1) for t in mats])[idx]
+                         .to(torch.float32))
+    return torch.where(low, lo, hi) if f32 else hi
 
 
 def _forward_acts(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
@@ -552,8 +561,8 @@ def _bwd_layout(lib, desc) -> tuple[int, int, int, int]:
     err = lib.nrt_fused_mlp_bwd_layout(ctypes.byref(desc), out)
     if err:
         raise ValueError(
-            "the fused MLP backward kernels take what the forward takes and "
-            "D relu-mask tiles in K2a's shared memory (D <= 12 at W = 256)")
+            "the fused MLP backward kernels take what the forward takes "
+            "with D >= 2, c_in_pad 32 or 64 and c_views_pad 32")
     return tuple(int(t) for t in out)
 
 
@@ -615,8 +624,8 @@ def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
     if chunk % 64 or not 64 <= chunk <= 64 * max_tiles:
         raise ValueError(f"chunk_rows={chunk}: a multiple of 64 up to "
                          f"{64 * max_tiles}")
-    stream, heads = pack_for_kernel(spec, flat)
-    wt = pack_transposed(flat)
+    wmat, bias, heads = pack_for_chain(spec, flat)
+    wdx = pack_for_dx_chain(spec, flat)
     x, v = x.contiguous(), v.contiguous()
     sizes = [t.numel() for t in flat]
     if sum(sizes) != total:
@@ -643,8 +652,9 @@ def mlp_backward(spec: FusedSpec, x: torch.Tensor, v: torch.Tensor,
             err = lib.nrt_fused_mlp_bwd_rows(
                 _ptr(x[rows]), _ptr(v[rows]),
                 _ptr(None if valid is None else valid[rows]),
-                _ptr(draw[rows]), mc, ctypes.byref(desc), _ptr(stream), bf16,
-                _ptr(heads), _ptr(wt), _ptr(scratch), _ptr(live),
+                _ptr(draw[rows]), mc, ctypes.byref(desc), _ptr(wmat),
+                _ptr(bias), bf16, _ptr(heads), _ptr(wdx), _ptr(scratch),
+                _ptr(live),
                 _ptr(None if dx is None else dx[rows]),
                 _ptr(None if dv is None else dv[rows]), _stream(dev))
             _raise_on(lib, err, "fused_mlp_bwd_rows (K2a)")

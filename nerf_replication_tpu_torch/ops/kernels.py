@@ -53,7 +53,7 @@ SOURCES = {
     "fused_mlp_bwd": "fused_mlp_bwd.cu",
     "hash_encode": "hash_encode.cu",
 }
-HEADERS = ("common.cuh", "dda.cuh", "mlp_tile.cuh", "mlp_rows.cuh",
+HEADERS = ("common.cuh", "dda.cuh", "mlp_rows.cuh",
            "mlp_chain_sm90.cuh", "wgmma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,10 +84,10 @@ ARGTYPES = {
         # desc*, out (long long[4]: scratch floats per tile, K2b tiles,
         # gradient floats, most tiles a chunk)
         "nrt_fused_mlp_bwd_layout": [_P, _P],
-        # K2a: x, v, valid (null: K2), draw, m, desc*, w_stream, bf16,
-        # w_heads, w_transposed, scratch, live, dx, dv, stream
-        "nrt_fused_mlp_bwd_rows": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P,
-                                   _P, _P, _P, _P, _P],
+        # K2a: x, v, valid (null: K2), draw, m, desc*, w_mat, w_bias, bf16,
+        # w_heads, w_dx, scratch, live, dx, dv, stream
+        "nrt_fused_mlp_bwd_rows": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P,
+                                   _P, _P, _P, _P, _P, _P],
         # K2b: m, desc*, scratch, live, splits, partials, stream
         "nrt_fused_mlp_bwd_dw": [_I, _P, _P, _P, _I, _P, _P],
         # desc*, partials, n_part, grad, stream

@@ -10,6 +10,15 @@ and its float32 arithmetic, on the CPU.
 * The split itself rounds to nearest: over 10^6 seeded values its error
   has no sign bias (the truncating split it replaced is biased toward zero
   by ~1e-7 relative, which the chain's products compound).
+* K2a's dX-chain image (``pack_for_dx_chain``): decoded the same way, with
+  each product's ``B = w.T`` (``[out, in]``), every matrix of the flatten
+  order comes back in that order as its truncating TF32 split (hi = w with
+  the low 13 mantissa bits cleared, lo = w - hi exactly), in both compute
+  dtypes (bf16: the hi parts alone, the lo parts being zero) at every
+  width the backward kernels take; the transposed gather equals the
+  forward layout of explicitly transposed matrices.
+* The names ``benchmark/metrics/k2_roofline.py`` sums are ``__global__``
+  kernels of ``csrc/fused_mlp_bwd.cu``; ``tools/sass_check``'s SASS counts.
 * The error budget of 3xTF32 before any card run: a plain emulation of the
   chain's products (a_lo b_hi + a_hi b_lo + a_hi b_hi; activations split
   as the kernel splits them, hi rounded and lo read as TF32; float32
@@ -50,14 +59,15 @@ def _products(spec):
                   (spec.c_views_pad, spec.W2)]
 
 
-def _decode(spec, wmat):
-    """The stream back as one ``[K, N]`` matrix per product (float32: its
-    (hi, lo) pair), read as the kernel reads it."""
+def _decode(spec, wmat, shapes=None, e=None, parts=None):
+    """The stream back as one ``[K, N]`` matrix per product (two parts: its
+    (hi, lo) pair), read as the kernel reads it; by default the forward
+    image's products, e and parts of the spec's compute dtype."""
     f32 = spec.compute_dtype == torch.float32
-    e = 4 if f32 else 8
-    parts = 2 if f32 else 1
+    e = (4 if f32 else 8) if e is None else e
+    parts = (2 if f32 else 1) if parts is None else parts
     pos, mats = 0, []
-    for k, n in _products(spec):
+    for k, n in _products(spec) if shapes is None else shapes:
         size = k * n * parts
         chunk = wmat[pos:pos + size]
         pos += size
@@ -65,7 +75,7 @@ def _decode(spec, wmat):
         steps = chunk.reshape(k // (2 * e), parts, 2, n, e)
         per_part = [steps[:, p].permute(0, 1, 3, 2).reshape(k, n)
                     for p in range(parts)]
-        mats.append(tuple(per_part) if f32 else per_part[0])
+        mats.append(tuple(per_part) if parts == 2 else per_part[0])
     assert pos == wmat.numel()
     return mats
 
@@ -117,12 +127,128 @@ def test_pack_for_chain_decodes_exactly(dtype):
               if i not in set(spec.head_indices()) and t.shape[0] == 1]
     assert torch.equal(bias, torch.cat([b.reshape(-1).float()
                                         for b in biases]))
-    assert torch.equal(heads, fmlp.pack_for_kernel(spec, flat)[1])
+    assert torch.equal(heads, torch.cat([
+        flat[i].reshape(-1).float() for i in spec.head_indices()]))
 
 
 def _trunc(t):
     """A float32 value as the tensor core reads it as TF32."""
     return (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _torch_flat(dtype, W, D=4, skip=1, seed=3):
+    """(spec, flat) of a seeded port network (no JAX) at width W."""
+    from nerf_replication_tpu_torch.config import make_cfg
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.models.nerf.network import init_params
+
+    from test_torch_helpers import LEGO
+
+    net = make_network(make_cfg(LEGO, [
+        "network.nerf.W", str(W), "network.nerf.D", str(D),
+        "network.nerf.skips", f"[{skip}]"]))
+    init_params(net, torch.Generator().manual_seed(seed))
+    spec = fmlp.fused_spec_for(net.clone(dtype))
+    with torch.no_grad():
+        flat = spec.flatten_params(net.fine)
+    return spec, flat
+
+
+# every width the backward kernels take (rows_shape_ok: W a multiple of 64
+# up to 256), at lego's depth and skip at the widest
+DX_WIDTHS = [(64, 4, 1), (128, 4, 1), (192, 4, 1), (256, 8, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("W,D,skip", DX_WIDTHS,
+                         ids=[f"W{w}" for w, _, _ in DX_WIDTHS])
+def test_pack_for_dx_chain_decodes_exactly(dtype, W, D, skip):
+    spec, flat = _torch_flat(dtype, W, D, skip)
+    wdx = fmlp.pack_for_dx_chain(spec, flat)
+    assert wdx.dtype == torch.float32
+    mats = _matrices(spec, flat)
+    f32 = dtype == torch.float32
+    # each product's B = w.T [out, in], in the flatten order (the kernel's
+    # offsets); the bf16 family's image holds the hi parts alone
+    shapes = [(n, k) for k, n in _products(spec)]
+    assert [tuple(w.T.shape) for w in mats] == shapes
+    decoded = _decode(spec, wdx, shapes, e=4, parts=2 if f32 else 1)
+    assert len(decoded) == len(mats)
+    for w, got in zip(mats, decoded):
+        wt = w.T.float()
+        hi = (wt.contiguous().view(torch.int32) & -8192).view(torch.float32)
+        if f32:
+            assert torch.equal(got[0], hi)  # the truncating split
+            assert torch.equal(got[1], wt - hi)
+            assert torch.equal(got[0].double() + got[1].double(),
+                               wt.double())
+            assert torch.equal(got[0], fmlp.split_trunc(wt)[0])
+        else:  # a bf16 weight is a TF32 value: lo is zero
+            assert torch.equal(got, wt)
+            assert torch.equal(got, hi)
+            assert not fmlp.split_trunc(wt)[1].any()
+
+
+def test_dx_layout_gathers_the_transposes():
+    """The transposed gather of ``_chain_layout`` (the dX image) equals the
+    forward's layout over explicitly transposed matrices."""
+    spec, flat = _torch_flat(torch.float32, 128)
+    mats = _matrices(spec, flat)
+    shapes = [tuple(w.shape[::-1]) for w in mats]
+    flat_in = torch.cat([w.reshape(-1) for w in mats])
+    flat_t = torch.cat([w.T.contiguous().reshape(-1) for w in mats])
+    idx_t, low_t = fmlp._chain_layout(shapes, 4, True, True, "cpu")
+    idx, low = fmlp._chain_layout(shapes, 4, True, False, "cpu")
+    assert torch.equal(flat_in[idx_t], flat_t[idx])
+    assert torch.equal(low_t, low)
+
+
+def test_bwd_kernels_carry_the_roofline_names():
+    """Every kernel name fragment that ``benchmark/metrics/k2_roofline.py``
+    sums is a ``__global__`` kernel of ``csrc/fused_mlp_bwd.cu`` (a kernel
+    named otherwise would leave K2's time out of ``k2_roofline``)."""
+    import os
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    metric = open(os.path.join(root, "benchmark", "metrics",
+                               "k2_roofline.py")).read()
+    frags = re.findall(r'"(fused_mlp_\w+_kernel)"', metric)
+    assert sorted(frags) == ["fused_mlp_bwd_dw_kernel",
+                             "fused_mlp_bwd_rows_kernel",
+                             "fused_mlp_reduce_kernel"]
+    src = open(os.path.join(root, "nerf_replication_tpu_torch", "csrc",
+                            "fused_mlp_bwd.cu")).read()
+    kernels = re.findall(r"__global__\s+(?:void\s+__launch_bounds__\([^)]*"
+                         r"\)|__launch_bounds__\([^)]*\)\s+void|void)\s+"
+                         r"(\w+)\s*\(", src)
+    assert sorted(kernels) == sorted(frags)
+
+
+def test_sass_counts_per_function():
+    from nerf_replication_tpu_torch.tools import sass_check
+
+    sass = """
+        code for sm_90a
+                Function : _ZN4rows_kernelEv
+        /*0010*/   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR4], R24 ;
+        /*0020*/   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR8], R24 ;
+        /*0030*/   UBLKCP.S.G [UR4], [UR6], UR8 ;
+        /*0040*/   SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR4+0x8], RZ ;
+                Function : _ZN6dw_kernelEv
+        /*0010*/   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0020*/   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R6.64] ;
+    """
+    counts = sass_check._counts(sass)
+    assert counts == {
+        "_ZN4rows_kernelEv": {"HGMMA": 2, "UBLKCP": 1, "SYNCS": 1},
+        "_ZN6dw_kernelEv": {"HGMMA": 0, "UBLKCP": 0, "SYNCS": 0}}
+    assert sass_check._gated("fused_mlp_bwd",
+                             "_ZN4fused_mlp_bwd_rows_kernelEv")
+    assert not sass_check._gated("fused_mlp_bwd",
+                                 "_ZN4fused_mlp_bwd_dw_kernelEv")
+    assert sass_check._gated("fused_mlp", "_ZN4anyEv")
 
 
 def _emulate(spec, x, v, wmat, bias, heads):

@@ -22,7 +22,7 @@ from nerf_replication_tpu_torch.ops.fused_mlp import (
     _pad_cols,
     forward_tile,
     fused_spec_for,
-    pack_for_kernel,
+    pack_for_chain,
 )
 
 
@@ -117,18 +117,17 @@ def test_flatten_params_matches_jax_order(lego, dtype):
         np.testing.assert_array_equal(
             np.asarray(a, np.float32), b.to(torch.float32).numpy(),
             err_msg=str(i))
-    stream, heads = pack_for_kernel(pspec, pflat)
+    wmat, bias, heads = pack_for_chain(pspec, pflat)
     W, W2 = pspec.W, pspec.W2
     assert heads.numel() == W * 8 + 8 + W2 * 8 + 8
-    assert stream.dtype == td
-    assert stream.numel() == sum(t.numel() for t in pflat) - heads.numel()
-    # f32 matrices stay [in, out] (CUDA-core GEMM); bf16 ones are stored
-    # [out, in], the tensor cores' B-operand layout; biases as they are
-    w0 = stream[: pspec.c_in_pad * W].reshape(
-        (W, pspec.c_in_pad) if dtype == "bfloat16" else (pspec.c_in_pad, W))
-    assert torch.equal(w0.T if dtype == "bfloat16" else w0, pflat[0])
-    b0 = stream[pspec.c_in_pad * W: pspec.c_in_pad * W + W]
-    assert torch.equal(b0, pflat[1].reshape(-1))
+    assert wmat.dtype == td
+    n_bias = sum(t.numel() for t in pflat if t.shape[0] == 1)
+    n_mat = sum(t.numel() for t in pflat) - heads.numel() - n_bias + 16
+    # float32 matrices as TF32 (hi, lo) pairs, bf16 ones as they are; the
+    # biases (the heads' aside) as float32 in the flatten order
+    assert wmat.numel() == n_mat * (2 if dtype == "float32" else 1)
+    assert bias.numel() == n_bias - 16 and bias.dtype == torch.float32
+    assert torch.equal(bias[:W], pflat[1].reshape(-1).float())
 
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
