@@ -1,5 +1,7 @@
 """One run of one cell: set-up, the window (traced or not), the device's
-peak, the comparison with the reference, and the metrics."""
+peak, the comparison with the reference, and the metrics. The run is
+chosen by the traffic's kind; what depends on the model comes from the
+cell's family (``families/<model>.py``)."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def _metrics(cell, values: dict) -> dict:
 def _per_layer(cell, ctx) -> dict:
     out = {}
     for m in cell.per_layer:
-        value = metric_reader(m["name"])(ctx)
+        value = metric_reader(m["name"], cell.root)(ctx)
         if value is not None:
             out[m["name"]] = value
     return out
@@ -54,6 +56,7 @@ def run_train(torch, device, cell, seed: int, seconds: float, trace: bool,
 
     _reset_peak(torch, device)
     run = TrainRun(torch, device, cell, seed, t_start)
+    run.mark("imports")
     run.setup()
     tracer = (DeviceTracer(torch, cell.traffic["trace_seconds"])
               if trace else None)
@@ -85,7 +88,8 @@ def run_train(torch, device, cell, seed: int, seconds: float, trace: bool,
         r = tracer.reading()
         result["breakdown"] = {"device_ops": r["device_ops"],
                                "idle_gaps": r["idle_gaps"]}
-    result["where"] = {**judged["where"], "numbers": judged["numbers"]}
+    result["where"] = {**judged["where"], "setup_phases": run.setup_phases,
+                       "numbers": judged["numbers"]}
     result["checks"] = {name: [value, limit] for name, value, limit in rows}
     return result
 

@@ -3,20 +3,17 @@
 
 from __future__ import annotations
 
-from counts import mlp
 from counts.peaks import PEAK_BF16
 
 
 def train_mfu(ctx):
-    """The model's operations of the traced steps (every MLP row forward
-    and its backward's two products) over the traced stretch, as a share of
-    the bf16 peak."""
+    """The model's operations of the traced steps (the family's
+    ``step_flops``) over the traced stretch, as a share of the bf16
+    peak."""
     window = ctx.trace["window_s"]
     if window <= 0.0 or ctx.steps <= 0:
         return None
-    s = ctx.spec
-    rows = sum(mlp.nerf_rows_per_step(s).values())
-    flops = mlp.train_step_flops(rows, mlp.row_flops(*mlp.nerf_widths(s)))
+    flops = ctx.cell.family.step_flops(ctx.spec)
     return 100.0 * flops * ctx.steps / window / PEAK_BF16
 
 

@@ -1,6 +1,7 @@
-"""Serving cells: an engine and its micro-batcher over the seeded network
-and the scene's analytic grid, viewers in an open loop, and the replies
-held against the reference's render of the same rays.
+"""Serving cells: an engine (built by the cell's model family) and its
+micro-batcher over the seeded network and the scene's analytic grid,
+viewers in an open loop, and the replies held against the family's
+reference render of the same rays.
 
 Each request is the HTTP handler's call without the socket:
 ``RenderEngine.render_view(c2w, H, W, focal, tier="full",
@@ -19,7 +20,7 @@ from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 
-from . import scene, weights
+from . import scene
 from .traffic import viewer_schedule
 from .window import device_sync
 
@@ -34,29 +35,6 @@ def serve_cfg(config: dict, seed: int):
                     [*prog["serve_opts"], "seed", str(int(seed))])
 
 
-def check_serve_cfg(cfg, spec: dict, serve: dict) -> None:
-    from nerf_replication_tpu_torch.renderer.accelerated import MarchOptions
-
-    m = MarchOptions.eval_from_cfg(cfg)
-    have = {"step": m.step_size, "max_samples": m.max_samples,
-            "termination": m.transmittance_threshold,
-            "coarse_block": m.coarse_block,
-            "route": m.march_fused,
-            "compute_dtype": str(cfg.precision.compute_dtype),
-            "near": float(cfg.task_arg.near), "far": float(cfg.task_arg.far),
-            "D": int(cfg.network.nerf.D), "W": int(cfg.network.nerf.W)}
-    want = {"step": serve["step"], "max_samples": serve["max_samples"],
-            "termination": serve["termination"],
-            "coarse_block": serve.get("coarse_block", 0),
-            "route": serve["route"], "compute_dtype": serve["compute_dtype"],
-            "near": spec["near"], "far": spec["far"], "D": spec["D"],
-            "W": spec["W"]}
-    bad = {k: (have[k], want[k]) for k in want if have[k] != want[k]}
-    if bad:
-        raise ValueError(f"the program's serving configuration is not the "
-                         f"stated one (program, stated): {bad}")
-
-
 class ServeRun:
     def __init__(self, torch, device, cell, seed: int, t_start: float):
         self.torch, self.device, self.cell = torch, device, cell
@@ -64,38 +42,25 @@ class ServeRun:
         self.t_start = t_start
         self.spec = cell.config["model_spec"]
         self.serve = cell.config["serve"]
+        self.family = cell.family
         self.traffic = cell.traffic
 
-    def _layout(self):
-        from reference import nerf
-
-        s = self.spec
-        c_pts, c_views = (nerf.encoded_width(s["pe_xyz"]),
-                          nerf.encoded_width(s["pe_dir"]))
-        return [item for p in ("coarse", "fine") for item in
-                nerf.mlp_layout(p, s["D"], s["W"], s["skips"], c_pts,
-                                c_views)]
-
     def make_inputs(self) -> None:
-        self.w0 = weights.make_weights(self._layout(), self.seed,
-                                       self.device)
+        self.w0 = self.family.initial_weights(self.spec, self.seed,
+                                              self.device)
         self.grid = scene.analytic_occupancy(self.serve["grid_res"],
                                              device=self.device)
         self.bbox = np.asarray(self.serve["bbox"], np.float32)
 
     def setup(self) -> None:
-        from nerf_replication_tpu_torch.models import make_network
-        from nerf_replication_tpu_torch.serve import MicroBatcher, RenderEngine
+        from nerf_replication_tpu_torch.serve import MicroBatcher
 
         self.make_inputs()
         cfg = serve_cfg(self.cell.config, self.seed)
-        check_serve_cfg(cfg, self.spec, self.serve)
-        network = make_network(cfg).to(self.device)
-        weights.load_into(network, self.w0)
-        self.engine = RenderEngine(
-            cfg, network, self.spec["near"], self.spec["far"],
-            grid=self.grid.cpu().numpy(), bbox=self.bbox,
-            device=self.device, warmup_families=("full",))
+        self.family.check_serve_cfg(cfg, self.spec, self.serve)
+        self.engine = self.family.build_engine(cfg, self.w0, self.grid,
+                                               self.bbox, self.spec,
+                                               self.device)
         self.batcher = MicroBatcher(self.engine)
         # the client path once at each end of the size range, off the orbit
         for side in (self.traffic["side_min"], self.traffic["side_max"]):
@@ -210,15 +175,6 @@ class ServeRun:
             self.torch.cuda.empty_cache()
 
     # -- the comparison -------------------------------------------------
-    def field(self, precision: str = "float32"):
-        from reference import nerf
-        from reference.precision import operand_rounding
-
-        q = operand_rounding(precision)
-        s, w = self.spec, self.w0
-        return lambda pts, vd: nerf.field(w, "fine", pts[:, None, :], vd, s,
-                                          q)[:, 0, :]
-
     def rays_of(self, req):
         """The request's rays ``[H*W, 6]`` on the device, worked out from
         its pose and size."""
@@ -231,22 +187,17 @@ class ServeRun:
             self.device)
 
     def reference_maps(self, req, precision: str = "float32") -> dict:
-        from reference import serve_march
+        """The family's plain render of the request's rays."""
         from reference.precision import exact_float32
 
         exact_float32()
-        serve = dict(self.serve, near=self.spec["near"], far=self.spec["far"])
         with self.torch.no_grad():
-            return serve_march.render(self.field(precision),
-                                      self.rays_of(req), self.grid,
-                                      dict(self.spec, bbox=self.serve["bbox"]),
-                                      serve)
+            return self.family.reference_maps(self.w0, self.rays_of(req),
+                                              self.grid, self.spec,
+                                              self.serve, precision)
 
     def count_samples(self, reqs) -> int:
-        from reference import serve_march
-
-        spec = dict(self.spec, bbox=self.serve["bbox"])
         with self.torch.no_grad():
-            return sum(serve_march.count_samples(self.rays_of(r), self.grid,
-                                                 spec, self.serve)
+            return sum(self.family.count_samples(self.rays_of(r), self.grid,
+                                                 self.spec, self.serve)
                        for r in reqs)

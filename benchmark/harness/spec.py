@@ -3,9 +3,12 @@
 ``BENCHMARK.json`` (at the checkout's root) names each cell's
 configuration and traffic; the configuration's file is the one its entry
 names (``benchmark/configs/<name>.json``), the traffic is
-``benchmark/traffic/<name>.json`` and a per-layer metric's reader is
-``benchmark/metrics/<name>.py``. Adding a cell, a configuration, a traffic
-mix or a metric adds files and entries; nothing here changes.
+``benchmark/traffic/<name>.json``, the model's family (every model-specific
+step of a run, ``families/nerf.py`` says which) is
+``benchmark/families/<model_spec.model>.py`` and a per-layer metric's
+reader is ``benchmark/metrics/<name>.py``. Adding a cell, a configuration,
+a model, a traffic mix or a metric adds files and entries; nothing here
+changes.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ class Cell:
     end_to_end: list
     per_layer: list
     chips: int
+    family: object  # the loaded ``families/<model>.py``
+    root: str  # where its files were found
 
 
 def load_benchmark(root: str = ROOT) -> dict:
@@ -57,15 +62,28 @@ def resolve(cell_name: str, root: str = ROOT) -> Cell:
     e2e_names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if m["moves"] in e2e_names and _in_cell(m, cell_name)]
+    family = load_family(config["model_spec"]["model"], root)
     return Cell(cell_name, config, traffic, e2e, per_layer,
-                int(w["chips"]))
+                int(w["chips"]), family, root)
+
+
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_family(model: str, root: str = ROOT):
+    """The module ``benchmark/families/<model>.py``; raises
+    ``FileNotFoundError`` naming the file when there is none."""
+    path = os.path.join(root, "benchmark", "families", model + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"model {model!r} has no family file {path}")
+    return _load(path, "bench_family_" + model.replace(".", "_"))
 
 
 def metric_reader(name: str, root: str = ROOT):
     """The ``read(ctx)`` function of ``benchmark/metrics/<name>.py``."""
     path = os.path.join(root, "benchmark", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, "bench_metric_" + name.replace(".", "_")).read

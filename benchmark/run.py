@@ -29,6 +29,12 @@ ROOT = os.path.dirname(BENCH_DIR)
 os.environ["TRITON_CACHE_DIR"] = os.path.join(ROOT, "build", "triton_cache")
 os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(ROOT, "build",
                                                   "torch_extensions")
+# and so does Python's bytecode: where the environment turns its writing
+# off (PYTHONDONTWRITEBYTECODE) and the installed packages hold none, every
+# run would compile torch's modules from source again, seconds of host work
+# in each set-up
+sys.pycache_prefix = os.path.join(ROOT, "build", "pycache")
+sys.dont_write_bytecode = False
 os.environ["USE_FLAX"] = "0"
 os.environ["USE_JAX"] = "0"
 for _p in (BENCH_DIR, ROOT):

@@ -2,7 +2,8 @@
 (each fault a cell can have on one card), and when the control (the
 reference in the precision below the configuration's) takes the
 program's place. The harness's look for a card is skipped: the runs are
-on the CPU at small sizes."""
+on the CPU at small sizes. Each cell's family names where its faults are
+planted in the program."""
 
 import time
 
@@ -10,44 +11,33 @@ import pytest
 import torch
 
 from harness.cell import run_serve, run_train
-from harness.spec import load_benchmark
 from harness.train_cell import TrainRun
 from reference import compare
 
-from tiny_cells import tiny_serve, tiny_train
+from tiny_cells import cells_of_kind, plant, tiny_serve, tiny_train
 
-CELLS = [w["name"] for w in load_benchmark()["workloads"]]
-TRAIN = [n for n in CELLS if n.endswith(".train")]
-SERVE = [n for n in CELLS if n.endswith(".serve")]
+TRAIN = cells_of_kind("train_loop")
+SERVE = cells_of_kind("viewer_open")
 CPU = torch.device("cpu")
 CONTROL = {"bfloat16": "fp8_e4m3", "float32": "tf32"}
 
 
-def _train(name):
-    return run_train(torch, CPU, tiny_train(name), 2**31 + 21, 0.3, False,
+def _train_with(name, fault, monkeypatch):
+    cell = tiny_train(name)
+    plant(monkeypatch, cell, fault)
+    return run_train(torch, CPU, cell, 2**31 + 21, 0.3, False,
                      time.perf_counter())
 
 
 @pytest.mark.parametrize("name", TRAIN)
 def test_step_that_leaves_the_state_unchanged(name, monkeypatch):
-    from nerf_replication_tpu_torch.train import trainer
-
-    monkeypatch.setattr(trainer, "optimizer_step", lambda opt: None)
-    r = _train(name)
+    r = _train_with(name, "state_unchanged", monkeypatch)
     assert not r["correct"]
 
 
 @pytest.mark.parametrize("name", TRAIN)
 def test_half_of_the_batch_left_out(name, monkeypatch):
-    from nerf_replication_tpu_torch.datasets import sampling
-    from nerf_replication_tpu_torch.train import step_core
-
-    def half(gen, rays, rgbs, n_rays, index_pool=None):
-        r, c = sampling.sample_rays(gen, rays, rgbs, n_rays, index_pool)
-        return r[: n_rays // 2], c[: n_rays // 2]
-
-    monkeypatch.setattr(step_core, "sample_rays", half)
-    r = _train(name)
+    r = _train_with(name, "half_batch", monkeypatch)
     assert not r["correct"]
 
 
@@ -65,19 +55,9 @@ def test_control_fails(name):
 
 @pytest.mark.parametrize("name", SERVE)
 def test_answer_altered_where_it_is_produced(name, monkeypatch):
-    from nerf_replication_tpu_torch.serve import engine
-
-    real = engine.RenderEngine._render_bucket
-
-    def altered(self, rays, bucket, family, warm=False, scene=None):
-        out = real(self, rays, bucket, family, warm=warm, scene=scene)
-        if not warm and rays.shape[0]:
-            out["rgb_map_f"] = out["rgb_map_f"].copy()
-            out["rgb_map_f"][0] += 0.05
-        return out
-
-    monkeypatch.setattr(engine.RenderEngine, "_render_bucket", altered)
-    r = run_serve(torch, CPU, tiny_serve(name), 2**31 + 23, 2.0, False,
+    cell = tiny_serve(name)
+    plant(monkeypatch, cell, "answer_altered")
+    r = run_serve(torch, CPU, cell, 2**31 + 23, 2.0, False,
                   time.perf_counter())
     assert not r["correct"]
 

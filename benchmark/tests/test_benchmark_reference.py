@@ -13,14 +13,12 @@ import pytest
 import torch
 
 from harness.cell import run_serve, run_train
-from harness.spec import load_benchmark
 
 from conftest import BENCH_DIR, ROOT
-from tiny_cells import tiny_serve, tiny_train
+from tiny_cells import cells_of_kind, tiny_serve, tiny_train
 
-CELLS = {w["name"]: w for w in load_benchmark()["workloads"]}
-TRAIN = [n for n in CELLS if n.endswith(".train")]
-SERVE = [n for n in CELLS if n.endswith(".serve")]
+TRAIN = cells_of_kind("train_loop")
+SERVE = cells_of_kind("viewer_open")
 CPU = torch.device("cpu")
 
 
